@@ -1,0 +1,179 @@
+"""Front-to-back alpha compositing: constants, the plain version of the
+composite kernel, and the untiled oracle.
+
+Port of ``multiview_inpaint_tpu/ops/rasterizer/composite.py``. Per tile
+and per 128-splat chunk of the tile's own pair segment (chunks anchored at
+the segment start, as in the JAX XLA path):
+
+    alpha[P, C]  = min(0.99, opacity * exp(-0.5 d^T conic d))   (gated)
+    T_in[P, C]   = carry_T * exp(exclusive_cumsum(log1p(-alpha)))
+    w[P, C]      = alpha * T_in * [T_out >= 1e-4]
+    acc         += w @ [rgb, depth]
+    carry_T     *= exp(sum of the contributing logs)
+
+The stop rule is chunk-scoped, exactly as the reference's: within a chunk
+the first splat that would push T below 1e-4 is skipped and so is every
+later splat of that chunk (their prefix includes its log), but the carry
+sums only contributing logs, so a low-alpha splat of the NEXT chunk can
+contribute again. (CUDA 3DGS stops the pixel for good instead.)
+"""
+
+from __future__ import annotations
+
+import torch
+
+DEPTH_EMPTY = 15.0  # far-background depth sentinel (reference contract)
+ALPHA_MIN = 1.0 / 255.0
+ALPHA_MAX = 0.99
+T_STOP = 1e-4
+# Per-splat alpha cutoff = the opacity-aware k-sigma ellipse the binning
+# extents encode (k = min(3, sqrt(2 ln(255 op))), geometry.py): alpha >=
+# max(1/255, op*e^{-4.5}). Gating per pixel on the exact ellipse makes the
+# composited image independent of the tile shape.
+GATE_E = 0.011108996538242306  # e^{-4.5}
+CHUNK = 128  # splats per compositing step (the reference's chunk)
+# Packed per-pair attribute rows (``composite_cuda.pack_attrs``):
+# 0 mean_x, 1 mean_y, 2-4 conic abc, 5 opacity, 6-8 rgb, 9 depth,
+# 10 alpha gate, 11-15 zero pad. Raw output rows per tile: 0-2 bg-free
+# rgb accumulators, 3 depth accumulator, 4 final T, 5-7 zero.
+NROWS = 16
+OUT_ROWS = 8
+# Tile-batch size of the plain version: bounds its [tiles, PIX, CHUNK]
+# intermediates to ~2^25 elements whatever the frame size.
+_PLAIN_ELEMS = 1 << 25
+
+
+def alpha_gate(opacity: torch.Tensor) -> torch.Tensor:
+    """Per-splat minimum contributing alpha (see GATE_E)."""
+    return torch.clamp(opacity * GATE_E, min=ALPHA_MIN)
+
+
+def tile_pixel_coords(tiles_x: int, tiles_y: int, tile_w: int, tile_h: int,
+                      device=None) -> torch.Tensor:
+    """[T, PIX, 2] integer-valued float32 pixel coordinates of every tile
+    (the reference's ``_tile_pixel_coords``: no +0.5 offset)."""
+    ty, tx = torch.meshgrid(torch.arange(tiles_y), torch.arange(tiles_x),
+                            indexing="ij")
+    origin = torch.stack([tx.reshape(-1) * tile_w, ty.reshape(-1) * tile_h],
+                         dim=-1)
+    ly, lx = torch.meshgrid(torch.arange(tile_h), torch.arange(tile_w),
+                            indexing="ij")
+    local = torch.stack([lx.reshape(-1), ly.reshape(-1)], dim=-1)
+    return (origin[:, None, :] + local[None, :, :]).to(
+        dtype=torch.float32, device=device)
+
+
+def composite_segments(attrs: torch.Tensor, seg_start: torch.Tensor,
+                       counts: torch.Tensor, tiles_x: int, tiles_y: int,
+                       tile_h: int, tile_w: int,
+                       chunk: int = CHUNK) -> torch.Tensor:
+    """Plain version of the composite kernel (K2).
+
+    attrs [P, 16] pair-sorted packed attributes; seg_start/counts [T]
+    int64 segment of each tile. Returns raw [T, 8, PIX] tiles (see
+    OUT_ROWS); the caller composites the background. Differentiable
+    through autograd (every update is out of place).
+    """
+    dev = attrs.device
+    n_tiles = tiles_x * tiles_y
+    pix = tile_h * tile_w
+    coords = tile_pixel_coords(tiles_x, tiles_y, tile_w, tile_h, dev)
+    t_carry = torch.ones((n_tiles, pix), dtype=torch.float32, device=dev)
+    acc = torch.zeros((n_tiles, pix, 4), dtype=torch.float32, device=dev)
+    k_max = int(counts.max()) if n_tiles else 0
+    lane = torch.arange(chunk, device=dev)
+    batch = max(1, _PLAIN_ELEMS // (pix * chunk))
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    for c0 in range(0, k_max, chunk):
+        # Only tiles whose segment reaches this chunk do work.
+        busy = torch.nonzero(counts > c0).flatten()
+        for lo in range(0, busy.numel(), batch):
+            tl = busy[lo:lo + batch]
+            k = c0 + lane
+            ok = k[None, :] < counts[tl, None]                  # [L, C]
+            idx = torch.where(ok, seg_start[tl, None] + k[None, :], 0)
+            a = attrs[idx]                                      # [L, C, 16]
+            pxy = coords[tl]                                    # [L, P, 2]
+            dx = pxy[:, :, None, 0] - a[:, None, :, 0]          # [L, P, C]
+            dy = pxy[:, :, None, 1] - a[:, None, :, 1]
+            ca = a[:, None, :, 2]
+            cb = a[:, None, :, 3]
+            cc = a[:, None, :, 4]
+            power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+            alpha = torch.clamp(a[:, None, :, 5] * torch.exp(power),
+                                max=ALPHA_MAX)
+            keep = ((alpha >= a[:, None, :, 10]) & ok[:, None, :]
+                    & (power <= 0))
+            alpha = torch.where(keep, alpha, zero)
+            logs = torch.log1p(-alpha)
+            cum = torch.cumsum(logs, dim=-1)
+            tc = t_carry[tl][:, :, None]
+            t_out = tc * torch.exp(cum)
+            t_in = tc * torch.exp(cum - logs)
+            contrib = t_out >= T_STOP
+            w = torch.where(contrib, alpha * t_in, zero)
+            acc = acc.index_put((tl,), acc[tl] + w @ a[:, :, 6:10])
+            t_carry = t_carry.index_put((tl,), t_carry[tl] * torch.exp(
+                torch.sum(torch.where(contrib, logs, zero), dim=-1)))
+    pad = torch.zeros((n_tiles, OUT_ROWS - 5, pix), dtype=torch.float32,
+                      device=dev)
+    return torch.cat([acc.transpose(1, 2), t_carry[:, None, :], pad], dim=1)
+
+
+def composite_dense(means2d, conic, color, depth, opacity, order,
+                    width: int, height: int, bg_color, radius=None,
+                    tile: tuple[int, int] | None = (16, 16), extent=None):
+    """Reference oracle: every pixel against every gaussian, no tiling.
+
+    ``order`` is the depth argsort of the gaussians (culled ones sort last
+    with opacity 0). With ``radius``/``tile`` a splat only reaches pixels
+    whose tile intersects its rect (``extent``: the per-axis AABB the
+    tiled path bins with). O(H*W*N): tests only.
+    """
+    dev = means2d.device
+    ys, xs = torch.meshgrid(torch.arange(height, device=dev),
+                            torch.arange(width, device=dev), indexing="ij")
+    pix = torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1).to(
+        torch.float32)
+    mu = means2d[order]
+    co = conic[order]
+    col = color[order]
+    dep = depth[order]
+    op = opacity[order]
+    dx = pix[:, None, 0] - mu[None, :, 0]
+    dy = pix[:, None, 1] - mu[None, :, 1]
+    power = (-0.5 * (co[None, :, 0] * dx * dx + co[None, :, 2] * dy * dy)
+             - co[None, :, 1] * dx * dy)
+    alpha = torch.clamp(op[None, :] * torch.exp(power), max=ALPHA_MAX)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    alpha = torch.where((alpha >= alpha_gate(op)[None, :]) & (power <= 0),
+                        alpha, zero)
+    if radius is not None and tile is not None:
+        th, tw = tile
+        if extent is not None:
+            rx = extent[order, 0].to(torch.float32)
+            ry = extent[order, 1].to(torch.float32)
+        else:
+            rx = ry = radius[order].to(torch.float32)
+        px_tile = torch.floor(pix[:, 0] / tw)
+        py_tile = torch.floor(pix[:, 1] / th)
+        x0 = torch.floor((mu[:, 0] - rx) / tw)
+        x1 = torch.floor((mu[:, 0] + rx) / tw) + 1
+        y0 = torch.floor((mu[:, 1] - ry) / th)
+        y1 = torch.floor((mu[:, 1] + ry) / th) + 1
+        in_rect = ((px_tile[:, None] >= x0[None]) &
+                   (px_tile[:, None] < x1[None]) &
+                   (py_tile[:, None] >= y0[None]) &
+                   (py_tile[:, None] < y1[None]))
+        alpha = torch.where(in_rect, alpha, zero)
+    logs = torch.log1p(-alpha)
+    cum = torch.cumsum(logs, dim=-1)
+    t_out = torch.exp(cum)
+    t_in = torch.exp(cum - logs)
+    contrib = t_out >= T_STOP
+    w = torch.where(contrib, alpha * t_in, zero)
+    t_fin = torch.exp(torch.sum(torch.where(contrib, logs, zero), dim=-1))
+    rgb = w @ col + t_fin[:, None] * bg_color[None, :]
+    dpt = w @ dep + t_fin * DEPTH_EMPTY
+    return (rgb.reshape(height, width, 3), dpt.reshape(height, width),
+            (1.0 - t_fin).reshape(height, width))
