@@ -8,24 +8,50 @@ package), phase by phase, one line each; any failure raises and exits
 non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch, TF32 settings
-   (both TF32 switches are set off, so the plain versions run in fp32);
+   (both TF32 switches are set off, so the plain versions run in fp32;
+   phase 7 puts them back to PyTorch's defaults for its own checks);
 2. build the CUDA kernels from ``multiview_inpaint_tpu_torch/csrc``;
 3. K1 (pair keys) against its plain version, bit for bit, on the 1080p
    bench frames of the 100k bench ball and the 2M-gaussian scene;
 4. K2 (composite) against its plain version on the same frames: max
    errors, pixels beyond rgb 3e-5 / depth 3e-4 (at most 0.01%), every
    pixel within the stop-flip bound;
-5. the port's whole render path on CUDA against its CPU path on a small
-   scene (rgb 3e-5, depth 3e-4), 16x16 and 8x16 tiles;
-6. the main path: the ``render`` CLI on a 1920x1080 COLMAP scene (the
+5. K3 (composite backward) against its plain version on the same frames
+   under a seeded cotangent: max error per row, pairs beyond
+   2e-6 + 1e-4 max|row| (at most 0.01%), the same for the per-gaussian
+   gradients after the gather's backward, every pair and gaussian within
+   the flip allowance, rows 10-15 exactly 0, bit-equal on a second run;
+6. the port's whole render path on CUDA against its CPU path on a small
+   scene, 16x16 and 8x16 tiles: images (rgb 3e-5, depth 3e-4) and the
+   gradients of a loss on them, means2d_offset's included (through K3 on
+   CUDA, at 2e-6 + 1e-4 max|g|);
+7. SSIM on CUDA with the TF32 switches at PyTorch's defaults: self-SSIM
+   of a 512x384 image is 1, a smooth near-identical pair is <= 1, CUDA
+   matches the CPU within 1e-6 (value) and at the gradient bar (its
+   gradient);
+8. one CUDA ``train_step`` against the CPU ``train_step`` on the
+   300-splat 96x64 scene of phase 6: loss within 1e-5 relative, every
+   field's gradient (from the Adam moments), mu, nu and the densification
+   statistics at 2e-6 + 1e-4 max|g|;
+9. main path 1: the ``render`` CLI on a 1920x1080 COLMAP scene (the
    bench camera and three yaw offsets) holding a 2M-gaussian PLY, with
    the kernel launch counters zeroed before and read after; then, for
    that scene and the 100k bench ball, the median ms/frame over those
    views (CUDA events, after one warm-up view) and a per-stage split of
    the bench view;
-7. the ``kernels`` JSON line; the last line is the ``ok`` JSON object.
+10. main path 2: the ``train_gs`` CLI for 60 iterations with
+    densification on an 8-view 960x540 orbit scene rendered from the
+    2M-gaussian scene, from 200,000 of its points, counters zeroed before
+    and read after: loss falls, densify ran twice, PLY and npz written,
+    no non-finite gradient, K3 launched once per step;
+11. the train step at full width: the 2M-gaussian bench ball in a
+    2,097,152-row buffer at 512x384, median ms/step over 10 steps after
+    2 warm-up steps (CUDA events), and its split into render forward,
+    loss, backward (loss/assembly, K3, the gather's backward, the
+    projection's backward) and Adam;
+12. the ``kernels`` JSON line; the last line is the ``ok`` JSON object.
 
-Build outputs and the scene go under ``build/`` in the checkout.
+Build outputs and the scenes go under ``build/`` in the checkout.
 """
 
 import json
@@ -55,8 +81,17 @@ SFU_OP_PER_S = 132 * 16 * 1.98e9
 # transmittance path).
 K2_FLOP_PER_PAIR_PIXEL = 15
 K2_SFU_PER_PAIR_PIXEL = 2
+# K3 work per pair-pixel: K2's gate path and special-function ops, plus
+# the 10 adds that sum each pair's gradient rows over the tile's pixels.
+K3_FLOP_PER_PAIR_PIXEL = K2_FLOP_PER_PAIR_PIXEL + 10
+K3_SFU_PER_PAIR_PIXEL = K2_SFU_PER_PAIR_PIXEL
 RGB_TOL, DEPTH_TOL, BAD_FRACTION = 3e-5, 3e-4, 1e-4
+GRAD_ATOL, GRAD_RTOL = 2e-6, 1e-4   # gradient bar: atol + rtol * max|g|
 TILE = 16
+# Main path 2 (the train CLI) and the full-width train step.
+TRAIN_W, TRAIN_H, TRAIN_VIEWS, TRAIN_POINTS = 960, 540, 8, 200_000
+TRAIN_ITERS = 60
+STEP_N, STEP_CAPACITY, STEP_W, STEP_H = 2_000_000, 2_097_152, 512, 384
 
 
 def fail(msg):
@@ -76,6 +111,12 @@ def cuda_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def grad_bar(want, dim=None):
+    """The gradient bar 2e-6 + 1e-4 max|want| (per column with dim=0)."""
+    m = want.abs().amax() if dim is None else want.abs().amax(dim=dim)
+    return GRAD_ATOL + GRAD_RTOL * m
 
 
 def phase_card(torch):
@@ -105,7 +146,7 @@ def phase_build():
 
 
 def phase_kernels(torch, card, name, params):
-    """Phases 3-4 on one 1080p bench frame; returns the K1 and K2
+    """Phases 3-5 on one 1080p bench frame; returns the K1, K2 and K3
     records of the kernels line (launches filled in later)."""
     from multiview_inpaint_tpu_torch.ops.rasterizer import (
         RenderCamera, api, binning, composite, composite_cuda, pair_expand)
@@ -132,7 +173,7 @@ def phase_kernels(torch, card, name, params):
         fail(f"K1 keys/segments differ from the plain version on {name}")
     k1_ms = cuda_ms(torch, lambda: pair_expand.expand_keys(*k1_args), 50)
     k1_plain_ms = cuda_ms(torch,
-                          lambda: pair_expand.expand_keys_ref(*k1_args), 10)
+                          lambda: pair_expand.expand_keys_ref(*k1_args), 5)
     k1_bytes = r.total * 8 + r.n_active * (8 + 4 + 4 + 4 + 8)
     k1 = dict(max_abs_err=0.0, ms=k1_ms, plain_ms=k1_plain_ms,
               bound_ms=k1_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -143,12 +184,13 @@ def phase_kernels(torch, card, name, params):
           f"{k1['bound_ms']:.4f} ms (bytes) | {card}", flush=True)
 
     counts, seg_start = seg_k
+    gid = r.order[sorted_k & 0xFFFFFFFF]          # gaussian of each pair
     attrs = composite_cuda.pack_attrs(
         proj.means2d, proj.conic, proj.opacity, proj.color,
-        proj.depth)[r.order[sorted_k & 0xFFFFFFFF]].contiguous()
+        proj.depth)[gid].contiguous()
     k2_args = (attrs, seg_start, counts, tiles_x, tiles_y, TILE, TILE)
     with torch.no_grad():
-        out_k = composite_cuda.composite(*k2_args)
+        out_k = composite_cuda.composite_fwd(*k2_args)
         out_p = composite.composite_segments(*k2_args)
     if not (torch.isfinite(out_k).all() and torch.isfinite(out_p).all()):
         fail(f"K2 output not finite on {name}")
@@ -176,10 +218,11 @@ def phase_kernels(torch, card, name, params):
                   and (e_d <= flip_t * (d_max + composite.DEPTH_EMPTY)
                        + DEPTH_TOL).all()
                   and (e_t <= flip_t + RGB_TOL).all())
-    k2_ms = cuda_ms(torch, lambda: composite_cuda.composite(*k2_args), 20)
+    k2_ms = cuda_ms(torch, lambda: composite_cuda.composite_fwd(*k2_args),
+                    10)
     with torch.no_grad():
         k2_plain_ms = cuda_ms(
-            torch, lambda: composite.composite_segments(*k2_args), 2)
+            torch, lambda: composite.composite_segments(*k2_args), 1)
     pair_pixels = r.total * pix
     t_bytes = (r.total * 64 + n_tiles * 16
                + n_tiles * 8 * pix * 4) / HBM_BYTES_PER_S
@@ -198,40 +241,242 @@ def phase_kernels(torch, card, name, params):
           f"({k2['bound_by']}) | {card}", flush=True)
     if bad > BAD_FRACTION * n_pix or not within:
         fail(f"K2 disagrees with its plain version on {name}")
-    return k1, k2
+    k3 = phase_k3(torch, card, name, attrs, seg_start, counts, out_k, gid,
+                  params.capacity, (tiles_x, tiles_y, TILE, TILE), flip_t)
+    return k1, k2, k3
+
+
+def phase_k3(torch, card, name, attrs, seg_start, counts, tiles8, gid,
+             n_gauss, size, flip_t):
+    """Phase 5: K3 against its plain version on one frame, under a seeded
+    cotangent on the raw rows 0-4."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (composite,
+                                                            composite_cuda)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    g = torch.randn(tiles8.shape, generator=gen, device=DEVICE)
+    g[:, 5:] = 0.0
+    k3_args = (attrs, seg_start, counts, tiles8, g, *size)
+    with torch.no_grad():
+        d_k = composite_cuda.composite_bwd(*k3_args)
+        again = composite_cuda.composite_bwd(*k3_args)
+        d_p = composite.composite_segments_bwd(*k3_args)
+    if not torch.isfinite(d_k).all() or d_k[:, 10:].any():
+        fail(f"K3 rows not finite, or rows 10-15 not 0, on {name}")
+    if not torch.equal(d_k, again):
+        fail(f"K3 does not repeat bit for bit on {name}")
+
+    def compare(got, want):
+        """(max abs err per row, share beyond the bar, all within the
+        flip allowance) over rows 0-9."""
+        got, want = got[:, :10], want[:, :10]
+        err = (got - want).abs()
+        share = float((err > grad_bar(want, 0)).any(dim=1).float().mean())
+        # A flipped gate or stop decision at one pixel moves a row by at
+        # most one pixel's term, whose weight is <= T_in <= T_STOP /
+        # (1 - 0.99) = 1e-2 of the row's scale.
+        within = bool((err <= flip_t * want.abs().amax(dim=0)
+                       + grad_bar(want, 0)).all())
+        return err.amax(dim=0), share, within
+
+    e_rows, share, within = compare(d_k, d_p)
+    # The gather's backward: pair rows summed into their gaussians.
+    hit = torch.zeros(n_gauss, dtype=torch.bool, device=DEVICE)
+    hit[gid] = True
+
+    def per_gaussian(d):
+        return torch.zeros((n_gauss, d.shape[1]), device=DEVICE).index_add_(
+            0, gid, d)[hit]
+
+    e_gauss, share_g, within_g = compare(per_gaussian(d_k),
+                                         per_gaussian(d_p))
+    k3_ms = cuda_ms(torch, lambda: composite_cuda.composite_bwd(*k3_args),
+                    5)
+    with torch.no_grad():
+        k3_plain_ms = cuda_ms(
+            torch, lambda: composite.composite_segments_bwd(*k3_args), 1)
+    tiles_x, tiles_y, th, tw = size
+    n_tiles, pix = tiles_x * tiles_y, th * tw
+    n_pairs = attrs.shape[0]
+    pair_pixels = n_pairs * pix
+    t_bytes = (n_pairs * 64 * 2 + n_tiles * 16
+               + n_tiles * pix * 2 * 32) / HBM_BYTES_PER_S
+    t_ops = max(pair_pixels * K3_FLOP_PER_PAIR_PIXEL / FP32_FLOP_PER_S,
+                pair_pixels * K3_SFU_PER_PAIR_PIXEL / SFU_OP_PER_S)
+    k3 = dict(max_abs_err=float(e_rows.max()), ms=k3_ms,
+              plain_ms=k3_plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+              bound_by="bytes" if t_bytes >= t_ops else "operations",
+              library_ms=None)
+    print(f"[5 K3 {name}] pairs={n_pairs} | max abs err per row "
+          f"{[float(f'{e:.3g}') for e in e_rows.tolist()]} | pairs beyond "
+          f"{GRAD_ATOL} + {GRAD_RTOL} max|row|: {share:.3g} (within flip "
+          f"allowance: {within}) | per gaussian max err "
+          f"{float(e_gauss.max()):.3g}, beyond: {share_g:.3g} (within: "
+          f"{within_g}) | rows 10-15 zero, repeats bit for bit | kernel "
+          f"{k3_ms:.4f} ms, plain {k3_plain_ms:.2f} ms, bound "
+          f"{k3['bound_ms']:.4f} ms ({k3['bound_by']}) | {card}",
+          flush=True)
+    if (share > BAD_FRACTION or share_g > BAD_FRACTION or not within
+            or not within_g):
+        fail(f"K3 disagrees with its plain version on {name}")
+    return k3
+
+
+def _small_scene(device):
+    from multiview_inpaint_tpu_torch.utils import synthetic
+    return synthetic.make_gt_gaussians(300, seed=3, spread=1.0,
+                                       device=device)
+
+
+def _small_camera():
+    from multiview_inpaint_tpu_torch.gs import cameras
+    return cameras.make_camera(0, np.eye(3), np.array([0.0, 0.0, 3.0]),
+                               fovx=0.9, fovy=0.7, width=96, height=64)
 
 
 def phase_path(torch):
-    """The whole render path on DEVICE against the CPU path."""
-    from multiview_inpaint_tpu_torch.gs import cameras
+    """The whole render path on DEVICE against the CPU path: the images,
+    and the gradients of a loss on them (through K3 on DEVICE)."""
+    from multiview_inpaint_tpu_torch.gs.gaussians import PARAM_FIELDS
     from multiview_inpaint_tpu_torch.ops.rasterizer import (RenderCamera,
                                                             render)
-    from multiview_inpaint_tpu_torch.utils import synthetic
 
-    small = synthetic.make_gt_gaussians(300, seed=3, spread=1.0,
-                                        device="cpu")
-    cam = cameras.make_camera(0, np.eye(3), np.array([0.0, 0.0, 3.0]),
-                              fovx=0.9, fovy=0.7, width=96, height=64)
+    cam = _small_camera()
     bg = [0.1, 0.2, 0.3]
+    target = np.random.default_rng(1).random((64, 96, 3)).astype(
+        np.float32)
     for tile in ((16, 16), (8, 16)):
-        with torch.no_grad():
-            a = render(small, RenderCamera.from_camera(cam, "cpu"), bg,
-                       tile=tile, device="cpu")
-            b = render(small, RenderCamera.from_camera(cam, DEVICE), bg,
-                       tile=tile, device=DEVICE)
-        e_rgb = float((a.rgb - b.rgb.cpu()).abs().max())
-        e_d = float((a.depth - b.depth.cpu()).abs().max())
-        print(f"[5 path {tile[0]}x{tile[1]}] {DEVICE} vs cpu render, pairs "
-              f"{b.pairs}: max abs err rgb {e_rgb:.3g} depth {e_d:.3g}",
-              flush=True)
+        outs, grads = [], []
+        for dev in ("cpu", DEVICE):
+            params = _small_scene(dev)
+            for f in PARAM_FIELDS:
+                getattr(params, f).requires_grad_(True)
+            offset = torch.zeros((params.capacity, 2), device=dev,
+                                 requires_grad=True)
+            out = render(params, RenderCamera.from_camera(cam, dev), bg,
+                         tile=tile, means2d_offset=offset, device=dev)
+            loss = (((out.rgb - torch.from_numpy(target).to(dev)) ** 2)
+                    .mean() + 0.1 * out.depth.mean()
+                    + 0.05 * out.alpha.mean())
+            loss.backward()
+            outs.append(out)
+            grads.append({f: getattr(params, f).grad.cpu()
+                          for f in PARAM_FIELDS} | {"offset":
+                                                    offset.grad.cpu()})
+        a, b = outs
+        e_rgb = float((a.rgb - b.rgb.cpu()).detach().abs().max())
+        e_d = float((a.depth - b.depth.cpu()).detach().abs().max())
+        worst = {f: round(float((grads[1][f] - g).abs().max())
+                          / float(grad_bar(g)), 4)
+                 for f, g in grads[0].items() if g.numel()}
+        print(f"[6 path {tile[0]}x{tile[1]}] {DEVICE} vs cpu render, pairs "
+              f"{b.pairs}: max abs err rgb {e_rgb:.3g} depth {e_d:.3g} | "
+              f"gradient err / bar {json.dumps(worst)}", flush=True)
         if not (a.pairs == b.pairs and e_rgb <= RGB_TOL
-                and e_d <= DEPTH_TOL):
+                and e_d <= DEPTH_TOL and max(worst.values()) <= 1.0):
             fail(f"{DEVICE} render path disagrees with the cpu path")
 
 
+def phase_ssim(torch):
+    """SSIM on DEVICE with the TF32 switches at PyTorch's defaults (the
+    port's blur must force float32 itself)."""
+    import torch.nn.functional as F
+
+    from multiview_inpaint_tpu_torch.utils import losses
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False   # PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        rng = np.random.default_rng(0)
+        a = rng.random((3, STEP_H, STEP_W)).astype(np.float32)
+        b = np.clip(a + rng.normal(scale=0.05, size=a.shape), 0, 1).astype(
+            np.float32)
+        ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+        ca, cb = ta.to(DEVICE), tb.to(DEVICE)
+        self_err = abs(float(losses.ssim(ca, ca)) - 1.0)
+        ramp = torch.linspace(0.2, 0.8, STEP_W, device=DEVICE)
+        smooth = (ramp[None, None, :] + 0.1 * torch.sin(torch.linspace(
+            0, 6, STEP_H, device=DEVICE))[None, :, None]).expand(
+            3, STEP_H, STEP_W).contiguous()
+        near = float(losses.ssim(smooth, smooth + 1e-3 * ramp))
+        val_err = abs(float(losses.ssim(ca, cb)) - float(losses.ssim(ta,
+                                                                     tb)))
+        grads = []
+        for x, y in ((ta, tb), (ca, cb)):
+            x = x.clone().requires_grad_(True)
+            losses.photometric_loss(x, y).backward()
+            grads.append(x.grad.cpu())
+        g_err = float((grads[1] - grads[0]).abs().max())
+        g_bar = float(grad_bar(grads[0]))
+        # What the same moment blur gives through cuDNN at the default
+        # TF32 setting (for the record: the port does not use it).
+        win = losses._gaussian_window(11, 1.5, DEVICE)
+        stacked = torch.cat([ca, cb, ca * ca, cb * cb, ca * cb])[None]
+        raw = F.conv2d(F.conv2d(stacked, win.reshape(1, 1, 11, 1).repeat(
+            15, 1, 1, 1), padding=(5, 0), groups=15), win.reshape(
+            1, 1, 1, 11).repeat(15, 1, 1, 1), padding=(0, 5), groups=15)[0]
+        tf32_err = float((raw.cpu() - losses._sep_blur(
+            torch.cat([ta, tb, ta * ta, tb * tb, ta * tb]),
+            win.cpu())).abs().max())
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    print(f"[7 ssim] tf32 cudnn=True matmul=False (defaults) | self-ssim "
+          f"{STEP_W}x{STEP_H} |1-s| {self_err:.3g} | smooth near-identical "
+          f"pair {near:.9f} | {DEVICE} vs cpu ssim err {val_err:.3g}, "
+          f"gradient err {g_err:.3g} (bar {g_bar:.3g}) | unguarded cuDNN "
+          f"blur vs fp32: {tf32_err:.3g}", flush=True)
+    if self_err > 1e-6 or near > 1.0 or val_err > 1e-6 or g_err > g_bar:
+        fail("SSIM on the card breaks its bounds or disagrees with the CPU")
+
+
+def phase_step(torch):
+    """One train step on DEVICE against the CPU train step."""
+    from multiview_inpaint_tpu_torch.gs.gaussians import PARAM_FIELDS
+    from multiview_inpaint_tpu_torch.models import gs_trainer
+    from multiview_inpaint_tpu_torch.ops.rasterizer import RenderCamera
+
+    cam = _small_camera()
+    gt = np.random.default_rng(0).random((64, 96, 3)).astype(np.float32)
+    cfg = gs_trainer.OptimizationConfig()
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        runs[dev] = gs_trainer.train_step(
+            gs_trainer.init_state(_small_scene(dev)),
+            RenderCamera.from_camera(cam, dev), torch.from_numpy(gt).to(dev),
+            torch.tensor([0.1, 0.2, 0.3], device=dev), cfg, 1.0)
+    (a, ma), (b, mb) = runs["cpu"], runs[DEVICE]
+    loss_rel = abs(float(mb.loss) - float(ma.loss)) / abs(float(ma.loss))
+    worst = {}
+    ok = ma.pairs == mb.pairs and loss_rel <= 1e-5
+    for f in PARAM_FIELDS:
+        want = a.mu[f] / 0.1            # mu = 0.1 g at step 1
+        if want.numel() == 0:
+            continue
+        bar = float(grad_bar(want))
+        e_mu = float((b.mu[f].cpu() / 0.1 - want).abs().max())
+        e_nu = float((torch.sqrt(b.nu[f].cpu() / 0.001)
+                      - torch.sqrt(a.nu[f] / 0.001)).abs().max())
+        worst[f] = round(max(e_mu, e_nu) / bar, 4)
+        ok = ok and e_mu <= bar and e_nu <= bar
+    ga = a.stats.grad_accum
+    e_ga = float((b.stats.grad_accum.cpu() - ga).abs().max())
+    ok = (ok and e_ga <= float(grad_bar(ga))
+          and torch.equal(b.stats.denom.cpu(), a.stats.denom)
+          and torch.equal(b.stats.max_radii2d.cpu(), a.stats.max_radii2d))
+    print(f"[8 step] {DEVICE} vs cpu train_step, 300 splats 96x64, pairs "
+          f"{mb.pairs}: loss rel err {loss_rel:.3g} | gradient (mu, nu) err "
+          f"/ bar per field {json.dumps(worst)} | grad_accum err "
+          f"{e_ga:.3g} | denom, max_radii2d equal", flush=True)
+    if not ok:
+        fail(f"{DEVICE} train step disagrees with the cpu train step")
+
+
 def phase_main(torch, card):
-    """The render CLI on the 2M-gaussian 1080p scene; returns the launch
-    counts of that run."""
+    """Main path 1: the render CLI on the 2M-gaussian 1080p scene; returns
+    the launch counts of that run."""
     from PIL import Image
 
     from multiview_inpaint_tpu_torch.gs import gaussians
@@ -251,13 +496,15 @@ def phase_main(torch, card):
     _kernels.reset_launches()
     t0 = time.perf_counter()
     render_cli.main(["-s", src, "-m", model, "--resolution", "1",
-                     "--skip_test"])
+                     "--skip_test", "--device", DEVICE])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = dict(_kernels.LAUNCHES)
     n_views = len(names)
-    if launches != {"pair_expand": n_views, "composite": n_views}:
-        fail(f"main path launches {launches}, expected {n_views} each")
+    if launches != {"pair_expand": n_views, "composite": n_views,
+                    "composite_bwd": 0}:
+        fail(f"main path 1 launches {launches}, expected {n_views} each "
+             f"of the forward kernels")
     out_dir = os.path.join(model, "train", "ours_1", "renders")
     pngs = sorted(os.listdir(out_dir))
     if len(pngs) != n_views:
@@ -268,8 +515,8 @@ def phase_main(torch, card):
         if arr.shape != (1080, 1920, 3) or arr.std() == 0:
             fail(f"{p}: shape {arr.shape}, constant={arr.std() == 0}")
 
-    print(f"[6 main] render CLI, {BIG_N} gaussians, {n_views} views at "
-          f"1920x1080 in {cli_s:.1f} s (PNGs written) | "
+    print(f"[9 main render] render CLI, {BIG_N} gaussians, {n_views} views "
+          f"at 1920x1080 in {cli_s:.1f} s (PNGs written) | "
           f"launches {launches} | {card}", flush=True)
     frame_times(torch, card, f"big2m ({BIG_N} gaussians, from the PLY)",
                 gaussians.load_ply(ply, 0, device=DEVICE))
@@ -306,26 +553,27 @@ def frame_times(torch, card, name, params):
                     and torch.isfinite(out.depth).all()
                     and float(out.rgb.std()) > 0):
                 fail(f"{name}: frame not finite or constant")
-    print(f"[6 frame {name}] median {statistics.median(times):.3f} "
+    print(f"[9 frame {name}] median {statistics.median(times):.3f} "
           f"ms/frame over {len(times)} views at 1920x1080 (CUDA events, "
           f"after one warm-up view; all {[round(t, 3) for t in times]}; "
           f"pairs {pairs}) | {card}", flush=True)
     split = stage_split(torch, params, cams[0])
-    print(f"[6 stages {name}] ms per stage of the bench view: "
+    print(f"[9 stages {name}] ms per stage of the bench view: "
           f"{json.dumps({k: round(v, 4) for k, v in split.items()})} | "
           f"{card}", flush=True)
 
 
 def stage_split(torch, params, cam):
     """Device ms of each step of ``api.render`` for one frame, timed with
-    CUDA events (mean of 5 frames after a warm-up frame)."""
+    CUDA events (mean of 3 frames after a warm-up frame)."""
     from multiview_inpaint_tpu_torch.ops.rasterizer import (
         api, binning, composite_cuda, pair_expand)
     tiles_x, tiles_y = -(-cam.width // TILE), -(-cam.height // TILE)
     names = ("project", "rects_compact", "K1_pair_keys", "sort",
              "segments", "gather_attrs", "K2_composite", "assemble")
     totals = dict.fromkeys(names, 0.0)
-    for it in range(6):
+    frames = 3
+    for it in range(frames + 1):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
         with torch.no_grad():
             ev[0].record()
@@ -357,7 +605,173 @@ def stage_split(torch, params, cam):
         torch.cuda.synchronize()
         if it:
             for i, n in enumerate(names):
-                totals[n] += ev[i].elapsed_time(ev[i + 1]) / 5
+                totals[n] += ev[i].elapsed_time(ev[i + 1]) / frames
+    return totals
+
+
+def phase_train(torch, card):
+    """Main path 2: the train_gs CLI on an orbit scene of the 2M-gaussian
+    scene; returns the launch counts of that run."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import _kernels
+    from multiview_inpaint_tpu_torch.pipelines import train_gs
+    from multiview_inpaint_tpu_torch.utils import synthetic
+
+    work = os.path.join(REPO, "build", "smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    src = os.path.join(work, "scene")
+    model = os.path.join(work, "model")
+    t0 = time.perf_counter()
+    names = synthetic.write_orbit_colmap_scene(
+        src, synthetic.make_big_scene(BIG_N, device=DEVICE),
+        np.linspace(-0.35, 0.35, TRAIN_VIEWS), TRAIN_W, TRAIN_H,
+        TRAIN_POINTS)
+    scene_s = time.perf_counter() - t0
+
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    train_gs.main([
+        "-s", src, "-m", model, "--resolution", "1",
+        "--iterations", str(TRAIN_ITERS), "--densify_from_iter", "20",
+        "--densify_until_iter", "50", "--densification_interval", "20",
+        "--opacity_reset_interval", "100000",
+        "--test_iterations", str(TRAIN_ITERS),
+        "--save_iterations", str(TRAIN_ITERS),
+        "--checkpoint_iterations", str(TRAIN_ITERS), "--log_interval", "10",
+        "--device", DEVICE,
+    ])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+
+    with open(os.path.join(model, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    steps = [r for r in log if "loss" in r]
+    densified = [r for r in log if "wanted" in r]
+    evals = [r for r in log if "psnr" in r]
+    n_eval = min(5, len(names))          # the CLI's report renders
+    ply = os.path.join(model, "point_cloud", f"iteration_{TRAIN_ITERS}",
+                       "point_cloud.ply")
+    ckpt = os.path.join(model, f"chkpnt{TRAIN_ITERS}.npz")
+    checks = {
+        "loss falls": bool(steps) and steps[-1]["loss"] < steps[0]["loss"],
+        "densify ran twice": [r["step"] for r in densified] == [20, 40],
+        "PLY and npz written": os.path.exists(ply) and os.path.exists(ckpt),
+        "no non-finite gradient": all(r["nonfinite_grads"] == 0
+                                      for r in steps),
+        "K3 once per step": launches["composite_bwd"] == TRAIN_ITERS,
+        "K1, K2 once per render": launches["composite"]
+        == launches["pair_expand"] == TRAIN_ITERS + n_eval,
+    }
+    last = steps[-1] if steps else {}
+    densify = [{k: r[k] for k in ("step", "cloned", "split", "pruned")}
+               for r in densified]
+    print(f"[10 main train] train_gs CLI, {TRAIN_ITERS} iterations on "
+          f"{len(names)} views at {TRAIN_W}x{TRAIN_H} (GT rendered from "
+          f"{BIG_N} gaussians, {TRAIN_POINTS} init points; scene written in "
+          f"{scene_s:.1f} s) in {cli_s:.1f} s | loss "
+          f"{[round(r['loss'], 5) for r in steps]} | points "
+          f"{last.get('points')} capacity {last.get('capacity')} pairs "
+          f"{last.get('pairs')} | densify {densify} | psnr "
+          f"{[round(r['psnr'], 3) for r in evals]} | launches {launches} | "
+          f"{json.dumps(checks)} | {card}", flush=True)
+    if not all(checks.values()):
+        fail(f"main path 2 (train CLI) checks failed: {checks}")
+    return launches
+
+
+def phase_step_time(torch, card):
+    """The train step at full width: median ms/step and its split."""
+    from multiview_inpaint_tpu_torch.gs import cameras
+    from multiview_inpaint_tpu_torch.models import gs_trainer
+    from multiview_inpaint_tpu_torch.ops.rasterizer import RenderCamera
+    from multiview_inpaint_tpu_torch.utils import synthetic
+
+    params = synthetic.make_bench_ball(STEP_N, capacity=STEP_CAPACITY,
+                                       device=DEVICE)
+    cam = RenderCamera.from_camera(cameras.make_camera(
+        0, np.eye(3), np.array([0.0, 0.0, 3.0]), fovx=1.1, fovy=0.8,
+        width=STEP_W, height=STEP_H), DEVICE)
+    gt = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (STEP_H, STEP_W, 3)).astype(np.float32)).to(DEVICE)
+    bg = torch.zeros(3, device=DEVICE)
+    cfg = gs_trainer.OptimizationConfig()
+    state = gs_trainer.init_state(params)
+    times = []
+    for it in range(12):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = gs_trainer.train_step(state, cam, gt, bg, cfg, 1.0)
+        end.record()
+        torch.cuda.synchronize()
+        if it >= 2:
+            times.append(start.elapsed_time(end))
+        if not torch.isfinite(m.loss) or int(m.nonfinite_grads):
+            fail("full-width train step: loss or gradients not finite")
+    split = step_split(torch, state, cam, gt, bg, cfg)
+    print(f"[11 step time] {STEP_N} gaussians in {STEP_CAPACITY} rows at "
+          f"{STEP_W}x{STEP_H}, pairs {m.pairs}: median "
+          f"{statistics.median(times):.3f} ms/step over {len(times)} steps "
+          f"(CUDA events, after 2 warm-up steps; all "
+          f"{[round(t, 3) for t in times]}) | split (ms, mean of 3 steps): "
+          f"{json.dumps({k: round(v, 4) for k, v in split.items()})} | "
+          f"{card}", flush=True)
+
+
+def step_split(torch, state, cam, gt, bg, cfg):
+    """Device ms of each part of ``gs_trainer.train_step``, its render
+    written out as ``api.render`` does it, with CUDA events recorded by
+    gradient hooks inside the backward."""
+    from multiview_inpaint_tpu_torch.gs.gaussians import (PARAM_FIELDS,
+                                                          GaussianParams)
+    from multiview_inpaint_tpu_torch.models import gs_trainer
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (api, binning,
+                                                            composite_cuda)
+    tiles_x, tiles_y = -(-cam.width // TILE), -(-cam.height // TILE)
+    size = (tiles_x, tiles_y, TILE, TILE, cam.width, cam.height)
+    names = ("render_fwd", "loss_fwd", "bwd_loss_assemble", "bwd_K3",
+             "bwd_gather", "bwd_projection", "adam")
+    totals = dict.fromkeys(names, 0.0)
+    frames = 3
+    for it in range(frames + 1):
+        ev = {k: torch.cuda.Event(enable_timing=True)
+              for k in ("start", "render", "loss", "t8", "k3", "gather",
+                        "bwd", "adam")}
+        p = state.params
+        ev["start"].record()
+        fields, offset = gs_trainer.leaves(p)
+        proj = api.project(GaussianParams(live=p.live, **fields), cam, 0,
+                           means2d_offset=offset)
+        bins = binning.bin_gaussians(proj.means2d.detach(), proj.radius,
+                                     proj.depth.detach(), tiles_x, tiles_y,
+                                     TILE, TILE, extent=proj.extent)
+        packed = composite_cuda.pack_attrs(proj.means2d, proj.conic,
+                                           proj.opacity, proj.color,
+                                           proj.depth)
+        attrs = packed[bins.order[bins.gid_sorted]]
+        t8 = composite_cuda.composite(attrs, bins.seg_start, bins.counts,
+                                      tiles_x, tiles_y, TILE, TILE)
+        t_fin = t8[:, 4, :]
+        rgb = api.assemble(torch.stack([t8[:, c, :] + t_fin * bg[c]
+                                        for c in range(3)], dim=-1), *size)
+        ev["render"].record()
+        loss, _ = gs_trainer.loss_terms(rgb, gt, cfg)
+        ev["loss"].record()
+        t8.register_hook(lambda g: ev["t8"].record())
+        attrs.register_hook(lambda g: ev["k3"].record())
+        packed.register_hook(lambda g: ev["gather"].record())
+        *g_fields, g_off = torch.autograd.grad(
+            loss, [fields[f] for f in PARAM_FIELDS] + [offset])
+        ev["bwd"].record()
+        gs_trainer.apply_adam(state, dict(zip(PARAM_FIELDS, g_fields)),
+                              g_off, proj.radius, proj.radius > 0, cfg, 1.0)
+        ev["adam"].record()
+        torch.cuda.synchronize()
+        if it:
+            order = ("start", "render", "loss", "t8", "k3", "gather", "bwd",
+                     "adam")
+            for n, a, b in zip(names, order, order[1:]):
+                totals[n] += ev[a].elapsed_time(ev[b]) / frames
     return totals
 
 
@@ -370,6 +784,7 @@ def main():
     sys.path.insert(0, REPO)
     from multiview_inpaint_tpu_torch.utils import synthetic
 
+    t_start = time.perf_counter()
     card = phase_card(torch)
     phase_build()
     frames = {}
@@ -379,9 +794,13 @@ def main():
         frames[name] = phase_kernels(torch, card, name,
                                      make(n, device=DEVICE))
     phase_path(torch)
+    phase_ssim(torch)
+    phase_step(torch)
     launches = phase_main(torch, card)
+    launches_train = phase_train(torch, card)
+    phase_step_time(torch, card)
 
-    k1, k2 = frames["big2m"]   # the main path's scene and shapes
+    k1, k2, k3 = frames["big2m"]   # the render main path's scene and shapes
     kernels = [
         dict(name="pair_expand", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/pair_expand.cu",
@@ -393,7 +812,14 @@ def main():
              replaces="multiview_inpaint_tpu/ops/rasterizer/"
                       "pallas_composite.py:75",
              launches=launches["composite"], **k2),
+        dict(name="composite_bwd", route="cuda",
+             source="multiview_inpaint_tpu_torch/csrc/composite_bwd.cu",
+             replaces="multiview_inpaint_tpu/ops/rasterizer/"
+                      "pallas_backward.py:54",
+             launches=launches_train["composite_bwd"], **k3),
     ]
+    print(f"[12 done] all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,21 +33,22 @@
 // so the prefix is unchanged), and a pixel that stops stops for the rest
 // of its chunk. The prefix is a sequential sum per thread instead of the
 // TPU's triangular-matmul cumsum. The float ops that decide a splat's fate
-// (power, alpha, the gates) use explicit round-to-nearest intrinsics, one
-// rounding per operation as in the plain PyTorch version, so nvcc's FMA
-// contraction cannot move a gate or stop decision off the plain version's.
-// Tensor cores, TMA and a block-level early exit are left to the work
-// that makes it fast.
+// (power, alpha, the gates, the stop) come from composite_common.cuh,
+// which the backward kernel (K3) shares, with one rounding per operation
+// as in the plain PyTorch version, so nvcc's FMA contraction cannot move a
+// gate or stop decision off the plain version's or off K3's. Tensor
+// cores, TMA and a block-level early exit are left to the work that makes
+// it fast.
 
 #include <cuda_runtime.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int kChunk = 128;      // splats per compositing step
-constexpr int kRows = 16;        // packed attribute floats per pair
-constexpr int kOutRows = 8;      // raw output rows per tile
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTStop = 1e-4f;
+using mvi::kChunk;
+using mvi::kOutRows;
+using mvi::kRows;
 
 __global__ void __launch_bounds__(256)
 composite_kernel(const float* __restrict__ attrs,
@@ -81,20 +82,11 @@ composite_kernel(const float* __restrict__ attrs,
     float contrib = 0.0f;  // sum of the contributing logs
     for (int j = 0; j < n; ++j) {
       const float* a = s_attr + j * kRows;
-      const float dx = __fsub_rn(px, a[0]);
-      const float dy = __fsub_rn(py, a[1]);
-      // power = -0.5 * (ca*dx*dx + cc*dy*dy) - cb*dx*dy
-      const float quad = __fadd_rn(__fmul_rn(__fmul_rn(a[2], dx), dx),
-                                   __fmul_rn(__fmul_rn(a[4], dy), dy));
-      const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
-                                    __fmul_rn(__fmul_rn(a[3], dx), dy));
-      const float alpha = fminf(__fmul_rn(a[5], expf(power)), kAlphaMax);
-      if (!(alpha >= a[10] && power <= 0.0f)) continue;  // log is 0
-      const float l = log1pf(-alpha);
-      cum = __fadd_rn(cum, l);
-      const float t_out = __fmul_rn(trans, expf(cum));
-      if (!(t_out >= kTStop)) break;  // skipped, with the rest of the chunk
-      const float t_in = __fmul_rn(trans, expf(__fsub_rn(cum, l)));
+      float dx, dy, ex, alpha_raw, alpha, l, t_in;
+      if (!mvi::eval_splat(a, px, py, dx, dy, ex, alpha_raw, alpha))
+        continue;  // log is 0
+      if (!mvi::transmit(trans, alpha, cum, l, t_in))
+        break;  // skipped, with the rest of the chunk
       const float wgt = __fmul_rn(alpha, t_in);
       acc_r = __fadd_rn(acc_r, __fmul_rn(wgt, a[6]));
       acc_g = __fadd_rn(acc_g, __fmul_rn(wgt, a[7]));

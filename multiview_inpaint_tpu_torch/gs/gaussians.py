@@ -25,6 +25,7 @@ from . import ply_io
 
 FIELDS = ("xyz", "features_dc", "features_rest", "opacity", "scaling",
           "rotation", "live")
+PARAM_FIELDS = FIELDS[:-1]  # the optimised float fields (all but live)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,13 +1,14 @@
 """Build, bind and count the rasterizer's CUDA kernels.
 
 The sources in ``multiview_inpaint_tpu_torch/csrc/*.cu`` export a plain C
-interface. At first use they are compiled by ``nvcc`` for Hopper
-(``sm_90a``), one process per source, all started together, and linked
-into ``build/kernels/libmvi_kernels.so`` at the root of the checkout,
-which is then loaded with ``ctypes``. A stamp of the sources and flags
-lets later processes reuse the library. Every pointer and the stream pass
-as ``c_void_p``; each C function returns ``cudaGetLastError()`` and
-``check`` raises on anything but 0.
+interface (``composite_common.cuh`` holds the per-splat math that the
+composite kernel and its backward share). At first use they are compiled
+by ``nvcc`` for Hopper (``sm_90a``), one process per source, all started
+together, and linked into ``build/kernels/libmvi_kernels.so`` at the root
+of the checkout, which is then loaded with ``ctypes``. A stamp of the
+sources, the header and the flags lets later processes reuse the library.
+Every pointer and the stream pass as ``c_void_p``; each C function
+returns ``cudaGetLastError()`` and ``check`` raises on anything but 0.
 
 ``LAUNCHES`` counts kernel launches by name: each wrapper adds one where
 it launches its kernel, and nowhere else.
@@ -29,12 +30,13 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIB_NAME = "libmvi_kernels.so"
-SOURCES = ("pair_expand.cu", "composite.cu")
+SOURCES = ("pair_expand.cu", "composite.cu", "composite_bwd.cu")
+HEADERS = ("composite_common.cuh",)
 # No --use_fast_math: __expf/__logf would break the 3e-5 parity bar.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"pair_expand": 0, "composite": 0}
+LAUNCHES = {"pair_expand": 0, "composite": 0, "composite_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +46,9 @@ _SIGNATURES = {
     # attrs, seg_start, counts, out, num_tiles, tiles_x, tile_w, tile_h,
     # stream
     "mvi_composite": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # attrs, seg_start, counts, fwd, grad, d_attrs, num_tiles, tiles_x,
+    # tile_w, tile_h, stream
+    "mvi_composite_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib = None
@@ -67,7 +72,7 @@ def nvcc_path() -> str:
 
 def _stamp() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update((CSRC / src).read_bytes())
     return h.hexdigest()
 

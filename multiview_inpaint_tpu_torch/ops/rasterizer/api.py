@@ -7,9 +7,11 @@ pair order -> composite (K2) -> background and depth sentinel.
 
 ``render`` runs on ``device`` (default ``cuda``); params and camera are
 moved there (a no-op when they already live there). On ``cpu`` every
-kernel wrapper takes its plain version and the whole path is
-differentiable through autograd; on ``cuda`` the composite backward (K3)
-comes with the GS training slice.
+kernel wrapper takes its plain version, on ``cuda`` it launches its
+kernel. The render is differentiable on both devices: the composite's
+backward is K3 (its plain version on ``cpu``), the gather of the packed
+attributes reduces the pair gradients to gaussians, and autograd carries
+them through the projection (``means2d_offset`` included).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Front-to-back alpha compositing: constants, the plain version of the
-composite kernel, and the untiled oracle.
+"""Front-to-back alpha compositing: constants, the plain versions of the
+composite kernel (K2) and its backward (K3), and the untiled oracle.
 
 Port of ``multiview_inpaint_tpu/ops/rasterizer/composite.py``. Per tile
 and per 128-splat chunk of the tile's own pair segment (chunks anchored at
@@ -19,6 +19,8 @@ contribute again. (CUDA 3DGS stops the pixel for good instead.)
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -63,6 +65,69 @@ def tile_pixel_coords(tiles_x: int, tiles_y: int, tile_w: int, tile_h: int,
         dtype=torch.float32, device=device)
 
 
+class _Chunk(NamedTuple):
+    """One chunk of a batch of tiles, recomputed as the forward does;
+    every per-splat tensor is [L, PIX, C]."""
+    idx: torch.Tensor        # [L, C] pair index (0 where not ok)
+    ok: torch.Tensor         # [L, C] lane inside the tile's segment
+    a: torch.Tensor          # [L, C, 16] packed attributes
+    dx: torch.Tensor
+    dy: torch.Tensor
+    ex: torch.Tensor         # exp(power)
+    alpha_raw: torch.Tensor  # opacity * exp(power), unclamped
+    alpha: torch.Tensor      # clamped and gated
+    keep: torch.Tensor       # passes the gate
+    logs: torch.Tensor       # log1p(-alpha)
+    t_in: torch.Tensor
+    contrib: torch.Tensor    # T_out >= T_STOP
+    w: torch.Tensor          # blend weight
+
+
+def _chunk(attrs, seg_start, counts, coords, t_carry, tl, c0, lane,
+           zero) -> _Chunk:
+    """The forward of tiles ``tl`` over splats [c0, c0 + C) of their
+    segments. The plain K2 and plain K3 both call it, so the backward
+    takes exactly the forward's gate and stop decisions."""
+    k = c0 + lane
+    ok = k[None, :] < counts[tl, None]                      # [L, C]
+    idx = torch.where(ok, seg_start[tl, None] + k[None, :], 0)
+    a = attrs[idx]                                          # [L, C, 16]
+    pxy = coords[tl]                                        # [L, P, 2]
+    dx = pxy[:, :, None, 0] - a[:, None, :, 0]              # [L, P, C]
+    dy = pxy[:, :, None, 1] - a[:, None, :, 1]
+    ca = a[:, None, :, 2]
+    cb = a[:, None, :, 3]
+    cc = a[:, None, :, 4]
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    ex = torch.exp(power)
+    alpha_raw = a[:, None, :, 5] * ex
+    alpha = torch.clamp(alpha_raw, max=ALPHA_MAX)
+    keep = (alpha >= a[:, None, :, 10]) & ok[:, None, :] & (power <= 0)
+    alpha = torch.where(keep, alpha, zero)
+    logs = torch.log1p(-alpha)
+    cum = torch.cumsum(logs, dim=-1)
+    tc = t_carry[tl][:, :, None]
+    t_out = tc * torch.exp(cum)
+    t_in = tc * torch.exp(cum - logs)
+    contrib = t_out >= T_STOP
+    w = torch.where(contrib, alpha * t_in, zero)
+    return _Chunk(idx, ok, a, dx, dy, ex, alpha_raw, alpha, keep, logs,
+                  t_in, contrib, w)
+
+
+def _chunks(counts, pix, chunk):
+    """(c0, tiles) of every chunk step: only tiles whose segment reaches
+    the chunk do work, in batches that bound the [L, PIX, C]
+    intermediates."""
+    n_tiles = counts.shape[0]
+    k_max = int(counts.max()) if n_tiles else 0
+    batch = max(1, _PLAIN_ELEMS // (pix * chunk))
+    for c0 in range(0, k_max, chunk):
+        busy = torch.nonzero(counts > c0).flatten()
+        for lo in range(0, busy.numel(), batch):
+            yield c0, busy[lo:lo + batch]
+
+
 def composite_segments(attrs: torch.Tensor, seg_start: torch.Tensor,
                        counts: torch.Tensor, tiles_x: int, tiles_y: int,
                        tile_h: int, tile_w: int,
@@ -80,44 +145,85 @@ def composite_segments(attrs: torch.Tensor, seg_start: torch.Tensor,
     coords = tile_pixel_coords(tiles_x, tiles_y, tile_w, tile_h, dev)
     t_carry = torch.ones((n_tiles, pix), dtype=torch.float32, device=dev)
     acc = torch.zeros((n_tiles, pix, 4), dtype=torch.float32, device=dev)
-    k_max = int(counts.max()) if n_tiles else 0
     lane = torch.arange(chunk, device=dev)
-    batch = max(1, _PLAIN_ELEMS // (pix * chunk))
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    for c0 in range(0, k_max, chunk):
-        # Only tiles whose segment reaches this chunk do work.
-        busy = torch.nonzero(counts > c0).flatten()
-        for lo in range(0, busy.numel(), batch):
-            tl = busy[lo:lo + batch]
-            k = c0 + lane
-            ok = k[None, :] < counts[tl, None]                  # [L, C]
-            idx = torch.where(ok, seg_start[tl, None] + k[None, :], 0)
-            a = attrs[idx]                                      # [L, C, 16]
-            pxy = coords[tl]                                    # [L, P, 2]
-            dx = pxy[:, :, None, 0] - a[:, None, :, 0]          # [L, P, C]
-            dy = pxy[:, :, None, 1] - a[:, None, :, 1]
-            ca = a[:, None, :, 2]
-            cb = a[:, None, :, 3]
-            cc = a[:, None, :, 4]
-            power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-            alpha = torch.clamp(a[:, None, :, 5] * torch.exp(power),
-                                max=ALPHA_MAX)
-            keep = ((alpha >= a[:, None, :, 10]) & ok[:, None, :]
-                    & (power <= 0))
-            alpha = torch.where(keep, alpha, zero)
-            logs = torch.log1p(-alpha)
-            cum = torch.cumsum(logs, dim=-1)
-            tc = t_carry[tl][:, :, None]
-            t_out = tc * torch.exp(cum)
-            t_in = tc * torch.exp(cum - logs)
-            contrib = t_out >= T_STOP
-            w = torch.where(contrib, alpha * t_in, zero)
-            acc = acc.index_put((tl,), acc[tl] + w @ a[:, :, 6:10])
-            t_carry = t_carry.index_put((tl,), t_carry[tl] * torch.exp(
-                torch.sum(torch.where(contrib, logs, zero), dim=-1)))
+    for c0, tl in _chunks(counts, pix, chunk):
+        s = _chunk(attrs, seg_start, counts, coords, t_carry, tl, c0, lane,
+                   zero)
+        acc = acc.index_put((tl,), acc[tl] + s.w @ s.a[:, :, 6:10])
+        t_carry = t_carry.index_put((tl,), t_carry[tl] * torch.exp(
+            torch.sum(torch.where(s.contrib, s.logs, zero), dim=-1)))
     pad = torch.zeros((n_tiles, OUT_ROWS - 5, pix), dtype=torch.float32,
                       device=dev)
     return torch.cat([acc.transpose(1, 2), t_carry[:, None, :], pad], dim=1)
+
+
+def composite_segments_bwd(attrs: torch.Tensor, seg_start: torch.Tensor,
+                           counts: torch.Tensor, tiles8: torch.Tensor,
+                           g_tiles8: torch.Tensor, tiles_x: int,
+                           tiles_y: int, tile_h: int,
+                           tile_w: int) -> torch.Tensor:
+    """Plain version of the composite backward kernel (K3).
+
+    From the forward's raw tiles ``tiles8`` and their cotangent
+    ``g_tiles8`` (both [T, 8, PIX]; rows 0-3 the rgb and depth
+    accumulators, row 4 the final T), returns d attrs [P, 16] with the
+    identity of the reference's ``pallas_backward.py:8-16``, per pixel:
+
+        A_i = g_rgb . c_i + g_d d_i
+        S_i = TotalContrib - Prefix_i        (TotalContrib = g . acc)
+        dL/dalpha_i = T_i A_i - (S_i + T_fin g_T) / (1 - alpha_i)
+
+    for every contributing splat, then through alpha = min(0.99, op
+    exp(power)) to the means, conic and opacity; d rgb / d depth are
+    sum_p w g. The walk is the forward's (``_chunk``), so the gate and
+    stop decisions are the forward's. Rows: 0-1 d mean, 2-4 d conic,
+    5 d opacity, 6-8 d rgb, 9 d depth; rows 10 (the alpha gate: a
+    comparison carries no gradient) and 11-15 are 0.
+    """
+    dev = attrs.device
+    n_tiles = tiles_x * tiles_y
+    pix = tile_h * tile_w
+    coords = tile_pixel_coords(tiles_x, tiles_y, tile_w, tile_h, dev)
+    t_carry = torch.ones((n_tiles, pix), dtype=torch.float32, device=dev)
+    prefix = torch.zeros((n_tiles, pix), dtype=torch.float32, device=dev)
+    g4 = g_tiles8[:, 0:4, :].transpose(1, 2)                # [T, PIX, 4]
+    total = torch.sum(g4 * tiles8[:, 0:4, :].transpose(1, 2), dim=-1)
+    b_term = tiles8[:, 4, :] * g_tiles8[:, 4, :]            # T_fin g_T
+    d_attrs = torch.zeros((attrs.shape[0], NROWS), dtype=torch.float32,
+                          device=dev)
+    lane = torch.arange(CHUNK, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    for c0, tl in _chunks(counts, pix, CHUNK):
+        s = _chunk(attrs, seg_start, counts, coords, t_carry, tl, c0, lane,
+                   zero)
+        g = g4[tl]                                           # [L, P, 4]
+        big_a = g @ s.a[:, :, 6:10].transpose(1, 2)          # [L, P, C]
+        wa = s.w * big_a
+        suffix = (total[tl] - prefix[tl])[:, :, None] - torch.cumsum(wa, -1)
+        d_alpha = torch.where(
+            s.contrib & s.keep,
+            s.t_in * big_a - (suffix + b_term[tl][:, :, None])
+            / (1.0 - s.alpha), zero)
+        d_raw = torch.where(s.alpha_raw < ALPHA_MAX, d_alpha, zero)
+        d_power = d_raw * s.alpha_raw
+        ca = s.a[:, None, :, 2]
+        cb = s.a[:, None, :, 3]
+        cc = s.a[:, None, :, 4]
+        rows = torch.stack([
+            torch.sum(d_power * (ca * s.dx + cb * s.dy), dim=1),
+            torch.sum(d_power * (cc * s.dy + cb * s.dx), dim=1),
+            torch.sum(-0.5 * d_power * s.dx * s.dx, dim=1),
+            torch.sum(-d_power * s.dx * s.dy, dim=1),
+            torch.sum(-0.5 * d_power * s.dy * s.dy, dim=1),
+            torch.sum(d_raw * s.ex, dim=1),
+        ], dim=-1)                                           # [L, C, 6]
+        rows = torch.cat([rows, s.w.transpose(1, 2) @ g], dim=-1)
+        d_attrs[s.idx[s.ok], :10] = rows[s.ok]
+        prefix[tl] = prefix[tl] + torch.sum(wa, dim=-1)
+        t_carry[tl] = t_carry[tl] * torch.exp(
+            torch.sum(torch.where(s.contrib, s.logs, zero), dim=-1))
+    return d_attrs
 
 
 def composite_dense(means2d, conic, color, depth, opacity, order,

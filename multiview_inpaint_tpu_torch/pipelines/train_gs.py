@@ -1,0 +1,190 @@
+"""Background GS reconstruction CLI — reference ``gs-simp/train.py``.
+
+    python -m multiview_inpaint_tpu_torch.pipelines.train_gs \\
+        -s dataset/<scene> [-m output/<scene>] [--iterations 30000] \\
+        [--device cuda|cpu] ...
+
+Port of ``multiview_inpaint_tpu/pipelines/train_gs.py``: one train step
+per iteration (render, L1+SSIM loss, backward through the composite
+backward kernel on CUDA, grouped Adam); densification edits
+fixed-capacity buffers and the capacity doubles under pressure;
+checkpoints are PLY (the inter-stage contract, ``--save_iterations``)
+plus full-state npz (``--checkpoint_iterations`` /
+``--start_checkpoint``), in the JAX package's npz layout.
+
+``--profile_dir`` writes a ``torch.profiler`` chrome trace of iterations
+100-109; ``--detect_anomaly`` turns on autograd's anomaly detection. The
+JAX CLI's TPU knobs (``--backend``, ``--max_per_tile``,
+``--pair_budget_mult``, ``--expand_window``) and its pair-budget growth
+are gone: the port's pair count is exact.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import random
+import time
+
+import numpy as np
+import torch
+
+from ..gs import checkpoint as ckpt_mod
+from ..gs.scene import Scene
+from ..models import gs_trainer
+from ..ops.rasterizer import RenderCamera, render
+from ..utils import losses as loss_utils
+from ..utils.device import resolve_device
+from ..utils.logging import RunLogger
+from . import common
+
+PROFILE_FROM, PROFILE_TO = 100, 110
+
+
+def _image(cam, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(cam.image, np.float32), device=dev)
+
+
+def train(args) -> None:
+    dev = resolve_device(args.device)
+    model_path = args.model_path or os.path.join(
+        "./output", os.path.basename(args.source_path.rstrip("/")))
+    args.model_path = model_path
+    os.makedirs(model_path, exist_ok=True)
+    common.dump_cfg(model_path, args)
+    logger = RunLogger(model_path)
+
+    scene = Scene(args.source_path, model_path, resolution=args.resolution,
+                  eval_split=args.eval, max_sh_degree=args.sh_degree,
+                  white_background=args.white_background,
+                  capacity=args.capacity, seed=0, device=dev)
+    cfg = common.optimization_config_from(args)
+    bg = common.default_background(args.white_background, dev)
+
+    if args.start_checkpoint:
+        state = ckpt_mod.load_train_state(args.start_checkpoint, dev)
+        first_iter = state.step
+    else:
+        state = gs_trainer.init_state(scene.gaussians)
+        first_iter = 0
+
+    spatial = scene.cameras_extent
+    rng = random.Random(0)
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(0)
+    sh_degree = 0  # raised every 1000 iters up to max (oneupSHdegree)
+    stack = []
+    profiler = None
+    t_start = time.time()
+    for iteration in range(first_iter + 1, cfg.iterations + 1):
+        if not stack:
+            stack = list(scene.train_cameras())
+            rng.shuffle(stack)
+        cam = stack.pop()
+        if args.profile_dir and iteration == PROFILE_FROM:
+            profiler = _start_profiler(dev)
+        if profiler is not None and iteration == PROFILE_TO:
+            _stop_profiler(profiler, args.profile_dir, iteration - 1, logger)
+            profiler = None
+        if iteration % 1000 == 0:
+            sh_degree = min(sh_degree + 1, args.sh_degree)
+        state, metrics = gs_trainer.train_step(
+            state, RenderCamera.from_camera(cam, dev), _image(cam, dev), bg,
+            cfg, spatial_lr_scale=spatial, sh_degree=sh_degree)
+        state, info = gs_trainer.maybe_densify(state, generator, cfg,
+                                               spatial, iteration)
+        state = gs_trainer.grow_if_needed(state, info)
+
+        if iteration % args.log_interval == 0:
+            logger.log(iteration, loss=metrics.loss, l1=metrics.l1,
+                       points=int(metrics.num_live),
+                       capacity=state.params.capacity, pairs=metrics.pairs,
+                       nonfinite_grads=int(metrics.nonfinite_grads),
+                       it_per_s=args.log_interval / max(
+                           time.time() - t_start, 1e-9), **(info or {}))
+            t_start = time.time()
+        if iteration in args.test_iterations:
+            _report(scene, state, bg, sh_degree, iteration, logger, dev)
+        if iteration in args.save_iterations:
+            path = scene.save(state.params, iteration)
+            logger.echo(f"[ITER {iteration}] saved {path}")
+        if iteration in args.checkpoint_iterations:
+            p = os.path.join(model_path, f"chkpnt{iteration}.npz")
+            ckpt_mod.save_train_state(p, state)
+            logger.echo(f"[ITER {iteration}] checkpoint {p}")
+    if profiler is not None:
+        _stop_profiler(profiler, args.profile_dir, cfg.iterations, logger)
+    logger.close()
+
+
+def _start_profiler(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, profile_dir, last, logger):
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    logger.echo(f"profiler trace of iterations {PROFILE_FROM}-{last} -> "
+                f"{path}")
+
+
+def _report(scene, state, bg, sh_degree, iteration, logger, dev):
+    for split, cams in (("test", scene.test_cameras()),
+                        ("train", scene.train_cameras()[:5])):
+        if not cams:
+            continue
+        psnrs, l1s = [], []
+        for cam in cams:
+            with torch.no_grad():
+                out = render(state.params, RenderCamera.from_camera(cam, dev),
+                             bg, sh_degree=sh_degree, device=dev)
+            pred = torch.clamp(out.rgb, 0, 1)
+            gt = _image(cam, dev)
+            l1s.append(float(loss_utils.l1_loss(pred, gt)))
+            psnrs.append(float(loss_utils.psnr(
+                pred.permute(2, 0, 1)[None], gt.permute(2, 0, 1)[None])
+                .reshape(-1)[0]))
+        logger.log(iteration, split=split, psnr=np.mean(psnrs),
+                   eval_l1=np.mean(l1s))
+        logger.echo(f"[ITER {iteration}] {split}: "
+                    f"L1 {np.mean(l1s):.4f} PSNR {np.mean(psnrs):.2f}")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    common.add_model_args(parser)
+    common.add_optimization_args(parser)
+    parser.add_argument("--test_iterations", nargs="+", type=int,
+                        default=[7_000, 30_000])
+    parser.add_argument("--save_iterations", nargs="+", type=int,
+                        default=[7_000, 30_000])
+    parser.add_argument("--checkpoint_iterations", nargs="+", type=int,
+                        default=[])
+    parser.add_argument("--start_checkpoint", type=str, default=None)
+    parser.add_argument("--capacity", type=int, default=None)
+    parser.add_argument("--log_interval", type=int, default=100)
+    parser.add_argument("--detect_anomaly", action="store_true",
+                        help="autograd anomaly detection (slow)")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help=f"write a torch.profiler trace of iterations "
+                             f"{PROFILE_FROM}-{PROFILE_TO - 1} to this "
+                             f"directory")
+    common.add_device_arg(parser)
+    args = parser.parse_args(argv)
+    if not args.save_iterations or args.iterations not in args.save_iterations:
+        args.save_iterations = list(args.save_iterations) + [args.iterations]
+    with torch.autograd.set_detect_anomaly(args.detect_anomaly):
+        train(args)
+
+
+if __name__ == "__main__":
+    main()

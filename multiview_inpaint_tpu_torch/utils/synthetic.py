@@ -142,9 +142,12 @@ def make_big_scene(n: int, seed: int = 0, scale_lo: float = 0.0015,
         np.log(scales), _identity_rots(n), device=device)
 
 
-def make_bench_ball(n: int = 100_000, seed: int = 0, device=DEFAULT_DEVICE):
-    """The repo bench's 1080p scene: a ball of n splats, colour from
-    position, opacity 0.8, scales in [0.004, 0.02]."""
+def make_bench_ball(n: int = 100_000, seed: int = 0, capacity=None,
+                    device=DEFAULT_DEVICE):
+    """The repo bench's scene (``bench.py``, and the train-step bench's,
+    ``scripts/bench_gs_train_step.py:51-69``): a ball of n splats, colour
+    from position, opacity 0.8, scales in [0.004, 0.02], in a buffer of
+    ``capacity`` rows."""
     rng = np.random.default_rng(seed)
     theta = rng.uniform(0, 2 * np.pi, n)
     phi = np.arccos(rng.uniform(-1, 1, n))
@@ -158,7 +161,7 @@ def make_bench_ball(n: int = 100_000, seed: int = 0, device=DEFAULT_DEVICE):
         xyz, dc, np.zeros((n, 0, 3), np.float32),
         np.full((n, 1), float(_logit32(0.8))),
         np.log(rng.uniform(0.004, 0.02, (n, 3)).astype(np.float32)),
-        _identity_rots(n), device=device)
+        _identity_rots(n), capacity=capacity, device=device)
 
 
 def _yaw_pose(yaw: float):
@@ -176,6 +179,39 @@ def bench_camera(yaw: float = 0.0, uid: int = 0, image_name: str = ""):
     return cameras.make_camera(uid, R, T, fovx=BENCH_FOVX, fovy=BENCH_FOVY,
                                width=BENCH_WIDTH, height=BENCH_HEIGHT,
                                image_name=image_name)
+
+
+def write_orbit_colmap_scene(root, params, yaws, width, height,
+                             n_points, seed=0):
+    """A COLMAP scene to train on: PINHOLE cameras at the bench pose
+    turned by each of ``yaws`` (bench fov), the images ``params``
+    rendered there (on their device), and a point cloud of ``n_points``
+    of their centres with 1 cm of jitter and their colours. Returns the
+    image names in load order."""
+    from ..ops.rasterizer import RenderCamera, render
+
+    dev = params.xyz.device
+    fx = graphics.fov2focal(BENCH_FOVX, width)
+    fy = graphics.fov2focal(BENCH_FOVY, height)
+    views = []
+    for i, yaw in enumerate(yaws):
+        R, T = _yaw_pose(yaw)
+        cam = cameras.make_camera(i, R, T, fovx=graphics.focal2fov(fx, width),
+                                  fovy=graphics.focal2fov(fy, height),
+                                  width=width, height=height)
+        with torch.no_grad():
+            img = render(params, RenderCamera.from_camera(cam, dev),
+                         torch.zeros(3), device=dev).rgb
+        views.append((f"view{i:02d}.png", R, T,
+                      torch.clamp(img, 0, 1).cpu().numpy()))
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(int(params.live.sum()), n_points, replace=False)
+    pts = params.xyz[idx].cpu().numpy() + rng.normal(
+        scale=0.01, size=(n_points, 3))
+    rgb = params.features_dc[idx, 0].cpu().numpy() * sh_utils.C0 + 0.5
+    _write_colmap(root, width, height, fx, fy, views, pts,
+                  np.clip(rgb, 0, 1) * 255)
+    return [v[0] for v in views]
 
 
 def write_bench_colmap_scene(root, yaws=(0.0, -0.06, 0.06, 0.12),

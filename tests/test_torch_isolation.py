@@ -47,7 +47,9 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
         import pytest
         from multiview_inpaint_tpu_torch.ops.rasterizer import (
             RenderCamera, render)
+        from multiview_inpaint_tpu_torch.gs import checkpoint
         from multiview_inpaint_tpu_torch.pipelines import render as cli
+        from multiview_inpaint_tpu_torch.pipelines import train_gs
         from multiview_inpaint_tpu_torch.utils import synthetic
         params = synthetic.make_gt_gaussians(8, device="cpu")
         cam = RenderCamera.from_camera(synthetic.bench_camera(), "cpu")
@@ -55,7 +57,9 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
                      lambda: synthetic.make_gt_gaussians(8),
                      lambda: RenderCamera.from_camera(
                          synthetic.bench_camera()),
-                     lambda: cli.main(["-s", "scene", "-m", "model"])):
+                     lambda: cli.main(["-s", "scene", "-m", "model"]),
+                     lambda: train_gs.main(["-s", "scene", "-m", "model"]),
+                     lambda: checkpoint.load_train_state("chkpnt.npz")):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call()
         print("all raised")

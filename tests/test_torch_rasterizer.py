@@ -1,13 +1,16 @@
 """Port parity, rasterizer: projection, binning, the plain versions of the
-pair-key kernel (K1) and the composite kernel (K2), and ``render``.
+pair-key kernel (K1), the composite kernel (K2) and its backward (K3),
+and ``render`` with its gradients.
 
 Inputs come from numpy seeds and go through the JAX package (the
 reference: ``render(backend="xla")`` and the XLA binning path; the Pallas
-expansion kernel only in interpret mode, in a clean subprocess) and
-through its PyTorch port on the CPU. Tolerances: projection at the bar of
-``test_projection_matches_ewa_oracle``; images rgb/alpha 3e-5 and depth
-3e-4 (f32 exp/log1p and sums taken in another order); integer outputs of
-binning exactly, on identical projected inputs.
+expansion and backward kernels only in interpret mode, in a clean
+subprocess) and through its PyTorch port on the CPU. Tolerances:
+projection at the bar of ``test_projection_matches_ewa_oracle``; images
+rgb/alpha 3e-5 and depth 3e-4 (f32 exp/log1p and sums taken in another
+order); integer outputs of binning exactly, on identical projected
+inputs; gradients at 2e-6 + 1e-4 max|g| (the bar of
+``tests/test_rasterizer.py:308-330``).
 """
 
 import os
@@ -310,13 +313,22 @@ def test_render_oracle_matches_jax():
     np.testing.assert_allclose(t.rgb.numpy(), b.rgb.numpy(), atol=RGB_TOL)
 
 
-def test_cpu_render_gradients_match_jax():
+def _assert_grad_close(got, want, msg=""):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want,
+                               atol=2e-6 + 1e-4 * np.abs(want).max(),
+                               err_msg=msg)
+
+
+def _check_render_gradients(tile):
+    """Whole-render gradients (through the port's plain K3 and the
+    gather's backward) against JAX autodiff through the XLA path."""
     jp = _scene(120, seed=8)
     cam = _camera(width=48, height=32)
     target = np.random.default_rng(0).random((32, 48, 3)).astype(np.float32)
 
     def jloss(params, offset):
-        out = _jax_render(params, cam, means2d_offset=offset)
+        out = _jax_render(params, cam, tile=tile, means2d_offset=offset)
         return (jnp.mean((out.rgb - target) ** 2)
                 + 0.1 * jnp.mean(out.depth) + 0.05 * jnp.mean(out.alpha))
 
@@ -328,16 +340,139 @@ def test_cpu_render_gradients_match_jax():
         getattr(tp, f).requires_grad_(True)
     offset = torch.zeros((tp.capacity, 2), requires_grad=True)
     out = tr.render(tp, tr.RenderCamera.from_camera(cam, "cpu"), BG,
-                    means2d_offset=offset, device="cpu")
+                    means2d_offset=offset, tile=tile, device="cpu")
     loss = ((out.rgb - torch.from_numpy(target)) ** 2).mean() \
         + 0.1 * out.depth.mean() + 0.05 * out.alpha.mean()
     loss.backward()
     for f, want in [(f, np.asarray(getattr(g_params, f))) for f in names] \
             + [("means2d_offset", np.asarray(g_off))]:
         got = (offset if f == "means2d_offset" else getattr(tp, f)).grad
-        np.testing.assert_allclose(got.numpy(), want,
-                                   atol=2e-6 + 1e-4 * np.abs(want).max(),
-                                   err_msg=f)
+        _assert_grad_close(got.numpy(), want, f)
+
+
+def test_cpu_render_gradients_match_jax():
+    _check_render_gradients((16, 16))
+
+
+def test_cpu_render_gradients_match_jax_8x16_tiles():
+    _check_render_gradients((8, 16))
+
+
+def _pair_inputs(p, width, height, tile):
+    """Bins and pair-sorted packed attrs of identical projected inputs."""
+    th, tw = tile
+    tx, ty = -(-width // tw), -(-height // th)
+    bins = tbinning.bin_gaussians(_t(p["means2d"]), _t(p["radius"]),
+                                  _t(p["depth"]), tx, ty, tw, th,
+                                  extent=_t(p["extent"]))
+    attrs = composite_cuda.pack_attrs(
+        _t(p["means2d"]), _t(p["conic"]), _t(p["opacity"]), _t(p["color"]),
+        _t(p["depth"]))[bins.order[bins.gid_sorted]].contiguous()
+    return bins, attrs, (tx, ty, th, tw)
+
+
+def _cotangent(shape, seed):
+    """A random cotangent on the raw rows 0-4 (rows 5-7 are padding)."""
+    g = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    g[:, 5:] = 0.0
+    return torch.from_numpy(g)
+
+
+@pytest.mark.parametrize("case", ["16x16", "8x16", "deep_tile"])
+def test_plain_k3_matches_autograd_through_plain_k2(case):
+    """Plain K3 against autograd through the plain K2 on the same pairs.
+    ``deep_tile``: a tile of > 2 chunks whose pixels saturate, so the
+    chunk-scoped stop rule fires."""
+    if case == "deep_tile":
+        cam = _camera(width=48, height=48)
+        p = _identical_projection(400, 6, cam, xy=0.08, z=(0.0, 3.0),
+                                  scale=(0.03, 0.12), op=(0.05, 0.95))
+        bins, attrs, size = _pair_inputs(p, 48, 48, (16, 16))
+        assert int(bins.counts.max()) > 2 * tcomposite.CHUNK
+    else:
+        cam = _camera(width=80, height=64)
+        p = _identical_projection(300, 10, cam)
+        tile = (16, 16) if case == "16x16" else (8, 16)
+        bins, attrs, size = _pair_inputs(p, 80, 64, tile)
+    leaf = attrs.clone().requires_grad_(True)
+    raw = tcomposite.composite_segments(leaf, bins.seg_start, bins.counts,
+                                        *size)
+    if case == "deep_tile":
+        # The stop rule matters here: one chunk over the whole segment
+        # (a permanent stop) gives another image.
+        once = tcomposite.composite_segments(attrs, bins.seg_start,
+                                             bins.counts, *size, chunk=4096)
+        assert (once[:, 0:4] - raw.detach()[:, 0:4]).abs().max() > 1e-6
+    g = _cotangent(raw.shape, 1)
+    (raw * g).sum().backward()
+    got = tcomposite.composite_segments_bwd(attrs, bins.seg_start,
+                                            bins.counts, raw.detach(), g,
+                                            *size)
+    want = leaf.grad.numpy()
+    assert got.shape == attrs.shape
+    for r in range(10):
+        _assert_grad_close(got[:, r].numpy(), want[:, r], f"row {r}")
+    assert (got[:, 10:] == 0).all() and (want[:, 10:] == 0).all()
+
+
+_PALLAS_BWD = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from multiview_inpaint_tpu.ops.rasterizer.pallas_backward import (
+        composite_pallas_bwd)
+    d = dict(np.load(sys.argv[1]))
+    g = composite_pallas_bwd(
+        jnp.asarray(d["attrs_t"]), jnp.asarray(d["seg_start"]),
+        jnp.asarray(d["counts"]), jnp.zeros((3,), jnp.float32),
+        jnp.asarray(d["tiles8"]), jnp.asarray(d["g_tiles8"]),
+        int(d["tiles_x"]), int(d["tiles_y"]), int(d["tile_h"]),
+        int(d["tile_w"]), interpret=True)
+    np.save(sys.argv[2], np.asarray(g))
+""")
+
+
+def test_plain_k3_matches_pallas_bwd_kernel(tmp_path):
+    """The TPU kernel itself (``pallas_backward._bwd_kernel``), in
+    interpret mode, in a clean subprocess, pair by pair. The scene is
+    shallow (no pixel reaches T < 1e-3), because the JAX kernel anchors
+    its chunks at 128-aligned windows and the port at segment starts;
+    the two walks agree wherever the stop rule does not fire."""
+    cam = _camera(width=64, height=48)
+    p = _identical_projection(160, 11, cam, op=(0.05, 0.5))
+    bins, attrs, size = _pair_inputs(p, 64, 48, (16, 16))
+    raw = tcomposite.composite_segments(attrs, bins.seg_start, bins.counts,
+                                        *size)
+    assert float(raw[:, 4].min()) > 1e-3 and bins.total_pairs > 256
+    g = _cotangent(raw.shape, 2)
+    n_pairs = bins.total_pairs
+    p_aligned = -(-n_pairs // 128) * 128 + 128   # room for the last window
+    attrs_t = np.zeros((tcomposite.NROWS, p_aligned), np.float32)
+    attrs_t[:, :n_pairs] = attrs.numpy().T
+    inputs = str(tmp_path / "in.npz")
+    out = str(tmp_path / "grads.npy")
+    tx, ty, th, tw = size
+    np.savez(inputs, attrs_t=attrs_t,
+             seg_start=bins.seg_start.numpy().astype(np.int32),
+             counts=bins.counts.numpy().astype(np.int32),
+             tiles8=raw.numpy(), g_tiles8=g.numpy(), tiles_x=tx, tiles_y=ty,
+             tile_h=th, tile_w=tw)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    proc = subprocess.run([sys.executable, "-c", _PALLAS_BWD, inputs, out],
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    want = np.load(out).T[:n_pairs]
+    got = tcomposite.composite_segments_bwd(attrs, bins.seg_start,
+                                            bins.counts, raw, g,
+                                            *size).numpy()
+    for r in range(10):
+        _assert_grad_close(got[:, r], want[:, r], f"row {r}")
+    assert (want[:, 10:] == 0).all() and (got[:, 10:] == 0).all()
 
 
 def test_render_views_and_empty_frame():
