@@ -17,10 +17,11 @@ non-zero:
    errors, pixels beyond rgb 3e-5 / depth 3e-4 (at most 0.01%), every
    pixel within the stop-flip bound;
 5. K3 (composite backward) against its plain version on the same frames
-   under a seeded cotangent: max error per row, pairs beyond
-   2e-6 + 1e-4 max|row| (at most 0.01%), the same for the per-gaussian
-   gradients after the gather's backward, every pair and gaussian within
-   the flip allowance, rows 10-15 exactly 0, bit-equal on a second run;
+   under a seeded cotangent (``check_k3``): max error per row, pairs
+   beyond 2e-6 + 1e-4 max|row| (at most 0.01%), the same for the
+   per-gaussian gradients after the gather's backward, every pair and
+   gaussian within the flip allowance, rows 10-15 exactly 0, bit-equal
+   on a second run;
 6. the port's whole render path on CUDA against its CPU path on a small
    scene, 16x16 and 8x16 tiles: images (rgb 3e-5, depth 3e-4) and the
    gradients of a loss on them, means2d_offset's included (through K3 on
@@ -39,17 +40,25 @@ non-zero:
    that scene and the 100k bench ball, the median ms/frame over those
    views (CUDA events, after one warm-up view) and a per-stage split of
    the bench view;
-10. main path 2: the ``train_gs`` CLI for 60 iterations with
-    densification on an 8-view 960x540 orbit scene rendered from the
-    2M-gaussian scene, from 200,000 of its points, counters zeroed before
-    and read after: loss falls, densify ran twice, PLY and npz written,
-    no non-finite gradient, K3 launched once per step;
+10. main path 2 on an 8-view 960x540 orbit scene rendered from the
+    2M-gaussian scene, from 200,000 of its points: first one
+    ``train_step`` of that scene, whose K3 call (the real L1+SSIM
+    cotangent) is held against the plain K3 as in phase 5 and sets the
+    densification threshold (a quantile of that step's screen-space
+    gradient norms); then the ``train_gs`` CLI for 60 iterations in a
+    buffer a little larger than the init, counters zeroed before and read
+    after: loss falls, densify ran twice and wrote rows, the capacity
+    grew, PLY and npz written, no non-finite gradient, K3 launched once
+    per step;
 11. the train step at full width: the 2M-gaussian bench ball in a
     2,097,152-row buffer at 512x384, median ms/step over 10 steps after
-    2 warm-up steps (CUDA events), and its split into render forward,
-    loss, backward (loss/assembly, K3, the gather's backward, the
-    projection's backward) and Adam;
-12. the ``kernels`` JSON line; the last line is the ``ok`` JSON object.
+    2 warm-up steps (CUDA events), the split of the real step into render
+    forward, loss, backward (loss/assembly, K3, the gather's backward, the
+    projection's backward) and Adam (``StepProbe``), and its K3 call held
+    against the plain K3 as in phase 5;
+12. the ``kernels`` JSON line (K1 and K2 at main path 1's big2m frame, K3
+    at main path 2's first step); the last line is the ``ok`` JSON
+    object.
 
 Build outputs and the scenes go under ``build/`` in the checkout.
 """
@@ -75,22 +84,33 @@ YAWS = (0.0, -0.06, 0.06, 0.12)   # the bench view and three yaw offsets
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 SFU_OP_PER_S = 132 * 16 * 1.98e9
-# K2 work per pair-pixel: the gate path every pair-pixel runs (2 subs,
-# 9 ops of the quadratic form, the opacity product and clamp, 2 gate
-# compares) and 2 special-function ops (the alpha exp and one of the
-# transmittance path).
-K2_FLOP_PER_PAIR_PIXEL = 15
-K2_SFU_PER_PAIR_PIXEL = 2
-# K3 work per pair-pixel: K2's gate path and special-function ops, plus
-# the 10 adds that sum each pair's gradient rows over the tile's pixels.
-K3_FLOP_PER_PAIR_PIXEL = K2_FLOP_PER_PAIR_PIXEL + 10
-K3_SFU_PER_PAIR_PIXEL = K2_SFU_PER_PAIR_PIXEL
+# The least operations of the composite kernels, as (FP32 ops,
+# special-function ops) per pair-pixel by what the forward walk does
+# there; ``walk_counts`` counts those pair-pixels on the run's inputs.
+# - walked (the pixel has not stopped earlier in the chunk): the gate,
+#   i.e. 2 subs, 9 ops of the quadratic form, the opacity product, the
+#   clamp and 2 compares, and the exp of the power;
+# - kept (passes the gate): log1p(-alpha), counted as 4 FP32 ops (fewer
+#   than its polynomial), the add, product and compare of the stop test,
+#   and the exp of the in-chunk prefix;
+# - contributing (kept, T_out >= 1e-4): K2 adds the exp of T_in, its sub
+#   and product, the weight and the 4 accumulators; K3 adds the exp of
+#   T_in and the reciprocal of its division, ~40 ops of A, the w.A
+#   prefix, dL/dalpha and the ten row terms, and 10 adds that sum the
+#   rows over the tile's pixels.
+WALK_OPS, KEEP_OPS = (15, 1), (7, 1)
+K2_CONTRIB_OPS, K3_CONTRIB_OPS = (8, 1), (50, 2)
 RGB_TOL, DEPTH_TOL, BAD_FRACTION = 3e-5, 3e-4, 1e-4
 GRAD_ATOL, GRAD_RTOL = 2e-6, 1e-4   # gradient bar: atol + rtol * max|g|
 TILE = 16
 # Main path 2 (the train CLI) and the full-width train step.
 TRAIN_W, TRAIN_H, TRAIN_VIEWS, TRAIN_POINTS = 960, 540, 8, 200_000
 TRAIN_ITERS = 60
+# Main path 2 densifies the rows whose mean screen-space gradient norm
+# reaches this quantile of the first step's norms, in a buffer this many
+# rows larger than the init: the first densification fills the spare rows
+# and grows the buffer.
+DENSIFY_QUANTILE, TRAIN_SPARE_ROWS = 0.8, 1024
 STEP_N, STEP_CAPACITY, STEP_W, STEP_H = 2_000_000, 2_097_152, 512, 384
 
 
@@ -117,6 +137,50 @@ def grad_bar(want, dim=None):
     """The gradient bar 2e-6 + 1e-4 max|want| (per column with dim=0)."""
     m = want.abs().amax() if dim is None else want.abs().amax(dim=dim)
     return GRAD_ATOL + GRAD_RTOL * m
+
+
+def walk_counts(torch, attrs, seg_start, counts, size):
+    """(walked, kept, contributing) pair-pixels of the composite's forward
+    walk on these inputs, from the plain version's own recomputation of
+    each chunk (``composite._chunk``): a pixel walks a splat while its
+    T_in >= 1e-4 in the chunk, keeps it when it passes the gate, and it
+    contributes when kept with T_out >= 1e-4."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import composite as c
+    tiles_x, tiles_y, th, tw = size
+    dev = attrs.device
+    coords = c.tile_pixel_coords(tiles_x, tiles_y, tw, th, dev)
+    t_carry = torch.ones((tiles_x * tiles_y, th * tw), device=dev)
+    lane = torch.arange(c.CHUNK, device=dev)
+    zero = torch.zeros((), device=dev)
+    n = torch.zeros(3, dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        for c0, tl in c._chunks(counts, th * tw, c.CHUNK):
+            s = c._chunk(attrs, seg_start, counts, coords, t_carry, tl, c0,
+                         lane, zero)
+            walked = s.ok[:, None, :] & (s.t_in >= c.T_STOP)
+            kept = walked & s.keep
+            n += torch.stack([walked.sum(), kept.sum(),
+                              (kept & s.contrib).sum()])
+            t_carry[tl] = t_carry[tl] * torch.exp(torch.sum(
+                torch.where(s.contrib, s.logs, zero), dim=-1))
+    return n.tolist()
+
+
+def bound(t_bytes, walk, contrib_ops):
+    """``bound_ms`` and ``bound_by`` of a composite kernel: the larger of
+    its bytes' time ``t_bytes`` (s) and the time of its least operations
+    on the ``walk_counts`` pair-pixels ``walk``."""
+    flop = sfu = 0
+    for n, (f, u) in zip(walk, (WALK_OPS, KEEP_OPS, contrib_ops)):
+        flop += n * f
+        sfu += n * u
+    t_ops = max(flop / FP32_FLOP_PER_S, sfu / SFU_OP_PER_S)
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def walk_shares(walk, pair_pixels):
+    return [round(n / max(pair_pixels, 1), 4) for n in walk]
 
 
 def phase_card(torch):
@@ -146,8 +210,8 @@ def phase_build():
 
 
 def phase_kernels(torch, card, name, params):
-    """Phases 3-5 on one 1080p bench frame; returns the K1, K2 and K3
-    records of the kernels line (launches filled in later)."""
+    """Phases 3-5 on one 1080p bench frame; returns the K1 and K2 records
+    of the kernels line (launches filled in later)."""
     from multiview_inpaint_tpu_torch.ops.rasterizer import (
         RenderCamera, api, binning, composite, composite_cuda, pair_expand)
     from multiview_inpaint_tpu_torch.utils import synthetic
@@ -223,48 +287,50 @@ def phase_kernels(torch, card, name, params):
     with torch.no_grad():
         k2_plain_ms = cuda_ms(
             torch, lambda: composite.composite_segments(*k2_args), 1)
-    pair_pixels = r.total * pix
+    walk = walk_counts(torch, attrs, seg_start, counts,
+                       (tiles_x, tiles_y, TILE, TILE))
     t_bytes = (r.total * 64 + n_tiles * 16
                + n_tiles * 8 * pix * 4) / HBM_BYTES_PER_S
-    t_ops = max(pair_pixels * K2_FLOP_PER_PAIR_PIXEL / FP32_FLOP_PER_S,
-                pair_pixels * K2_SFU_PER_PAIR_PIXEL / SFU_OP_PER_S)
     k2 = dict(max_abs_err=float(max(e_rgb.max(), e_d.max(), e_t.max())),
               ms=k2_ms, plain_ms=k2_plain_ms,
-              bound_ms=max(t_bytes, t_ops) * 1e3,
-              bound_by="bytes" if t_bytes >= t_ops else "operations",
-              library_ms=None)
+              **bound(t_bytes, walk, K2_CONTRIB_OPS), library_ms=None)
     print(f"[4 K2 {name}] max abs err rgb {float(e_rgb.max()):.3g} depth "
           f"{float(e_d.max()):.3g} T {float(e_t.max()):.3g} | {bad}/{n_pix} "
           f"px beyond rgb {RGB_TOL} / depth {DEPTH_TOL} | all px within "
-          f"stop-flip bound: {within} | kernel {k2_ms:.4f} ms, plain "
-          f"{k2_plain_ms:.2f} ms, bound {k2['bound_ms']:.4f} ms "
-          f"({k2['bound_by']}) | {card}", flush=True)
+          f"stop-flip bound: {within} | walked, kept, contributing share of "
+          f"pair-pixels {walk_shares(walk, r.total * pix)} | kernel "
+          f"{k2_ms:.4f} ms, plain {k2_plain_ms:.2f} ms, bound "
+          f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}) | {card}", flush=True)
     if bad > BAD_FRACTION * n_pix or not within:
         fail(f"K2 disagrees with its plain version on {name}")
-    k3 = phase_k3(torch, card, name, attrs, seg_start, counts, out_k, gid,
-                  params.capacity, (tiles_x, tiles_y, TILE, TILE), flip_t)
-    return k1, k2, k3
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    g = torch.randn(out_k.shape, generator=gen, device=DEVICE)
+    g[:, 5:] = 0.0
+    check_k3(torch, card, f"5 K3 {name}",
+             (attrs, seg_start, counts, out_k, g, tiles_x, tiles_y, TILE,
+              TILE), gid, params.capacity)
+    return k1, k2
 
 
-def phase_k3(torch, card, name, attrs, seg_start, counts, tiles8, gid,
-             n_gauss, size, flip_t):
-    """Phase 5: K3 against its plain version on one frame, under a seeded
-    cotangent on the raw rows 0-4."""
+def check_k3(torch, card, label, k3_args, gid, n_gauss):
+    """K3 against its plain version on ``k3_args`` (attrs, seg_start,
+    counts, tiles8, g_tiles8, tiles_x, tiles_y, tile_h, tile_w), pair by
+    pair and, through ``gid`` (the gaussian of each pair), gaussian by
+    gaussian; fails on a breach, else returns K3's record for the kernels
+    line (launches filled in later)."""
     from multiview_inpaint_tpu_torch.ops.rasterizer import (composite,
                                                             composite_cuda)
 
-    gen = torch.Generator(device=DEVICE).manual_seed(0)
-    g = torch.randn(tiles8.shape, generator=gen, device=DEVICE)
-    g[:, 5:] = 0.0
-    k3_args = (attrs, seg_start, counts, tiles8, g, *size)
+    attrs, seg_start, counts, _, _, *size = k3_args
+    flip_t = composite.T_STOP / (1.0 - composite.ALPHA_MAX)
     with torch.no_grad():
         d_k = composite_cuda.composite_bwd(*k3_args)
         again = composite_cuda.composite_bwd(*k3_args)
         d_p = composite.composite_segments_bwd(*k3_args)
     if not torch.isfinite(d_k).all() or d_k[:, 10:].any():
-        fail(f"K3 rows not finite, or rows 10-15 not 0, on {name}")
+        fail(f"K3 rows not finite, or rows 10-15 not 0, at {label}")
     if not torch.equal(d_k, again):
-        fail(f"K3 does not repeat bit for bit on {name}")
+        fail(f"K3 does not repeat bit for bit at {label}")
 
     def compare(got, want):
         """(max abs err per row, share beyond the bar, all within the
@@ -298,27 +364,26 @@ def phase_k3(torch, card, name, attrs, seg_start, counts, tiles8, gid,
     tiles_x, tiles_y, th, tw = size
     n_tiles, pix = tiles_x * tiles_y, th * tw
     n_pairs = attrs.shape[0]
-    pair_pixels = n_pairs * pix
+    walk = walk_counts(torch, attrs, seg_start, counts, size)
     t_bytes = (n_pairs * 64 * 2 + n_tiles * 16
                + n_tiles * pix * 2 * 32) / HBM_BYTES_PER_S
-    t_ops = max(pair_pixels * K3_FLOP_PER_PAIR_PIXEL / FP32_FLOP_PER_S,
-                pair_pixels * K3_SFU_PER_PAIR_PIXEL / SFU_OP_PER_S)
     k3 = dict(max_abs_err=float(e_rows.max()), ms=k3_ms,
-              plain_ms=k3_plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
-              bound_by="bytes" if t_bytes >= t_ops else "operations",
+              plain_ms=k3_plain_ms, **bound(t_bytes, walk, K3_CONTRIB_OPS),
               library_ms=None)
-    print(f"[5 K3 {name}] pairs={n_pairs} | max abs err per row "
+    print(f"[{label}] pairs={n_pairs} in {n_tiles} {th}x{tw} tiles (max "
+          f"{int(counts.max())} per tile) | max abs err per row "
           f"{[float(f'{e:.3g}') for e in e_rows.tolist()]} | pairs beyond "
           f"{GRAD_ATOL} + {GRAD_RTOL} max|row|: {share:.3g} (within flip "
           f"allowance: {within}) | per gaussian max err "
           f"{float(e_gauss.max()):.3g}, beyond: {share_g:.3g} (within: "
-          f"{within_g}) | rows 10-15 zero, repeats bit for bit | kernel "
-          f"{k3_ms:.4f} ms, plain {k3_plain_ms:.2f} ms, bound "
-          f"{k3['bound_ms']:.4f} ms ({k3['bound_by']}) | {card}",
-          flush=True)
+          f"{within_g}) | rows 10-15 zero, repeats bit for bit | walked, "
+          f"kept, contributing share of pair-pixels "
+          f"{walk_shares(walk, n_pairs * pix)} | kernel {k3_ms:.4f} ms, "
+          f"plain {k3_plain_ms:.2f} ms, bound {k3['bound_ms']:.4f} ms "
+          f"({k3['bound_by']}) | {card}", flush=True)
     if (share > BAD_FRACTION or share_g > BAD_FRACTION or not within
             or not within_g):
-        fail(f"K3 disagrees with its plain version on {name}")
+        fail(f"K3 disagrees with its plain version at {label}")
     return k3
 
 
@@ -609,10 +674,94 @@ def stage_split(torch, params, cam):
     return totals
 
 
-def phase_train(torch, card):
-    """Main path 2: the train_gs CLI on an orbit scene of the 2M-gaussian
-    scene; returns the launch counts of that run."""
-    from multiview_inpaint_tpu_torch.ops.rasterizer import _kernels
+class StepProbe:
+    """Times the real ``gs_trainer.train_step`` by parts and keeps its K3
+    call.
+
+    ``step`` runs one train step with wrappers around what the step
+    calls: ``render``, ``loss_terms`` and ``apply_adam`` in
+    ``gs_trainer``, and under the render the pair binning (to keep each
+    pair's gaussian), ``pack_attrs`` (a gradient hook on its output marks
+    the end of the gather's backward) and K3's wrapper (its inputs are
+    kept). Each boundary records a CUDA event.
+    """
+    MARKS = ("step", "render", "loss", "k3_in", "k3_out", "gather",
+             "adam_in", "adam_out")
+    PARTS = ("render_fwd", "loss_fwd", "bwd_loss_assemble", "bwd_K3",
+             "bwd_gather", "bwd_projection", "adam")
+
+    def __init__(self, torch):
+        from multiview_inpaint_tpu_torch.models import gs_trainer
+        from multiview_inpaint_tpu_torch.ops.rasterizer import (
+            api, binning, composite_cuda)
+        self.torch, self.ev, self.k3_args, self.gid = torch, {}, None, None
+
+        def marked(fn, first, last):
+            def run(*a, **kw):
+                if first:
+                    self.mark(first)
+                out = fn(*a, **kw)
+                self.mark(last)
+                return out
+            return run
+
+        def bins(*a, **kw):
+            b = bin_gaussians(*a, **kw)
+            self.gid = b.order[b.gid_sorted]
+            return b
+
+        def pack(*a):
+            packed = pack_attrs(*a)
+            if packed.requires_grad:
+                packed.register_hook(lambda g: self.mark("gather"))
+            return packed
+
+        def k3(*a):
+            self.k3_args = a
+            return k3_marked(*a)
+
+        bin_gaussians, pack_attrs = binning.bin_gaussians, api.pack_attrs
+        k3_marked = marked(composite_cuda.composite_bwd, "k3_in", "k3_out")
+        self.patches = [
+            (gs_trainer, "render", marked(gs_trainer.render, None, "render")),
+            (gs_trainer, "loss_terms",
+             marked(gs_trainer.loss_terms, None, "loss")),
+            (gs_trainer, "apply_adam",
+             marked(gs_trainer.apply_adam, "adam_in", "adam_out")),
+            (binning, "bin_gaussians", bins), (api, "pack_attrs", pack),
+            (composite_cuda, "composite_bwd", k3)]
+
+    def mark(self, key):
+        self.ev[key] = self.torch.cuda.Event(enable_timing=True)
+        self.ev[key].record()
+
+    def step(self, *args):
+        """``gs_trainer.train_step(*args)`` with the wrappers in place;
+        returns its result and the device ms of each of ``PARTS``."""
+        from multiview_inpaint_tpu_torch.models import gs_trainer
+        saved = [(m, n, getattr(m, n)) for m, n, _ in self.patches]
+        for m, n, f in self.patches:
+            setattr(m, n, f)
+        try:
+            self.mark("step")
+            out = gs_trainer.train_step(*args)
+            self.torch.cuda.synchronize()
+        finally:
+            for m, n, f in saved:
+                setattr(m, n, f)
+        return out, {p: self.ev[a].elapsed_time(self.ev[b]) for p, a, b in
+                     zip(self.PARTS, self.MARKS, self.MARKS[1:])}
+
+
+def phase_train(torch, card, iterations=TRAIN_ITERS, extra=()):
+    """Main path 2: one train step of the orbit scene (K3 held against its
+    plain version there), then the train_gs CLI on that scene, with
+    ``extra`` CLI arguments; returns the launch counts of the CLI run and
+    K3's record for the kernels line."""
+    from multiview_inpaint_tpu_torch.gs.scene import Scene
+    from multiview_inpaint_tpu_torch.models import gs_trainer
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (RenderCamera,
+                                                            _kernels)
     from multiview_inpaint_tpu_torch.pipelines import train_gs
     from multiview_inpaint_tpu_torch.utils import synthetic
 
@@ -627,17 +776,37 @@ def phase_train(torch, card):
         TRAIN_POINTS)
     scene_s = time.perf_counter() - t0
 
+    # The CLI's first step: its scene, init and loss, on one of its views.
+    scene = Scene(src, os.path.join(work, "first_step"), resolution=1,
+                  device=DEVICE)
+    cam = scene.train_cameras()[0]
+    probe = StepProbe(torch)
+    (state, _), _ = probe.step(
+        gs_trainer.init_state(scene.gaussians),
+        RenderCamera.from_camera(cam, DEVICE),
+        torch.as_tensor(np.asarray(cam.image, np.float32), device=DEVICE),
+        torch.zeros(3, device=DEVICE), gs_trainer.OptimizationConfig(),
+        scene.cameras_extent)
+    k3 = check_k3(torch, card, "10 K3 orbit-train first step",
+                  probe.k3_args, probe.gid, state.params.capacity)
+    seen = state.stats.denom > 0
+    threshold = float(torch.quantile(state.stats.grad_accum[seen],
+                                     DENSIFY_QUANTILE))
+    capacity = TRAIN_POINTS + TRAIN_SPARE_ROWS
+    del scene, probe, state
+
     _kernels.reset_launches()
     t0 = time.perf_counter()
     train_gs.main([
         "-s", src, "-m", model, "--resolution", "1",
-        "--iterations", str(TRAIN_ITERS), "--densify_from_iter", "20",
+        "--iterations", str(iterations), "--densify_from_iter", "20",
         "--densify_until_iter", "50", "--densification_interval", "20",
-        "--opacity_reset_interval", "100000",
-        "--test_iterations", str(TRAIN_ITERS),
-        "--save_iterations", str(TRAIN_ITERS),
-        "--checkpoint_iterations", str(TRAIN_ITERS), "--log_interval", "10",
-        "--device", DEVICE,
+        "--densify_grad_threshold", repr(threshold),
+        "--capacity", str(capacity), "--opacity_reset_interval", "100000",
+        "--test_iterations", str(iterations),
+        "--save_iterations", str(iterations),
+        "--checkpoint_iterations", str(iterations), "--log_interval", "10",
+        "--device", DEVICE, *extra,
     ])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
@@ -649,38 +818,44 @@ def phase_train(torch, card):
     densified = [r for r in log if "wanted" in r]
     evals = [r for r in log if "psnr" in r]
     n_eval = min(5, len(names))          # the CLI's report renders
-    ply = os.path.join(model, "point_cloud", f"iteration_{TRAIN_ITERS}",
+    ply = os.path.join(model, "point_cloud", f"iteration_{iterations}",
                        "point_cloud.ply")
-    ckpt = os.path.join(model, f"chkpnt{TRAIN_ITERS}.npz")
+    ckpt = os.path.join(model, f"chkpnt{iterations}.npz")
+    last = steps[-1] if steps else {}
     checks = {
         "loss falls": bool(steps) and steps[-1]["loss"] < steps[0]["loss"],
         "densify ran twice": [r["step"] for r in densified] == [20, 40],
+        "densify wrote rows": bool(densified) and
+        densified[0]["cloned"] + densified[0]["split"] > 0,
+        "capacity grew": last.get("capacity", 0) > capacity,
         "PLY and npz written": os.path.exists(ply) and os.path.exists(ckpt),
         "no non-finite gradient": all(r["nonfinite_grads"] == 0
                                       for r in steps),
-        "K3 once per step": launches["composite_bwd"] == TRAIN_ITERS,
+        "K3 once per step": launches["composite_bwd"] == iterations,
         "K1, K2 once per render": launches["composite"]
-        == launches["pair_expand"] == TRAIN_ITERS + n_eval,
+        == launches["pair_expand"] == iterations + n_eval,
     }
-    last = steps[-1] if steps else {}
-    densify = [{k: r[k] for k in ("step", "cloned", "split", "pruned")}
-               for r in densified]
-    print(f"[10 main train] train_gs CLI, {TRAIN_ITERS} iterations on "
+    densify = [{k: r[k] for k in ("step", "cloned", "split", "pruned",
+                                  "wanted", "granted")} for r in densified]
+    print(f"[10 main train] train_gs CLI, {iterations} iterations on "
           f"{len(names)} views at {TRAIN_W}x{TRAIN_H} (GT rendered from "
-          f"{BIG_N} gaussians, {TRAIN_POINTS} init points; scene written in "
-          f"{scene_s:.1f} s) in {cli_s:.1f} s | loss "
+          f"{BIG_N} gaussians, {TRAIN_POINTS} init points in {capacity} "
+          f"rows; scene written in {scene_s:.1f} s) in {cli_s:.1f} s | loss "
           f"{[round(r['loss'], 5) for r in steps]} | points "
           f"{last.get('points')} capacity {last.get('capacity')} pairs "
-          f"{last.get('pairs')} | densify {densify} | psnr "
-          f"{[round(r['psnr'], 3) for r in evals]} | launches {launches} | "
-          f"{json.dumps(checks)} | {card}", flush=True)
+          f"{last.get('pairs')} | densify threshold {threshold:.4g} (the "
+          f"{DENSIFY_QUANTILE} quantile of the first step), {densify} | "
+          f"psnr {[round(r['psnr'], 3) for r in evals]} | launches "
+          f"{launches} | {json.dumps(checks)} | {card}", flush=True)
     if not all(checks.values()):
         fail(f"main path 2 (train CLI) checks failed: {checks}")
-    return launches
+    return launches, k3
 
 
 def phase_step_time(torch, card):
-    """The train step at full width: median ms/step and its split."""
+    """The train step at full width: median ms/step, the split of the
+    real step (mean of 3 probed steps) and its K3 call against the plain
+    K3."""
     from multiview_inpaint_tpu_torch.gs import cameras
     from multiview_inpaint_tpu_torch.models import gs_trainer
     from multiview_inpaint_tpu_torch.ops.rasterizer import RenderCamera
@@ -708,71 +883,23 @@ def phase_step_time(torch, card):
             times.append(start.elapsed_time(end))
         if not torch.isfinite(m.loss) or int(m.nonfinite_grads):
             fail("full-width train step: loss or gradients not finite")
-    split = step_split(torch, state, cam, gt, bg, cfg)
+    parts = []
+    for _ in range(3):
+        probe = StepProbe(torch)
+        (state, m), ms = probe.step(state, cam, gt, bg, cfg, 1.0)
+        parts.append(ms)
+    split = {p: statistics.mean(ms[p] for ms in parts)
+             for p in StepProbe.PARTS}
     print(f"[11 step time] {STEP_N} gaussians in {STEP_CAPACITY} rows at "
           f"{STEP_W}x{STEP_H}, pairs {m.pairs}: median "
           f"{statistics.median(times):.3f} ms/step over {len(times)} steps "
           f"(CUDA events, after 2 warm-up steps; all "
-          f"{[round(t, 3) for t in times]}) | split (ms, mean of 3 steps): "
+          f"{[round(t, 3) for t in times]}) | split of the step (ms, mean "
+          f"of 3 steps): "
           f"{json.dumps({k: round(v, 4) for k, v in split.items()})} | "
           f"{card}", flush=True)
-
-
-def step_split(torch, state, cam, gt, bg, cfg):
-    """Device ms of each part of ``gs_trainer.train_step``, its render
-    written out as ``api.render`` does it, with CUDA events recorded by
-    gradient hooks inside the backward."""
-    from multiview_inpaint_tpu_torch.gs.gaussians import (PARAM_FIELDS,
-                                                          GaussianParams)
-    from multiview_inpaint_tpu_torch.models import gs_trainer
-    from multiview_inpaint_tpu_torch.ops.rasterizer import (api, binning,
-                                                            composite_cuda)
-    tiles_x, tiles_y = -(-cam.width // TILE), -(-cam.height // TILE)
-    size = (tiles_x, tiles_y, TILE, TILE, cam.width, cam.height)
-    names = ("render_fwd", "loss_fwd", "bwd_loss_assemble", "bwd_K3",
-             "bwd_gather", "bwd_projection", "adam")
-    totals = dict.fromkeys(names, 0.0)
-    frames = 3
-    for it in range(frames + 1):
-        ev = {k: torch.cuda.Event(enable_timing=True)
-              for k in ("start", "render", "loss", "t8", "k3", "gather",
-                        "bwd", "adam")}
-        p = state.params
-        ev["start"].record()
-        fields, offset = gs_trainer.leaves(p)
-        proj = api.project(GaussianParams(live=p.live, **fields), cam, 0,
-                           means2d_offset=offset)
-        bins = binning.bin_gaussians(proj.means2d.detach(), proj.radius,
-                                     proj.depth.detach(), tiles_x, tiles_y,
-                                     TILE, TILE, extent=proj.extent)
-        packed = composite_cuda.pack_attrs(proj.means2d, proj.conic,
-                                           proj.opacity, proj.color,
-                                           proj.depth)
-        attrs = packed[bins.order[bins.gid_sorted]]
-        t8 = composite_cuda.composite(attrs, bins.seg_start, bins.counts,
-                                      tiles_x, tiles_y, TILE, TILE)
-        t_fin = t8[:, 4, :]
-        rgb = api.assemble(torch.stack([t8[:, c, :] + t_fin * bg[c]
-                                        for c in range(3)], dim=-1), *size)
-        ev["render"].record()
-        loss, _ = gs_trainer.loss_terms(rgb, gt, cfg)
-        ev["loss"].record()
-        t8.register_hook(lambda g: ev["t8"].record())
-        attrs.register_hook(lambda g: ev["k3"].record())
-        packed.register_hook(lambda g: ev["gather"].record())
-        *g_fields, g_off = torch.autograd.grad(
-            loss, [fields[f] for f in PARAM_FIELDS] + [offset])
-        ev["bwd"].record()
-        gs_trainer.apply_adam(state, dict(zip(PARAM_FIELDS, g_fields)),
-                              g_off, proj.radius, proj.radius > 0, cfg, 1.0)
-        ev["adam"].record()
-        torch.cuda.synchronize()
-        if it:
-            order = ("start", "render", "loss", "t8", "k3", "gather", "bwd",
-                     "adam")
-            for n, a, b in zip(names, order, order[1:]):
-                totals[n] += ev[a].elapsed_time(ev[b]) / frames
-    return totals
+    check_k3(torch, card, "11 K3 ball2m-train step", probe.k3_args,
+             probe.gid, state.params.capacity)
 
 
 def main():
@@ -797,10 +924,10 @@ def main():
     phase_ssim(torch)
     phase_step(torch)
     launches = phase_main(torch, card)
-    launches_train = phase_train(torch, card)
+    launches_train, k3 = phase_train(torch, card)
     phase_step_time(torch, card)
 
-    k1, k2, k3 = frames["big2m"]   # the render main path's scene and shapes
+    k1, k2 = frames["big2m"]   # the render main path's scene and shapes
     kernels = [
         dict(name="pair_expand", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/pair_expand.cu",
@@ -812,6 +939,7 @@ def main():
              replaces="multiview_inpaint_tpu/ops/rasterizer/"
                       "pallas_composite.py:75",
              launches=launches["composite"], **k2),
+        # K3 at the first step of main path 2, the path that runs it.
         dict(name="composite_bwd", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/composite_bwd.cu",
              replaces="multiview_inpaint_tpu/ops/rasterizer/"

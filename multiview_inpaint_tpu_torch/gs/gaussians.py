@@ -72,7 +72,10 @@ class GaussianParams:
         # Clamped exp (as in the reference since its non-finite fix): an
         # unbounded log-scale can drift past f32 overflow under long Adam
         # schedules; the clamp saturates far above any physical scale.
-        return torch.exp(torch.clamp(self.scaling, max=20.0))
+        # ``minimum`` (not ``clamp``) keeps JAX's gradient: a NaN log-scale
+        # gets a NaN gradient, which the train step zeroes and counts.
+        return torch.exp(torch.minimum(self.scaling, torch.tensor(
+            20.0, device=self.scaling.device)))
 
     def act_rotation(self) -> torch.Tensor:
         norm = torch.sqrt(torch.sum(self.rotation * self.rotation, dim=-1,

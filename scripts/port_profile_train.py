@@ -1,27 +1,23 @@
 """Profile the port's ``train_gs`` CLI on the GPU and summarise the trace.
 
-    python scripts/port_profile_train.py [--out build/profile_train]
+    python scripts/port_profile_train.py
 
-Writes the orbit scene of ``chip_smoke.py``'s main path 2 (8 views at
-960x540 rendered from the 2M-gaussian synthetic scene, 200,000 init
-points), runs ``multiview_inpaint_tpu_torch.pipelines.train_gs`` for 110
-iterations with ``--profile_dir`` (a ``torch.profiler`` trace of
-iterations 100-109), then reads that chrome trace and prints one JSON
-line: the window from the first to the last device event, the device's
-busy and idle share over it, and device time by kernel name. Imports the
-port only (no JAX).
+Runs ``chip_smoke.py``'s main path 2 (``chip_smoke.phase_train``: the
+orbit scene, its first step's K3 check, the train CLI with its checks)
+for 110 iterations with ``--profile_dir build/profile_train`` (a
+``torch.profiler`` trace of iterations 100-109), then reads that chrome
+trace and prints one JSON line: the window from the first to the last
+device event, the device's busy and idle share over it, and device time
+by kernel name. Imports the port only (no JAX).
 """
 
 from __future__ import annotations
 
-import argparse
 import collections
 import json
 import os
 import shutil
 import sys
-
-import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -55,32 +51,19 @@ def summarise(trace_path: str, top: int = 12) -> dict:
                        for n, t in by_name.most_common(top)]}
 
 
-def main(argv=None):
-    p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--out", default=os.path.join(REPO, "build",
-                                                  "profile_train"))
-    args = p.parse_args(argv)
+def main():
     sys.path.insert(0, REPO)
     import torch
 
-    from multiview_inpaint_tpu_torch.pipelines import train_gs
-    from multiview_inpaint_tpu_torch.utils import synthetic
+    import chip_smoke
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    shutil.rmtree(args.out, ignore_errors=True)
-    src = os.path.join(args.out, "scene")
-    model = os.path.join(args.out, "model")
-    prof = os.path.join(args.out, "trace")
-    synthetic.write_orbit_colmap_scene(
-        src, synthetic.make_big_scene(2_000_000, device="cuda"),
-        np.linspace(-0.35, 0.35, 8), 960, 540, 200_000)
-    train_gs.main(["-s", src, "-m", model, "--resolution", "1",
-                   "--iterations", "110", "--densify_from_iter", "20",
-                   "--densify_until_iter", "50",
-                   "--densification_interval", "20",
-                   "--test_iterations", "-1", "--save_iterations", "110",
-                   "--log_interval", "10", "--profile_dir", prof])
+    prof = os.path.join(REPO, "build", "profile_train")
+    shutil.rmtree(prof, ignore_errors=True)
+    card = chip_smoke.phase_card(torch)
+    chip_smoke.phase_train(torch, card, iterations=110,
+                           extra=("--profile_dir", prof))
     print(json.dumps(summarise(os.path.join(prof, "trace.json"))))
 
 

@@ -210,30 +210,35 @@ def _grad_bar(want):
     return 2e-6 + 1e-4 * np.abs(want).max(initial=0.0)
 
 
-@pytest.mark.parametrize("loss_mode", ["full", "background"])
-def test_train_step_matches_jax(loss_mode):
-    jp = _train_scene()
+def _jax_and_port_steps(jp, loss_mode="full", spatial=1.3):
+    """One train step of each package on the same state and camera."""
     cam, gt, mask = _step_inputs()
-    cfg = jtrainer.OptimizationConfig()
-    spatial = 1.3
     jnew, jm = jtrainer.train_step(
         jtrainer.init_state(jp), jr.RenderCamera.from_camera(cam),
-        jnp.asarray(gt), jnp.asarray(BG, jnp.float32), cfg, spatial,
-        mask=jnp.asarray(mask), loss_mode=loss_mode, max_per_tile=1024,
-        pair_budget_mult=64)
+        jnp.asarray(gt), jnp.asarray(BG, jnp.float32),
+        jtrainer.OptimizationConfig(), spatial, mask=jnp.asarray(mask),
+        loss_mode=loss_mode, max_per_tile=1024, pair_budget_mult=64)
     tnew, tm = ttrainer.train_step(
         ttrainer.init_state(_port(jp)),
         tr.RenderCamera.from_camera(cam, "cpu"), torch.from_numpy(gt),
         torch.tensor(BG), ttrainer.OptimizationConfig(), spatial,
         mask=torch.from_numpy(mask), loss_mode=loss_mode)
+    return (jnew, jm), (tnew, tm)
+
+
+def _assert_step_matches(jax_step, port_step, spatial=1.3):
+    """Loss, counts, moments, params and densify statistics at the bars of
+    the module docstring. A NaN param entry must be NaN in both."""
+    (jnew, jm), (tnew, tm) = jax_step, port_step
     assert abs(float(tm.loss) - float(jm.loss)) <= 1e-5 * abs(float(jm.loss))
     assert abs(float(tm.l1) - float(jm.l1)) <= 1e-5 * abs(float(jm.l1))
     assert tm.pairs == int(jm.pairs) > 0
-    assert int(tm.num_live) == int(jm.num_live) == 120
-    assert int(tm.nonfinite_grads) == int(jm.nonfinite_grads) == 0
+    assert int(tm.num_live) == int(jm.num_live)
+    assert int(tm.nonfinite_grads) == int(jm.nonfinite_grads)
     assert tnew.step == int(jnew.step) == 1
 
-    lrs = jtrainer._group_lrs(cfg, jnp.int32(1), spatial)
+    lrs = jtrainer._group_lrs(jtrainer.OptimizationConfig(), jnp.int32(1),
+                              spatial)
     for f in FIELDS:
         # At step 1, mu = 0.1 g and nu = 0.001 g^2: both give back g.
         g_want = np.asarray(jnew.mu[f]) / 0.1
@@ -244,8 +249,10 @@ def test_train_step_matches_jax(loss_mode):
                                    np.sqrt(np.asarray(jnew.nu[f]) / 0.001),
                                    atol=bar, err_msg=f"nu {f}")
         lr = float(lrs[f])
-        diff = np.abs(getattr(tnew.params, f).numpy()
-                      - np.asarray(getattr(jnew.params, f)))
+        got = getattr(tnew.params, f).numpy()
+        want = np.asarray(getattr(jnew.params, f))
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want), f)
+        diff = np.abs(np.nan_to_num(got) - np.nan_to_num(want))
         small = np.abs(g_want) <= bar
         assert (diff[small] <= 2 * lr + 1e-6).all(), f
         assert (diff[~small] <= 1e-6 + 1e-3 * lr).all(), f
@@ -258,18 +265,25 @@ def test_train_step_matches_jax(loss_mode):
                                   np.asarray(jnew.stats.max_radii2d))
 
 
+@pytest.mark.parametrize("loss_mode", ["full", "background"])
+def test_train_step_matches_jax(loss_mode):
+    jax_step, port_step = _jax_and_port_steps(_train_scene(), loss_mode)
+    _assert_step_matches(jax_step, port_step)
+    assert int(port_step[1].num_live) == 120
+    assert int(port_step[1].nonfinite_grads) == 0
+
+
 def test_train_step_zeroes_and_counts_nonfinite_gradients():
-    """A NaN row stays quarantined: its gradient is zeroed and counted,
-    and the moments stay finite (the reference's 5413b48 fix)."""
+    """A NaN row stays quarantined: its gradient entries are zeroed and
+    counted as JAX counts them, and the moments stay finite (the
+    reference's 5413b48 fix)."""
     jp = _train_scene(n=40, capacity=48, seed=4)
-    tp = _port(jp)
-    tp.scaling[5] = float("nan")
-    cam, gt, _ = _step_inputs()
-    state = ttrainer.init_state(tp)
-    new, m = ttrainer.train_step(
-        state, tr.RenderCamera.from_camera(cam, "cpu"),
-        torch.from_numpy(gt), torch.tensor(BG),
-        ttrainer.OptimizationConfig(), 1.0)
+    jp = dataclasses.replace(jp, scaling=jp.scaling.at[5].set(jnp.nan))
+    jax_step, port_step = _jax_and_port_steps(jp)
+    _assert_step_matches(jax_step, port_step)
+    new, m = port_step
+    # The NaN row's xyz, scaling and rotation gradients: 3 + 3 + 4.
+    assert int(m.nonfinite_grads) == 10
     assert torch.isfinite(m.loss)
     for f in FIELDS:
         assert torch.isfinite(new.mu[f]).all() and \
