@@ -56,14 +56,43 @@ non-zero:
     forward, loss, backward (loss/assembly, K3, the gather's backward, the
     projection's backward) and Adam (``StepProbe``), and its K3 call held
     against the plain K3 as in phase 5;
-12. the ``kernels`` JSON line (K1 and K2 at main path 1's big2m frame, K3
-    at main path 2's first step); the last line is the ``ok`` JSON
-    object.
+12. K4 (flash-attention forward) against its plain version as main path
+    3 calls it, on the packed [B, T, H*D] projections: [28, 3072, 5*64]
+    with 5 heads (ds1) and [28, 768, 10*64] with 10 heads (ds2) in bf16,
+    and [2, 768, 64] in f32: max abs error (0.02) and relative to
+    max|plain| (0.02), bit-equal on a second run and equal to K4 on the
+    folded [B*H, T, D] layout, kernel, plain and bound ms, and PyTorch's
+    ``scaled_dot_product_attention`` timed as a yardstick (the port never
+    calls it);
+13. the tiny SVD engine (``svd_test --tiny_model``, 3 frames at 64x48)
+    on CUDA against the CPU with the same weights (every all-zero
+    parameter moved) and noise, f32 with TF32 off: conditioning, one
+    guided denoiser evaluation, a 2-step sample (bounded by the f32
+    spacing at its first step's start) and the decoding of one set of
+    latents on both;
+14. main path 3: the ``svd_test`` CLI at full width (VideoUNet 320,
+    ControlNet, VAE, ViT-H CLIP: 2.9B random bf16 parameters made on the
+    card, every all-zero one moved) on a synthetic gs/ tree, 14 frames at
+    512x384, 25 Euler-EDM steps at CFG batch 28, counters zeroed before:
+    14 finite frames written and K4 launched exactly 350 times; seconds
+    per clip split into conditioning, the median sampler step and the
+    VAE decode (``SvdProbe``), peak device memory per part;
+15. one full-width guided denoiser evaluation at sigma_max, its q and k
+    projections scaled so that the attention is far from uniform, through
+    K4, then with ``attention_op``'s K4 call patched to the plain version
+    (0 launches), against a bf16 bar that lies below what two planted K4
+    faults (a dropped key tile, a softmax in the wrong exponent base)
+    move (relative rms of the difference) and at most a tenth of what a
+    change of noise seed moves;
+16. the ``kernels`` JSON line (K1 and K2 at main path 1's big2m frame, K3
+    at main path 2's first step, K4 at main path 3's ds1 shape); the last
+    line is the ``ok`` JSON object.
 
 Build outputs and the scenes go under ``build/`` in the checkout.
 """
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -112,6 +141,41 @@ TRAIN_ITERS = 60
 # and grows the buffer.
 DENSIFY_QUANTILE, TRAIN_SPARE_ROWS = 0.8, 1024
 STEP_N, STEP_CAPACITY, STEP_W, STEP_H = 2_000_000, 2_097_152, 512, 384
+# Main path 3 (the svd_test CLI at full width): 14 frames at 512x384, 25
+# Euler-EDM steps, the uc|c batch of 28 frames per denoiser evaluation.
+SVD_FRAMES, SVD_STEPS, SVD_H, SVD_W = 14, 25, 512, 384
+# K4 as the main path calls it: (B, T, heads, D, dtype) of the packed
+# [B, T, H*D] projections of the ds1 and ds2 spatial self-attention (5 and
+# 10 heads of 64 over the 28 frames), and once in f32. Bars: the JAX
+# kernel test's 0.02 max abs at unit-normal inputs, and 0.02 of
+# max|plain| (p, and f32 inputs, rounded to bf16).
+K4_SHAPES = ((28, 3072, 5, 64, "bfloat16"), (28, 768, 10, 64, "bfloat16"),
+             (2, 768, 1, 64, "float32"))
+K4_ABS_TOL = K4_REL_TOL = 0.02
+K4_PER_EVAL = 14        # ds1 and ds2 blocks: 10 in the UNet, 4 in the trunk
+BF16_FLOP_PER_S = 989e12
+# The denoiser evaluation through K4 against the plain attention: the rms
+# of the difference at most this share of the rms of the plain output.
+# The q and k projections are scaled by SVD_QK_GAIN first: at init the
+# logits have a std of ~0.33 and the attention is near uniform, so that
+# its output is about the mean of v whatever K4 does; x3 on each makes it
+# ~3. The bar lies between the sound reading (0.0140 on an H100) and the
+# smaller of two planted K4 faults' (0.0237: the first key tile dropped;
+# 0.0411: an exp2 softmax without log2 e), near their geometric mean, and
+# is at most a tenth of what a change of noise seed moves.
+SVD_EVAL_RMS_TOL = 0.018
+SVD_QK_GAIN = 3.0
+# The tiny engine in f32, CUDA against the CPU: the conditioning, one
+# denoiser evaluation and the decoding of one set of latents at 1e-4 of
+# their largest magnitude (sums in another order). The 2-step sample's
+# first Euler step, x0 + (sigma1 - sigma0) * (x0 - D) / sigma0, cancels
+# x0 = 700 * noise (~2000) down to the denoised latents D (~1). Its
+# subtraction, division and product each round at the scale of x0 (half
+# an f32 spacing at max|x0|, 0.68 of one for the division, whose result is
+# 700 times smaller), and a denoiser difference of 1e-5 can flip each of
+# those roundings: each latent may differ between the two devices by 4
+# spacings of f32 at its own |x0| besides 1e-4 of max|latents|.
+SVD_F32_REL_TOL, SVD_X0_ULPS = 1e-4, 4
 
 
 def fail(msg):
@@ -200,7 +264,7 @@ def phase_card(torch):
 
 
 def phase_build():
-    from multiview_inpaint_tpu_torch.ops.rasterizer import _kernels
+    from multiview_inpaint_tpu_torch import kernels as _kernels
     t0 = time.perf_counter()
     lib_path = _kernels.build()
     _kernels.library()
@@ -545,7 +609,7 @@ def phase_main(torch, card):
     from PIL import Image
 
     from multiview_inpaint_tpu_torch.gs import gaussians
-    from multiview_inpaint_tpu_torch.ops.rasterizer import _kernels
+    from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.pipelines import render as render_cli
     from multiview_inpaint_tpu_torch.utils import synthetic
 
@@ -567,7 +631,7 @@ def phase_main(torch, card):
     launches = dict(_kernels.LAUNCHES)
     n_views = len(names)
     if launches != {"pair_expand": n_views, "composite": n_views,
-                    "composite_bwd": 0}:
+                    "composite_bwd": 0, "flash_attn_fwd": 0}:
         fail(f"main path 1 launches {launches}, expected {n_views} each "
              f"of the forward kernels")
     out_dir = os.path.join(model, "train", "ours_1", "renders")
@@ -758,10 +822,10 @@ def phase_train(torch, card, iterations=TRAIN_ITERS, extra=()):
     plain version there), then the train_gs CLI on that scene, with
     ``extra`` CLI arguments; returns the launch counts of the CLI run and
     K3's record for the kernels line."""
+    from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.gs.scene import Scene
     from multiview_inpaint_tpu_torch.models import gs_trainer
-    from multiview_inpaint_tpu_torch.ops.rasterizer import (RenderCamera,
-                                                            _kernels)
+    from multiview_inpaint_tpu_torch.ops.rasterizer import RenderCamera
     from multiview_inpaint_tpu_torch.pipelines import train_gs
     from multiview_inpaint_tpu_torch.utils import synthetic
 
@@ -902,6 +966,395 @@ def phase_step_time(torch, card):
              probe.gid, state.params.capacity)
 
 
+def phase_k4(torch, card):
+    """K4 against its plain version on packed [B, T, H*D] inputs at the
+    main path's shapes; returns the record of the ds1 shape for the
+    kernels line (launches filled in later). The launches made here are
+    taken off the counters again."""
+    import torch.nn.functional as F
+
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.diffusion import flash_attention as fa
+
+    records = []
+    saved = dict(_kernels.LAUNCHES)
+    for b, t, h, d, dtype in K4_SHAPES:
+        gen = torch.Generator(device=DEVICE).manual_seed(b * h + t)
+        q, k, v = (torch.randn((b, t, h * d), generator=gen, device=DEVICE)
+                   .to(getattr(torch, dtype)) for _ in range(3))
+        scale = d ** -0.5
+        with torch.no_grad():
+            out = fa.flash_attention(q, k, v, h, scale)
+            again = fa.flash_attention(q, k, v, h, scale)
+            folded = fa.flash_mha(fa._fold(q, h), fa._fold(k, h),
+                                  fa._fold(v, h), scale)
+            plain = fa.flash_attention_ref(q, k, v, h, scale)
+            err = float((out.float() - plain.float()).abs().max())
+            rel = err / float(plain.float().abs().max())
+            equal = torch.equal(out, again)
+            same_folded = torch.equal(fa._unfold(folded, h), out)
+            ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, h, scale),
+                         20)
+            plain_ms = cuda_ms(
+                torch, lambda: fa.flash_attention_ref(q, k, v, h, scale), 3)
+            qh, kh, vh = (x.view(b, t, h, d).transpose(1, 2)
+                          for x in (q, k, v))
+            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, scale=scale), 20)
+        flop = 4 * b * h * t * t * d
+        t_ops = max(flop / BF16_FLOP_PER_S, b * h * t * t / SFU_OP_PER_S)
+        t_bytes = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   library_ms=lib_ms)
+        records.append(rec)
+        print(f"[12 K4 {dtype} [{b}, {t}, {h}*{d}], {h} heads] max abs err "
+              f"{err:.4g} (bar {K4_ABS_TOL}), rel {rel:.4g} (bar "
+              f"{K4_REL_TOL}) | bit-equal on a second run: {equal}, equal "
+              f"to K4 on the folded [{b * h}, {t}, {d}]: {same_folded} | "
+              f"kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}), SDPA {lib_ms:.4f} ms (yardstick only) "
+              f"| {card}", flush=True)
+        if not (torch.isfinite(out).all() and equal and same_folded
+                and err <= K4_ABS_TOL and rel <= K4_REL_TOL):
+            fail(f"K4 disagrees with its plain version at [{b}, {t}, "
+                 f"{h}*{d}] {dtype}")
+    _kernels.LAUNCHES.update(saved)
+    return records[0]
+
+
+def _tiny_svd_config():
+    import argparse
+
+    from multiview_inpaint_tpu_torch.pipelines import svd_test
+    return svd_test._engine_config(argparse.Namespace(
+        tiny_model=True, num_frames=3, num_steps=2))
+
+
+def perturb_zero_params(torch, module, seed, std=0.02):
+    """Move every all-zero parameter (the zero-initialised output convs
+    and projections, zero convs, mix factors, biases) to seeded N(0,
+    std^2) values, so that a mis-wired block or a wrong kernel shows in
+    the output; returns how many tensors moved."""
+    gen = torch.Generator(device=module.device).manual_seed(seed)
+    moved = 0
+    with torch.no_grad():
+        for p in module.parameters():
+            if not p.any():
+                p.copy_(std * torch.randn(p.shape, generator=gen,
+                                          device=p.device))
+                moved += 1
+    return moved
+
+
+def _svd_batch(torch, frames, h, w, dev, seed):
+    rng = np.random.default_rng(seed)
+    frame = rng.uniform(-1, 1, (1, h, w, 3)).astype(np.float32)
+    batch = {"cond_frames_without_noise": frame, "cond_frames": frame,
+             "fps_id": np.array([6.0], np.float32),
+             "motion_bucket_id": np.array([127.0], np.float32),
+             "cond_aug": np.array([0.0], np.float32),
+             "control_hint": rng.uniform(0, 1, (frames, h, w, 7)).astype(
+                 np.float32)}
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def f32_spacing(torch, x):
+    """The spacing of f32 numbers at each entry of the f32 tensor ``x``."""
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 24)
+
+
+def phase_svd_engine(torch):
+    """The tiny SVD engine on DEVICE against the CPU, same weights (every
+    all-zero parameter moved), same injected noise, f32 with TF32 off:
+    conditioning, one guided denoiser evaluation, a 2-step sample, and
+    the CPU's latents decoded on both."""
+    from multiview_inpaint_tpu_torch.diffusion import engine, samplers
+
+    cfg = _tiny_svd_config()
+    cpu = engine.init_engine(cfg, seed=0, device="cpu")
+    moved = perturb_zero_params(torch, cpu, 1)
+    gpu = engine.init_engine(cfg, seed=1, device=DEVICE)
+    gpu.load_reference_state_dict(cpu.reference_state_dict())
+    noise = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(3, 8, 6, 4)).astype(np.float32))
+    sig = torch.full((6,), cfg.sigma_max)
+    outs = []
+    for eng, dev in ((cpu, "cpu"), (gpu, DEVICE)):
+        b = _svd_batch(torch, 3, 64, 48, dev, 2)
+        c = eng.prepare_cond(b)
+        uc = eng.prepare_cond(b, unconditional=True)
+        uc["control_hint"] = c["control_hint"]
+        gx, gs, gc = eng.guider.prepare(noise.to(dev) * cfg.sigma_max,
+                                        sig[:3].to(dev), c, uc)
+        den = eng.denoise_fn()(gx, gs, gc)
+        z = eng.sample(c, uc, noise=noise)
+        z_cpu = z if dev == "cpu" else outs[0]["latents"].to(dev)
+        outs.append(dict(c, denoiser=den, latents=z,
+                         frames=eng.decode_first_stage(z_cpu, 3)))
+    a, b = outs
+    z_cpu = a.pop("latents")
+    dz = (b.pop("latents").cpu() - z_cpu).abs()
+    rel = {k: float((b[k].cpu() - a[k]).abs().max())
+           / max(float(a[k].abs().max()), 1e-6) for k in a}
+    spacing = f32_spacing(torch, samplers.prepare_x(
+        noise, torch.tensor([cfg.sigma_max])).abs())
+    z_bar = (SVD_F32_REL_TOL * float(z_cpu.abs().max())
+             + SVD_X0_ULPS * spacing)
+    print(f"[13 svd engine] tiny engine {DEVICE} vs cpu (f32, TF32 off, "
+          f"{moved} all-zero parameters moved): max abs err / max|cpu| "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in rel.items()})} "
+          f"(bar {SVD_F32_REL_TOL}; frames decode the cpu's latents on "
+          f"both) | 2-step latents: max abs err {float(dz.max()):.4g}, "
+          f"{float((dz / spacing).max()):.3g} f32 spacings at the entry's "
+          f"|x0| at most, {float((dz / z_bar).max()):.3g} of the bar "
+          f"({SVD_F32_REL_TOL} of max|latents| + {SVD_X0_ULPS} spacings)",
+          flush=True)
+    if any(v > SVD_F32_REL_TOL for v in rel.values()) or (dz > z_bar).any():
+        fail(f"the SVD engine on {DEVICE} disagrees with the cpu")
+
+
+class SvdProbe:
+    """CUDA events around what ``svd_test.run`` calls on its engine:
+    ``prepare_cond`` (conditioning: CLIP + VAE encode), each denoiser
+    evaluation of ``sample`` (one per sampler step) and
+    ``decode_first_stage``; keeps the engine and the sampler's
+    conditioning. ``attach`` wraps the engine instance's methods."""
+
+    def __init__(self, torch):
+        self.torch, self.engine, self.conds = torch, None, None
+        self.ev = {"cond": [], "step": [], "sample_end": [], "decode": []}
+        self.peak_gb = {}
+
+    def event(self, key):
+        e = self.torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.ev[key].append(e)
+
+    def attach(self, eng):
+        self.engine = eng
+        prepare, sample = eng.prepare_cond, eng.sample
+        decode, denoise_fn = eng.decode_first_stage, eng.denoise_fn
+
+        def peak(key, fn, *a, **kw):
+            """fn's result; the peak of allocated device memory while it
+            ran, per key."""
+            self.torch.cuda.reset_peak_memory_stats()
+            out = fn(*a, **kw)
+            self.peak_gb[key] = max(self.peak_gb.get(key, 0.0),
+                                    self.torch.cuda.max_memory_allocated()
+                                    / 1e9)
+            return out
+
+        def timed(fn, key):
+            def run(*a, **kw):
+                self.event(key)
+                out = peak(key, fn, *a, **kw)
+                self.event(key)
+                return out
+            return run
+
+        def probed_sample(cond, uc, **kw):
+            self.conds = (cond, uc)
+            out = peak("sample", sample, cond, uc, **kw)
+            self.event("sample_end")
+            return out
+
+        def probed_denoise_fn():
+            dn = denoise_fn()
+
+            def run(*a):
+                self.event("step")
+                return dn(*a)
+            return run
+
+        eng.prepare_cond = timed(prepare, "cond")
+        eng.decode_first_stage = timed(decode, "decode")
+        eng.sample = probed_sample
+        eng.denoise_fn = probed_denoise_fn
+
+    def split(self):
+        """(conditioning ms, per-step ms list, decode ms)."""
+        def pairs(evs):
+            return [a.elapsed_time(b) for a, b in zip(evs[::2], evs[1::2])]
+        marks = self.ev["step"] + self.ev["sample_end"]
+        steps = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        return sum(pairs(self.ev["cond"])), steps, sum(pairs(
+            self.ev["decode"]))
+
+
+def phase_svd_main(torch, card):
+    """Main path 3: the svd_test CLI at full width on a synthetic gs/ tree
+    (1 scene, 1 ctrl, mode x1), every all-zero parameter of the random
+    engine moved and the counters zeroed before; returns the launch counts
+    and the probe (its engine and conditioning)."""
+    from PIL import Image
+
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.pipelines import svd_test
+    from multiview_inpaint_tpu_torch.utils import synthetic
+
+    work = os.path.join(REPO, "build", "smoke_svd")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "gs")
+    synthetic.write_gs_tree(root, scene="scene_case", ctrl="ctrl_0",
+                            modes=("x1",), frames=SVD_FRAMES,
+                            size=(SVD_H, SVD_W), iteration=30000)
+    probe = SvdProbe(torch)
+    init_engine = svd_test.init_engine
+    info = {}
+
+    def init(*a, **kw):
+        t0 = time.perf_counter()
+        eng = init_engine(*a, **kw)
+        info["moved"] = perturb_zero_params(torch, eng, 7)
+        torch.cuda.synchronize()
+        info["init_s"] = time.perf_counter() - t0
+        info["params"] = sum(p.numel() for p in eng.parameters())
+        probe.attach(eng)
+        return eng
+
+    svd_test.init_engine = init
+    try:
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        svd_test.main(["--data_root", root, "--logdir",
+                       os.path.join(work, "logs"), "--modes", "x1",
+                       "--num_frames", str(SVD_FRAMES), "--num_steps",
+                       str(SVD_STEPS), "--size", str(SVD_H), str(SVD_W),
+                       "--device", DEVICE])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        svd_test.init_engine = init_engine
+    launches = dict(_kernels.LAUNCHES)
+    cond_ms, steps, decode_ms = probe.split()
+    out_dir = os.path.join(root, "inpainted", "scene_case", "ctrl_0", "x1")
+    pngs = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    finite = []
+    for p in pngs:
+        with Image.open(os.path.join(out_dir, p)) as im:
+            arr = np.asarray(im, np.float32)
+        finite.append(arr.shape == (SVD_H, SVD_W, 3)
+                      and bool(np.isfinite(arr).all()))
+    clip_s = (cond_ms + sum(steps) + decode_ms) / 1e3
+    want = K4_PER_EVAL * SVD_STEPS
+    checks = {
+        f"{SVD_FRAMES} frames written": len(pngs) == SVD_FRAMES,
+        f"frames finite, {SVD_H}x{SVD_W}": bool(finite) and all(finite),
+        f"K4 launched {want} times": launches["flash_attn_fwd"] == want,
+        "no rasterizer kernel": launches["composite"] == 0,
+        f"{SVD_STEPS} denoiser evaluations": len(steps) == SVD_STEPS,
+    }
+    print(f"[14 main svd] svd_test CLI, {info.get('params')} parameters "
+          f"(bf16; the VAE f32) initialised on the card in "
+          f"{info.get('init_s', 0):.1f} s ({info.get('moved')} all-zero "
+          f"tensors moved), {SVD_FRAMES} frames at {SVD_H}x{SVD_W}, "
+          f"{SVD_STEPS} steps, CFG batch {2 * SVD_FRAMES}, in {cli_s:.1f} s | "
+          f"clip {clip_s:.2f} s: conditioning (CLIP + VAE encode, c and uc) "
+          f"{cond_ms:.1f} ms, sampler step median "
+          f"{statistics.median(steps) if steps else 0:.1f} ms (all "
+          f"{[round(s, 1) for s in steps]}), VAE decode {decode_ms:.1f} ms "
+          f"| peak device memory (GB) while each part ran "
+          f"{json.dumps({k: round(v, 2) for k, v in probe.peak_gb.items()})} "
+          f"| launches {launches} | "
+          f"{json.dumps(checks)} | {card}", flush=True)
+    if not all(checks.values()):
+        fail(f"main path 3 (svd_test CLI) checks failed: {checks}")
+    return launches, probe
+
+
+def phase_svd_eval(torch, card, probe):
+    """One full-width guided denoiser evaluation at sigma_max, q and k
+    projections scaled by SVD_QK_GAIN: through K4; with ``attention_op``'s
+    K4 call patched to the plain version; patched to two planted faults
+    (the plain version without the first 64-key tile, and K4 with the
+    scale that an exp2 softmax without log2(e) would give); through K4
+    from another noise seed."""
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.diffusion import (attention_op,
+                                                       flash_attention)
+    from multiview_inpaint_tpu_torch.diffusion.transformer import (
+        CrossAttention)
+
+    eng = probe.engine
+    cond, uc = probe.conds
+    shape = (SVD_FRAMES, SVD_H // 8, SVD_W // 8, 4)
+    sigma = torch.full((SVD_FRAMES,), eng.cfg.sigma_max, device=DEVICE)
+    with torch.no_grad():
+        for m in eng.modules():
+            if isinstance(m, CrossAttention):
+                m.to_q.weight.mul_(SVD_QK_GAIN)
+                m.to_k.weight.mul_(SVD_QK_GAIN)
+    real = attention_op.flash_attention
+    ref = flash_attention.flash_attention_ref
+    logit_std = []
+
+    def k4_logged(q, k, v, heads, sm):
+        """K4; notes the std of one ds1 head's logits on 256 rows."""
+        if not logit_std and q.shape[1] == 3072:
+            d = q.shape[2] // heads
+            s = q[0, :256, :d].float() @ k[0, :, :d].float().T * sm
+            logit_std.append(float(s.std()))
+        return real(q, k, v, heads, sm)
+
+    def evaluate(seed, attend):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        x = torch.randn(shape, generator=gen, device=DEVICE) * float(
+            (1 + eng.cfg.sigma_max ** 2) ** 0.5)
+        attention_op.flash_attention = attend
+        try:
+            _kernels.reset_launches()
+            gx, gs, gc = eng.guider.prepare(x, sigma, cond, uc)
+            out = eng.denoise_fn()(gx, gs, gc)
+            torch.cuda.synchronize()
+        finally:
+            attention_op.flash_attention = real
+        return out, _kernels.LAUNCHES["flash_attn_fwd"]
+
+    out_k4, n_k4 = evaluate(11, k4_logged)
+    out_plain, n_plain = evaluate(11, ref)
+    out_drop, _ = evaluate(11, lambda q, k, v, h, sm: ref(
+        q, k[:, flash_attention.BLOCK:], v[:, flash_attention.BLOCK:], h,
+        sm))
+    out_base, _ = evaluate(11, lambda q, k, v, h, sm: real(
+        q, k, v, h, sm * math.log(2)))
+    out_seed, _ = evaluate(12, real)
+    scale = float(out_plain.abs().max())
+
+    def diff(a, b):
+        return float((a - b).abs().max())
+
+    def rms(a, b):
+        return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+    err, drop, base = (rms(o, out_plain) for o in (out_k4, out_drop,
+                                                   out_base))
+    seed_diff = rms(out_seed, out_k4)
+    bar = SVD_EVAL_RMS_TOL
+    print(f"[15 svd eval] one guided denoiser evaluation at sigma "
+          f"{eng.cfg.sigma_max} (batch {2 * SVD_FRAMES}), q and k x"
+          f"{SVD_QK_GAIN} (logit std of a ds1 head {logit_std}): K4 "
+          f"launches {n_k4}, with attention_op's K4 call patched to the "
+          f"plain version {n_plain} | relative rms diff from the "
+          f"plain-attention output: K4 {err:.4g} (max abs "
+          f"{diff(out_k4, out_plain):.4g} of max|plain| {scale:.4g}), bar "
+          f"{bar}; planted faults: first key tile dropped {drop:.4g} (max "
+          f"abs {diff(out_drop, out_plain):.4g}), softmax base 2 "
+          f"{base:.4g} (max abs {diff(out_base, out_plain):.4g}) | another "
+          f"noise seed moves it by {seed_diff:.4g} (max abs "
+          f"{diff(out_seed, out_k4):.4g}; bar at most a tenth: "
+          f"{bar <= seed_diff / 10}) | all finite: "
+          f"{bool(torch.isfinite(out_k4).all())} | {card}", flush=True)
+    if not (n_k4 == K4_PER_EVAL and n_plain == 0 and err <= bar
+            and bar < min(drop, base) and bar <= seed_diff / 10
+            and torch.isfinite(out_k4).all()):
+        fail("the full-width denoiser through K4 disagrees with the plain "
+             "attention, or the bar does not separate the planted faults")
+
+
 def main():
     import torch
 
@@ -926,6 +1379,10 @@ def main():
     launches = phase_main(torch, card)
     launches_train, k3 = phase_train(torch, card)
     phase_step_time(torch, card)
+    k4 = phase_k4(torch, card)
+    phase_svd_engine(torch)
+    launches_svd, probe = phase_svd_main(torch, card)
+    phase_svd_eval(torch, card, probe)
 
     k1, k2 = frames["big2m"]   # the render main path's scene and shapes
     kernels = [
@@ -945,8 +1402,14 @@ def main():
              replaces="multiview_inpaint_tpu/ops/rasterizer/"
                       "pallas_backward.py:54",
              launches=launches_train["composite_bwd"], **k3),
+        # K4 at the ds1 shape of main path 3, the path that runs it.
+        dict(name="flash_attn_fwd", route="cuda",
+             source="multiview_inpaint_tpu_torch/csrc/flash_attn_fwd.cu",
+             replaces="multiview_inpaint_tpu/diffusion/"
+                      "flash_attention.py:55",
+             launches=launches_svd["flash_attn_fwd"], **k4),
     ]
-    print(f"[12 done] all phases passed in "
+    print(f"[16 done] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Build, bind and count the rasterizer's CUDA kernels.
+"""Build, bind and count the port's CUDA kernels.
 
 The sources in ``multiview_inpaint_tpu_torch/csrc/*.cu`` export a plain C
 interface (``composite_common.cuh`` holds the per-splat math that the
@@ -8,7 +8,9 @@ together, and linked into ``build/kernels/libmvi_kernels.so`` at the root
 of the checkout, which is then loaded with ``ctypes``. A stamp of the
 sources, the header and the flags lets later processes reuse the library.
 Every pointer and the stream pass as ``c_void_p``; each C function
-returns ``cudaGetLastError()`` and ``check`` raises on anything but 0.
+returns ``cudaGetLastError()`` (or an argument error) and ``check`` raises
+on anything but 0. The rasterizer (K1-K3) and the diffusion stack (K4)
+share this one build.
 
 ``LAUNCHES`` counts kernel launches by name: each wrapper adds one where
 it launches its kernel, and nowhere else.
@@ -26,20 +28,24 @@ from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[2]
+_PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIB_NAME = "libmvi_kernels.so"
-SOURCES = ("pair_expand.cu", "composite.cu", "composite_bwd.cu")
+SOURCES = ("pair_expand.cu", "composite.cu", "composite_bwd.cu",
+           "flash_attn_fwd.cu")
 HEADERS = ("composite_common.cuh",)
 # No --use_fast_math: __expf/__logf would break the 3e-5 parity bar.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"pair_expand": 0, "composite": 0, "composite_bwd": 0}
+LAUNCHES = {"pair_expand": 0, "composite": 0, "composite_bwd": 0,
+            "flash_attn_fwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # starts, x0, y0, w, count, n_active, tiles_x, keys, stream
     "mvi_expand_keys": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
@@ -49,6 +55,10 @@ _SIGNATURES = {
     # attrs, seg_start, counts, fwd, grad, d_attrs, num_tiles, tiles_x,
     # tile_w, tile_h, stream
     "mvi_composite_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # q, k, v, o, lse (or NULL), is_f32, batch, heads, t, d, batch
+    # stride, row stride, head stride, scale, stream
+    "mvi_flash_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
+                           _L, _F, _P),
 }
 
 _lib = None

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _kernels
+from ... import kernels as _kernels
 from .composite import (NROWS, OUT_ROWS, alpha_gate, composite_segments,
                         composite_segments_bwd)
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _kernels
+from ... import kernels as _kernels
 
 KEY_SHIFT = 32  # tile id in the high word, depth rank in the low word
 

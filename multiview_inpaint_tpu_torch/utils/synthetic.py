@@ -214,6 +214,42 @@ def write_orbit_colmap_scene(root, params, yaws, width, height,
     return [v[0] for v in views]
 
 
+def write_gs_tree(root, scene="scene_case", ctrl="ctrl_0", modes=("x1",),
+                  frames=14, size=(512, 384), iteration=30000, seed=0):
+    """A synthetic gs/ hand-off tree for ``svd_test``, seeded PNGs at
+    (H, W) = ``size``: ``ctrl1/<scene>/<ctrl>.png``, for each mode
+    ``seq/<scene>/<mode>/ours_<iteration>/{renders,mask}/NN.png`` (smooth
+    colour fields; a box mask drifting across the orbit) and
+    ``depth/<scene>/<mode>/NN.png`` (a depth ramp as a grey image)."""
+    h, w = size
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w),
+                         indexing="ij")
+
+    def field(phase):
+        c = rng.uniform(0.5, 3.0, (3, 2))
+        img = [0.5 + 0.4 * np.sin(2 * np.pi * (c[i, 0] * xx + c[i, 1] * yy)
+                                  + phase + i) for i in range(3)]
+        return np.stack(img, -1).astype(np.float32)
+
+    scene_io.save_image(os.path.join(root, "ctrl1", scene, f"{ctrl}.png"),
+                        field(0.0))
+    for mode in modes:
+        seq = os.path.join(root, "seq", scene, mode, f"ours_{iteration}")
+        for i in range(frames):
+            v = f"{i:02d}"
+            scene_io.save_image(os.path.join(seq, "renders", f"{v}.png"),
+                                field(0.3 * i))
+            mask = np.zeros((h, w), np.float32)
+            x0 = int(w * (0.2 + 0.3 * i / max(frames - 1, 1)))
+            mask[h // 4:h // 2 + h // 8, x0:x0 + w // 3] = 1.0
+            scene_io.save_image(os.path.join(seq, "mask", f"{v}.png"), mask)
+            depth = np.repeat((0.2 + 0.6 * yy + 0.1 * np.sin(
+                6 * xx + i))[..., None], 3, -1).astype(np.float32)
+            scene_io.save_image(os.path.join(root, "depth", scene, mode,
+                                             f"{v}.png"), depth)
+
+
 def write_bench_colmap_scene(root, yaws=(0.0, -0.06, 0.06, 0.12),
                              n_points=1000, seed=0):
     """A COLMAP scene of bench cameras at the given yaws (1920x1080,

@@ -148,3 +148,96 @@ def test_cuda_train_step_matches_cpu_train_step():
     assert float((b.stats.grad_accum.cpu() - a.stats.grad_accum)
                  .abs().max()) <= bar
     assert torch.equal(b.stats.max_radii2d.cpu(), a.stats.max_radii2d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bar", [(torch.bfloat16, 0.02),
+                                       (torch.float32, 0.02)])
+def test_cuda_flash_attention_matches_plain_k4(dtype, bar):
+    """K4 against its plain version at unit-normal inputs: within the
+    JAX test's 0.02 (bf16 rounding of p, and of q, k, v for f32 inputs),
+    the [B, T, H*D] layout equal to the folded one, and bit for bit from
+    one run to the next."""
+    _require_cuda()
+    from multiview_inpaint_tpu_torch import kernels
+    from multiview_inpaint_tpu_torch.diffusion import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((2, 768, 2 * 64), generator=gen,
+                           device="cuda").to(dtype) for _ in range(3))
+    before = kernels.LAUNCHES["flash_attn_fwd"]
+    with torch.no_grad():
+        got = fa.flash_attention(q, k, v, 2, 0.125)
+        again = fa.flash_attention(q, k, v, 2, 0.125)
+        want = fa.flash_attention_ref(q, k, v, 2, 0.125)
+
+        def fold(x):
+            return x.reshape(2, 768, 2, 64).transpose(1, 2).reshape(
+                4, 768, 64).contiguous()
+        folded, lse = fa.flash_mha(fold(q), fold(k), fold(v), 0.125,
+                                   save_lse=True)
+    assert kernels.LAUNCHES["flash_attn_fwd"] == before + 3
+    assert got.dtype == dtype and torch.equal(got, again)
+    assert float((got.float() - want.float()).abs().max()) < bar
+    assert torch.equal(fold(got), folded)
+    s = torch.einsum("bqd,bkd->bqk", fold(q).float(), fold(k).float())
+    assert float((lse - torch.logsumexp(s * 0.125, -1)).abs().max()) < 0.02
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_svd_engine_matches_cpu():
+    """The tiny SVD engine (svd_test --tiny_model, 3 frames at 64x48) on
+    CUDA against the same weights on the CPU, every zero-initialised layer
+    moved off zero, f32 with TF32 off (the bars of chip_smoke.py's phase
+    13): the conditioning, and one set of latents decoded on both, within
+    1e-4 of their largest magnitude; the latents of a 2-step sample within
+    1e-4 of theirs plus 4 f32 spacings at each entry's |x0| (the first
+    Euler step cancels x0 = 700 * noise down to the denoised latents)."""
+    _require_cuda()
+    import argparse
+
+    from multiview_inpaint_tpu_torch.diffusion import engine, samplers
+    from multiview_inpaint_tpu_torch.pipelines import svd_test
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = svd_test._engine_config(argparse.Namespace(
+            tiny_model=True, num_frames=3, num_steps=2))
+        cpu = engine.init_engine(cfg, seed=0, device="cpu")
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for p in cpu.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=gen))
+        gpu = engine.init_engine(cfg, seed=1, device="cuda")
+        gpu.load_reference_state_dict(cpu.reference_state_dict())
+        rng = np.random.default_rng(2)
+        frame = rng.uniform(-1, 1, (1, 64, 48, 3)).astype(np.float32)
+        batch = {"cond_frames_without_noise": frame, "cond_frames": frame,
+                 "fps_id": np.array([6.0], np.float32),
+                 "motion_bucket_id": np.array([127.0], np.float32),
+                 "cond_aug": np.array([0.0], np.float32),
+                 "control_hint": rng.uniform(0, 1, (3, 64, 48, 7)).astype(
+                     np.float32)}
+        noise = torch.from_numpy(rng.normal(size=(3, 8, 6, 4)).astype(
+            np.float32))
+        outs = []
+        for eng, dev in ((cpu, "cpu"), (gpu, "cuda")):
+            b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            c = eng.prepare_cond(b)
+            uc = eng.prepare_cond(b, unconditional=True)
+            uc["control_hint"] = c["control_hint"]
+            z = eng.sample(c, uc, noise=noise)
+            z_cpu = z if dev == "cpu" else outs[0][1].to(dev)
+            outs.append((c, z, eng.decode_first_stage(z_cpu, 3)))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    (c0, z0, f0), (c1, z1, f1) = outs
+    for a, b in [(c0[k], c1[k]) for k in c0] + [(f0, f1)]:
+        bar = 1e-4 * float(a.abs().max()) + 1e-6
+        assert float((b.cpu() - a).abs().max()) <= bar
+    x0 = samplers.prepare_x(noise, torch.tensor([cfg.sigma_max])).abs()
+    spacing = torch.ldexp(torch.ones_like(x0), torch.frexp(x0).exponent - 24)
+    assert ((z1.cpu() - z0).abs()
+            <= 1e-4 * float(z0.abs().max()) + 4 * spacing).all()

@@ -33,8 +33,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                             "multiview_inpaint_tpu"))
-        print(len(mods), bad)
-        sys.exit(1 if bad or len(mods) < 20 else 0)
+        slice4 = {pkg.__name__ + "." + m for m in (
+            "diffusion.flash_attention", "diffusion.engine",
+            "data.svd_dataset", "pipelines.svd_test")}
+        print(len(mods), bad, sorted(slice4 - set(mods)))
+        sys.exit(1 if bad or len(mods) < 35 or not slice4 <= set(mods)
+                 else 0)
     """)
     assert r.returncode == 0, r.stdout + r.stderr[-3000:]
 
@@ -49,7 +53,8 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
             RenderCamera, render)
         from multiview_inpaint_tpu_torch.gs import checkpoint
         from multiview_inpaint_tpu_torch.pipelines import render as cli
-        from multiview_inpaint_tpu_torch.pipelines import train_gs
+        from multiview_inpaint_tpu_torch.pipelines import svd_test, train_gs
+        from multiview_inpaint_tpu_torch.diffusion import engine
         from multiview_inpaint_tpu_torch.utils import synthetic
         params = synthetic.make_gt_gaussians(8, device="cpu")
         cam = RenderCamera.from_camera(synthetic.bench_camera(), "cpu")
@@ -59,7 +64,10 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
                          synthetic.bench_camera()),
                      lambda: cli.main(["-s", "scene", "-m", "model"]),
                      lambda: train_gs.main(["-s", "scene", "-m", "model"]),
-                     lambda: checkpoint.load_train_state("chkpnt.npz")):
+                     lambda: checkpoint.load_train_state("chkpnt.npz"),
+                     lambda: svd_test.main(["--data_root", "gs",
+                                            "--tiny_model"]),
+                     lambda: engine.init_engine()):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call()
         print("all raised")
