@@ -84,9 +84,37 @@ non-zero:
     faults (a dropped key tile, a softmax in the wrong exponent base)
     move (relative rms of the difference) and at most a tenth of what a
     change of noise seed moves;
-16. the ``kernels`` JSON line (K1 and K2 at main path 1's big2m frame, K3
-    at main path 2's first step, K4 at main path 3's ds1 shape); the last
-    line is the ``ok`` JSON object.
+16. K5 (flash-attention backward) against its plain version as main path
+    4 calls it, on the packed projections of one video, [14, 3072, 5*64]
+    (ds1) and [14, 768, 10*64] (ds2) bf16, and [2, 768, 64] f32, with o and
+    the logsumexp from K4 and a seeded cotangent: dq, dk, dv within 0.02
+    of max|plain| and 0.01 relative rms, bit-equal on a second run; kernel,
+    plain and bound ms, and the backward of PyTorch's
+    ``scaled_dot_product_attention`` timed as a yardstick (never called by
+    the port);
+17. the gradient of one full-width ds1 SpatialVideoTransformer (320
+    channels, 5 heads, 14 frames at 64x48, bf16, q and k scaled x3 as in
+    phase 15) through K4 + K5 against the same block with
+    ``flash_attention.FlashAttention`` patched to the plain forward and
+    backward, and to two planted K5 faults (no delta term; the
+    first 64-key tile's contribution dropped): relative rms of the input
+    and parameter gradients, a bar the faults exceed;
+18. one train step of the tiny SVD engine (``svd_train --tiny_model``, 3
+    frames at 64x48, f32, TF32 off) on CUDA against the CPU with the same
+    weights, draws and data: loss, every ControlNet gradient and the
+    parameters after the Adam step;
+19. main path 4: the ``svd_train`` CLI at full width (``EngineConfig()``'s
+    networks, 2.9B random bf16 parameters with every all-zero one moved,
+    bf16 compute and parameters, 14 frames at 512x384, batch 1, ``--ema``)
+    for a few steps on a ``write_est_tree`` tree, counters zeroed before:
+    K5 and K4 launched exactly 10 and 14 times per step, finite losses,
+    the UNet, VAE and CLIP bit-unchanged and the ControlNet moved, the EMA
+    checkpoint written and read back equal; step time, peak device memory,
+    the checkpoint's save time and the share of ControlNet entries the
+    first bf16 Adam step changed;
+20. the ``kernels`` JSON line (K1 and K2 at main path 1's big2m frame, K3
+    at main path 2's first step, K4 at main path 3's ds1 shape, K5 at main
+    path 4's ds1 shape); the last line is the ``ok`` JSON object.
 
 Build outputs and the scenes go under ``build/`` in the checkout.
 """
@@ -176,6 +204,27 @@ SVD_QK_GAIN = 3.0
 # those roundings: each latent may differ between the two devices by 4
 # spacings of f32 at its own |x0| besides 1e-4 of max|latents|.
 SVD_F32_REL_TOL, SVD_X0_ULPS = 1e-4, 4
+# K5 as main path 4 calls it: the packed projections of one video (the
+# training batch of 14 frames) at ds1 and ds2, and once in f32. Bars: 0.02
+# of max|plain| (K4's) and 0.01 relative rms (bf16 rounding of p and ds,
+# and of every operand for f32 inputs).
+K5_SHAPES = ((14, 3072, 5, 64, "bfloat16"), (14, 768, 10, 64, "bfloat16"),
+             (2, 768, 1, 64, "float32"))
+K5_REL_TOL, K5_RMS_TOL = 0.02, 0.01
+# Main path 4 (the svd_train CLI at full width): scenes of 14 frames at
+# 512x384, one epoch of one step per scene, batch 1. Per step, K5 runs on
+# every long self-attention with a gradient (the ControlNet trunk's 2 + 2
+# ds1/ds2 blocks and the UNet decoder's 3 + 3) and K4 on those and the
+# UNet encoder's 2 + 2 (no gradient there: its inputs carry none).
+TRAIN_SVD_SCENES = 4
+K5_PER_STEP, K4_PER_TRAIN_STEP = 10, 14
+# The full-width transformer gradient through K4 + K5 against the plain
+# forward and backward: relative rms of the difference of all gradients
+# (input and parameters) at most this. The bar lies between the sound
+# reading (0.0044 on an H100) and the smaller of two planted K5 faults'
+# (0.0299: the first key tile dropped; 0.168: no delta term), near their
+# geometric mean.
+K5_GRAD_RMS_TOL = 0.012
 
 
 def fail(msg):
@@ -631,7 +680,8 @@ def phase_main(torch, card):
     launches = dict(_kernels.LAUNCHES)
     n_views = len(names)
     if launches != {"pair_expand": n_views, "composite": n_views,
-                    "composite_bwd": 0, "flash_attn_fwd": 0}:
+                    "composite_bwd": 0, "flash_attn_fwd": 0,
+                    "flash_attn_bwd": 0}:
         fail(f"main path 1 launches {launches}, expected {n_views} each "
              f"of the forward kernels")
     out_dir = os.path.join(model, "train", "ours_1", "renders")
@@ -1038,7 +1088,8 @@ def perturb_zero_params(torch, module, seed, std=0.02):
     and projections, zero convs, mix factors, biases) to seeded N(0,
     std^2) values, so that a mis-wired block or a wrong kernel shows in
     the output; returns how many tensors moved."""
-    gen = torch.Generator(device=module.device).manual_seed(seed)
+    gen = torch.Generator(device=next(module.parameters()).device
+                          ).manual_seed(seed)
     moved = 0
     with torch.no_grad():
         for p in module.parameters():
@@ -1355,6 +1406,404 @@ def phase_svd_eval(torch, card, probe):
              "attention, or the bar does not separate the planted faults")
 
 
+def _rms(a, b):
+    """Relative rms of a - b against b (f32)."""
+    a, b = a.float(), b.float()
+    return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+
+def phase_k5(torch, card):
+    """K5 against its plain version on packed [B, T, H*D] inputs at main
+    path 4's shapes, o and the logsumexp from K4, a seeded cotangent;
+    returns the record of the ds1 shape for the kernels line (launches
+    filled in later). The launches made here are taken off the counters
+    again."""
+    import torch.nn.functional as F
+
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.diffusion import flash_attention as fa
+
+    records = []
+    saved = dict(_kernels.LAUNCHES)
+    for b, t, h, d, dtype in K5_SHAPES:
+        gen = torch.Generator(device=DEVICE).manual_seed(b * h + t + 5)
+        q, k, v, do = (torch.randn((b, t, h * d), generator=gen,
+                                   device=DEVICE).to(getattr(torch, dtype))
+                       for _ in range(4))
+        scale = d ** -0.5
+        with torch.no_grad():
+            o, lse = fa._launch(q, k, v, h, scale, True)
+            args = (q, k, v, o, lse, do, h, scale)
+            got = fa.flash_attention_bwd(*args)
+            again = fa.flash_attention_bwd(*args)
+            plain = fa.flash_attention_bwd_ref(*args)
+            rel = max(float((g.float() - p.float()).abs().max())
+                      / float(p.float().abs().max())
+                      for g, p in zip(got, plain))
+            rms = max(_rms(g, p) for g, p in zip(got, plain))
+            err = max(float((g.float() - p.float()).abs().max())
+                      for g, p in zip(got, plain))
+            equal = all(torch.equal(x, y) for x, y in zip(got, again))
+            finite = all(bool(torch.isfinite(x).all()) for x in got)
+            ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(*args), 10)
+            plain_ms = cuda_ms(
+                torch, lambda: fa.flash_attention_bwd_ref(*args), 2)
+        qh, kh, vh = (x.view(b, t, h, d).transpose(1, 2).detach()
+                      .requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+        doh = do.view(b, t, h, d).transpose(1, 2)
+        lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, (qh, kh, vh), doh, retain_graph=True), 10)
+        del out
+        flop = 10 * b * h * t * t * d
+        t_ops = max(flop / BF16_FLOP_PER_S, b * h * t * t / SFU_OP_PER_S)
+        t_bytes = (7 * q.numel() * q.element_size()
+                   + 2 * lse.numel() * 4) / HBM_BYTES_PER_S
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   library_ms=lib_ms)
+        records.append(rec)
+        print(f"[16 K5 {dtype} [{b}, {t}, {h}*{d}], {h} heads] dq/dk/dv max "
+              f"abs err {err:.4g}, / max|plain| {rel:.4g} (bar "
+              f"{K5_REL_TOL}), relative rms {rms:.4g} (bar {K5_RMS_TOL}) | "
+              f"bit-equal on a second run: {equal}, finite: {finite} | "
+              f"kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}), SDPA backward {lib_ms:.4f} ms "
+              f"(yardstick only) | {card}", flush=True)
+        if not (finite and equal and rel <= K5_REL_TOL
+                and rms <= K5_RMS_TOL):
+            fail(f"K5 disagrees with its plain version at [{b}, {t}, "
+                 f"{h}*{d}] {dtype}")
+    _kernels.LAUNCHES.update(saved)
+    return records[0]
+
+
+def _plain_bwd(torch, q, k, v, o, lse, do, heads, scale, fault=None):
+    """Plain K5 on packed tensors (``flash_attention_bwd_ref``), or one of
+    two planted faults: "delta" (delta = 0) or "tile" (the first 64 keys'
+    contribution dropped from dq, dk and dv)."""
+    from multiview_inpaint_tpu_torch.diffusion import flash_attention as fa
+    if fault is None:
+        return fa.flash_attention_bwd_ref(q, k, v, o, lse, do, heads, scale)
+    if fault == "delta":
+        return fa.flash_attention_bwd_ref(q, k, v, torch.zeros_like(o), lse,
+                                          do, heads, scale)
+    n0 = fa.BLOCK
+    qf, kf, vf, of_, dof = (fa._fold(x, heads) for x in (q, k, v, o, do))
+    dt = q.dtype
+    delta = (dof.float() * of_.float()).sum(-1)
+    dof = dof.to(dt).float()
+    s = torch.einsum("bqd,bkd->bqk", qf.float(), kf.float()) * scale
+    p = torch.exp(s - lse[..., None])
+    p[:, :, :n0] = 0
+    dv = torch.einsum("bqk,bqd->bkd", p.to(dt).float(), dof)
+    dp = torch.einsum("bqd,bkd->bqk", dof, vf.float())
+    ds = (p * (dp - delta[..., None]) * scale).to(dt).float()
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf.float())
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf.float())
+    return tuple(fa._unfold(g.to(dt), heads) for g in (dq, dk, dv))
+
+
+def phase_k5_grad(torch, card):
+    """The gradients of one full-width ds1 SpatialVideoTransformer (to_q,
+    to_k x SVD_QK_GAIN, every all-zero parameter moved) through K4 + K5,
+    against the same block with ``flash_attention.FlashAttention`` (the
+    differentiable flash call) patched to the plain forward and backward
+    and to two planted K5 faults."""
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.diffusion import flash_attention
+    from multiview_inpaint_tpu_torch.diffusion.transformer import (
+        SpatialVideoTransformer)
+
+    bf = torch.bfloat16
+    torch.manual_seed(17)
+    block = SpatialVideoTransformer(320, 5, 64, context_dim=1024,
+                                    device=DEVICE, dtype=bf)
+    moved = perturb_zero_params(torch, block, 18)
+    with torch.no_grad():
+        for blk in block.transformer_blocks:
+            for lin in (blk.attn1.to_q, blk.attn1.to_k):
+                lin.weight.mul_(SVD_QK_GAIN)
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    x = torch.randn((SVD_FRAMES, 320, SVD_H // 8, SVD_W // 8),
+                    generator=gen, device=DEVICE).to(bf)
+    ctx = torch.randn((SVD_FRAMES, 1, 1024), generator=gen,
+                      device=DEVICE).to(bf)
+    cot = torch.randn(x.shape, generator=gen, device=DEVICE)
+    ind = torch.zeros((1, SVD_FRAMES), device=DEVICE)
+    params = [p for p in block.parameters()]
+    real = flash_attention.FlashAttention
+
+    class Plain(torch.autograd.Function):
+        """Plain K4 forward, plain K5 (or a fault) backward."""
+        fault = None
+
+        @staticmethod
+        def forward(ctx_, q, k, v, heads, scale):
+            out = flash_attention.flash_attention_ref(q, k, v, heads, scale)
+            lse = flash_attention.lse_ref(flash_attention._fold(q, heads),
+                                          flash_attention._fold(k, heads),
+                                          scale)
+            ctx_.save_for_backward(q, k, v, out, lse)
+            ctx_.heads, ctx_.scale = heads, scale
+            return out
+
+        @staticmethod
+        def backward(ctx_, do):
+            q, k, v, out, lse = ctx_.saved_tensors
+            return (*_plain_bwd(torch, q, k, v, out, lse, do.contiguous(),
+                                ctx_.heads, ctx_.scale, Plain.fault),
+                    None, None)
+
+    def grads(fn, fault=None):
+        Plain.fault = fault
+        flash_attention.FlashAttention = fn
+        try:
+            _kernels.reset_launches()
+            xi = x.detach().requires_grad_()
+            out = block(xi, ctx, SVD_FRAMES, ind)
+            g = torch.autograd.grad((out.float() * cot).sum(),
+                                    [xi] + params)
+            torch.cuda.synchronize()
+        finally:
+            flash_attention.FlashAttention = real
+        counts = (_kernels.LAUNCHES["flash_attn_fwd"],
+                  _kernels.LAUNCHES["flash_attn_bwd"])
+        return torch.cat([t.float().reshape(-1) for t in g]), g[0], counts
+
+    g_k, gx_k, n_k = grads(real)
+    g_p, gx_p, n_p = grads(Plain)
+    g_d, _, _ = grads(Plain, "delta")
+    g_t, _, _ = grads(Plain, "tile")
+    err, delta_rms, tile_rms = (_rms(g, g_p) for g in (g_k, g_d, g_t))
+    err_x = _rms(gx_k, gx_p)
+    bar = K5_GRAD_RMS_TOL
+    print(f"[17 K5 grad] ds1 SpatialVideoTransformer (320 ch, 5 heads, "
+          f"{SVD_FRAMES} frames at {SVD_H // 8}x{SVD_W // 8}, bf16, "
+          f"{moved} all-zero tensors moved, q and k x{SVD_QK_GAIN}): "
+          f"K4/K5 launches {n_k}, patched to the plain path {n_p} | "
+          f"relative rms of all {g_p.numel()} gradient entries vs plain: "
+          f"K4+K5 {err:.4g} (input gradient alone {err_x:.4g}), bar {bar}; "
+          f"planted K5 faults: no delta {delta_rms:.4g}, first key tile "
+          f"dropped {tile_rms:.4g} | finite: "
+          f"{bool(torch.isfinite(g_k).all())} | {card}", flush=True)
+    if not (n_k == (1, 1) and n_p == (0, 0) and err <= bar
+            and bar < min(delta_rms, tile_rms)
+            and torch.isfinite(g_k).all()):
+        fail("the full-width transformer gradient through K4 + K5 "
+             "disagrees with the plain path, or the bar does not separate "
+             "the planted faults")
+
+
+def phase_svd_train_step(torch):
+    """One train step of the tiny SVD engine on DEVICE against the CPU:
+    same weights (every all-zero parameter moved), data, sigma and noise,
+    f32 with TF32 off. Bars: the loss at SVD_F32_REL_TOL relative, every
+    ControlNet gradient within SVD_F32_REL_TOL of its max|g| + 1e-7, and
+    the parameters after one Adam step within lr * 1e-3 where |g| >= 1e-6
+    (well above eps: the step is g / (|g| + eps), sign-like); entries
+    below are counted."""
+    import argparse
+
+    from multiview_inpaint_tpu_torch.diffusion import engine
+    from multiview_inpaint_tpu_torch.parallel import svd_data_parallel as dp
+    from multiview_inpaint_tpu_torch.pipelines import svd_train
+
+    cfg = svd_train._engine_config(argparse.Namespace(
+        tiny_model=True, num_frames=3, pose_cond=False, warp_loss=False))
+    cpu = engine.init_engine(cfg, seed=0, device="cpu")
+    perturb_zero_params(torch, cpu, 21)
+    gpu = engine.init_engine(cfg, seed=1, device=DEVICE)
+    gpu.load_reference_state_dict(cpu.reference_state_dict())
+    rng = np.random.default_rng(22)
+    lat = rng.normal(size=(1, 3, 8, 6, 4)).astype(np.float32)
+    noise = rng.normal(size=lat.shape).astype(np.float32)
+    sig = np.array([1.7], np.float32)
+    lr = 1e-4
+    out = []
+    for eng, dev in ((cpu, "cpu"), (gpu, DEVICE)):
+        b = _svd_batch(torch, 3, 64, 48, dev, 23)
+        c = eng.prepare_cond(b)
+        cond_b = {k: v[None] for k, v in c.items()}
+        params = dp.trainable_params(eng)
+        opt = dp.build_optimizer(lr)
+        state = opt.init(params)
+        before = {k: p.detach().clone() for k, p in params.items()}
+        lat_t = torch.from_numpy(lat).to(dev)
+        lat_f, cond, _ = dp.flatten_videos(lat_t, cond_b)
+        loss = eng.loss(lat_f, cond, sigmas=torch.from_numpy(sig).to(dev),
+                        noise=torch.from_numpy(noise).to(dev).reshape(
+                            lat_f.shape))
+        g = torch.autograd.grad(loss, list(params.values()))
+        opt.step(params, dict(zip(params, g)), state)
+        out.append((float(loss.detach()),
+                    {k: x.cpu() for k, x in zip(params, g)},
+                    {k: p.detach().cpu() for k, p in params.items()},
+                    before))
+    (l0, g0, p0, _), (l1, g1, p1, _) = out
+    gmax = max(float(x.abs().max()) for x in g0.values())
+    g_bad = sum(int(((g1[k] - g0[k]).abs()
+                     > SVD_F32_REL_TOL * float(g0[k].abs().max()) + 1e-7)
+                    .sum()) for k in g0)
+    big = {k: g0[k].abs() >= 1e-6 for k in g0}
+    p_err = max(float((p1[k] - p0[k]).abs()[big[k]].max())
+                if big[k].any() else 0.0 for k in p0)
+    small = sum(int((~big[k]).sum()) for k in big)
+    total = sum(x.numel() for x in g0.values())
+    loss_rel = abs(l1 - l0) / abs(l0)
+    print(f"[18 svd train step] tiny engine train step {DEVICE} vs cpu (f32, "
+          f"TF32 off): loss {l0:.6g} vs {l1:.6g} (rel {loss_rel:.3g}, bar "
+          f"{SVD_F32_REL_TOL}) | ControlNet gradients: {g_bad} of {total} "
+          f"entries beyond {SVD_F32_REL_TOL} of their tensor's max|g| + 1e-7 "
+          f"(max|g| {gmax:.4g}) | params after one Adam step (lr {lr}): max "
+          f"diff {p_err:.3g} where |g| >= 1e-6 (bar {lr * 1e-3}); {small} "
+          f"entries below counted, not compared", flush=True)
+    if loss_rel > SVD_F32_REL_TOL or g_bad or p_err > lr * 1e-3:
+        fail(f"the tiny SVD train step on {DEVICE} disagrees with the cpu")
+
+
+def _fingerprints(torch, module):
+    """Per-tensor position-weighted sums of the raw bits: any change of a
+    bit of a parameter changes its fingerprint."""
+    out = {}
+    with torch.no_grad():
+        for k, p in module.state_dict().items():
+            bits = p.contiguous().view(
+                {2: torch.int16, 4: torch.int32}[p.element_size()]).reshape(
+                -1).to(torch.int64)
+            w = torch.arange(bits.numel(), device=p.device) % 65521 + 1
+            out[k] = int((bits * w).sum())
+    return out
+
+
+def phase_svd_train(torch, card):
+    """Main path 4: the svd_train CLI at full width, counters zeroed
+    before; returns its launch counts."""
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.diffusion import checkpoint as ckpt
+    from multiview_inpaint_tpu_torch.pipelines import svd_train
+    from multiview_inpaint_tpu_torch.utils import synthetic
+
+    work = os.path.join(REPO, "build", "smoke_svd_train")
+    shutil.rmtree(work, ignore_errors=True)
+    root, logdir = os.path.join(work, "est"), os.path.join(work, "logs")
+    t0 = time.perf_counter()
+    synthetic.write_est_tree(root, scenes=TRAIN_SVD_SCENES,
+                             frames=SVD_FRAMES, size=(SVD_H, SVD_W))
+    tree_s = time.perf_counter() - t0
+    info = {"step_s": [], "save_s": []}
+    init_engine, make_step = svd_train.init_engine, svd_train.make_train_step
+    save_params = ckpt.save_params
+
+    def init(*a, **kw):
+        t1 = time.perf_counter()
+        eng = init_engine(*a, **kw)
+        info["moved"] = perturb_zero_params(torch, eng, 27)
+        torch.cuda.synchronize()
+        info["init_s"] = time.perf_counter() - t1
+        info["params"] = sum(p.numel() for p in eng.parameters())
+        info["engine"] = eng
+        info["frozen"] = {n: _fingerprints(torch, getattr(eng, n))
+                          for n in ("unet", "vae", "clip")}
+        info["cn0"] = {k: p.detach().clone()
+                       for k, p in eng.controlnet.named_parameters()}
+        return eng
+
+    def make(eng, optimizer, params, ema_decay=None):
+        step = make_step(eng, optimizer, params, ema_decay)
+
+        def timed(*a, **kw):
+            info["ema"] = a[1]
+            before = ({k: p.detach().clone() for k, p in params.items()}
+                      if not info["step_s"] else None)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss = step(*a, **kw)
+            torch.cuda.synchronize()
+            info["step_s"].append(time.perf_counter() - t1)
+            if before is not None:
+                n = sum(p.numel() for p in params.values())
+                info["changed_first"] = sum(
+                    int((p.detach() != before[k]).sum())
+                    for k, p in params.items()) / n
+            return loss
+        return timed
+
+    def timed_save(*a, **kw):
+        t1 = time.perf_counter()
+        save_params(*a, **kw)
+        info["save_s"].append(time.perf_counter() - t1)
+
+    svd_train.init_engine, svd_train.make_train_step = init, make
+    ckpt.save_params = timed_save
+    try:
+        _kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        svd_train.main(["--data_root", root, "--logdir", logdir,
+                        "--epochs", "1", "--num_frames", str(SVD_FRAMES),
+                        "--size", str(SVD_H), str(SVD_W), "--ckpt_every",
+                        "1", "--log_interval", "1", "--ema", "--device",
+                        DEVICE])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        svd_train.init_engine, svd_train.make_train_step = init_engine, \
+            make_step
+        ckpt.save_params = save_params
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(_kernels.LAUNCHES)
+    eng = info.pop("engine")
+    steps = len(info["step_s"])
+    with open(os.path.join(logdir, "svd_train_log.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    frozen_same = {n: _fingerprints(torch, getattr(eng, n))
+                   == info["frozen"][n] for n in ("unet", "vae", "clip")}
+    cn_moved = sum(int((p.detach() != info["cn0"][k]).sum())
+                   for k, p in eng.controlnet.named_parameters())
+    cn_total = sum(p.numel() for p in eng.controlnet.parameters())
+    path = os.path.join(logdir, "checkpoints", "epoch=000000.npz")
+    ema = info.get("ema", {})
+    read_back = os.path.exists(path) and bool(ema)
+    if read_back:   # the EMA, written as f32, reads back bit for bit
+        loaded = ckpt.state_dict_from_jax(ckpt.load_params(path),
+                                          "controlnet")
+        read_back = set(loaded) == set(ema) and all(
+            torch.equal(loaded[k].to(DEVICE, v.dtype), v)
+            for k, v in ema.items())
+    want_k5, want_k4 = K5_PER_STEP * steps, K4_PER_TRAIN_STEP * steps
+    checks = {
+        f"{TRAIN_SVD_SCENES} steps": steps == TRAIN_SVD_SCENES,
+        f"K5 launched {want_k5} times": launches["flash_attn_bwd"] == want_k5,
+        f"K4 launched {want_k4} times": launches["flash_attn_fwd"] == want_k4,
+        "losses finite": len(losses) == steps and all(
+            math.isfinite(x) for x in losses),
+        "UNet, VAE, CLIP bit-unchanged": all(frozen_same.values()),
+        "ControlNet moved": cn_moved > 0,
+        "checkpoint written and read back": read_back,
+    }
+    step_ms = [round(x * 1e3, 1) for x in info["step_s"]]
+    print(f"[19 main svd train] svd_train CLI, {info.get('params')} "
+          f"parameters (bf16; the VAE f32; {info.get('moved')} all-zero "
+          f"tensors moved) initialised in {info.get('init_s', 0):.1f} s, "
+          f"{TRAIN_SVD_SCENES} scenes of {SVD_FRAMES} frames at {SVD_H}x"
+          f"{SVD_W} written in {tree_s:.1f} s, 1 epoch at batch 1, --ema, "
+          f"remat none, in {cli_s:.1f} s | step ms (host clock, "
+          f"synchronised) {step_ms}, median after the first "
+          f"{statistics.median(step_ms[1:]) if steps > 1 else 0} | losses "
+          f"{[round(x, 4) for x in losses]} | peak device memory "
+          f"{peak_gb:.2f} GB | checkpoint save s {info['save_s']} | "
+          f"ControlNet entries changed by the first step "
+          f"{info.get('changed_first', 0):.4f}, by the run "
+          f"{cn_moved / cn_total:.4f} of {cn_total} | launches {launches} | "
+          f"{json.dumps(checks)} | {card}", flush=True)
+    if not all(checks.values()):
+        fail(f"main path 4 (svd_train CLI) checks failed: {checks}")
+    return launches
+
+
 def main():
     import torch
 
@@ -1383,6 +1832,12 @@ def main():
     phase_svd_engine(torch)
     launches_svd, probe = phase_svd_main(torch, card)
     phase_svd_eval(torch, card, probe)
+    del probe   # main path 3's engine
+    torch.cuda.empty_cache()
+    k5 = phase_k5(torch, card)
+    phase_k5_grad(torch, card)
+    phase_svd_train_step(torch)
+    launches_svd_train = phase_svd_train(torch, card)
 
     k1, k2 = frames["big2m"]   # the render main path's scene and shapes
     kernels = [
@@ -1408,8 +1863,15 @@ def main():
              replaces="multiview_inpaint_tpu/diffusion/"
                       "flash_attention.py:55",
              launches=launches_svd["flash_attn_fwd"], **k4),
+        # K5 at the ds1 shape of main path 4, the path that runs it; one
+        # launch is the dk/dv kernel and the dq kernel back to back.
+        dict(name="flash_attn_bwd", route="cuda",
+             source="multiview_inpaint_tpu_torch/csrc/flash_attn_bwd.cu",
+             replaces="multiview_inpaint_tpu/diffusion/"
+                      "flash_attention.py:117",
+             launches=launches_svd_train["flash_attn_bwd"], **k5),
     ]
-    print(f"[16 done] all phases passed in "
+    print(f"[20 done] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

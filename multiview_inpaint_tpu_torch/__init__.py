@@ -7,11 +7,14 @@ of a port tensor is row i of the reference array:
 - ``ops``       — KNN init and the splat rasterizer, whose TPU kernels are
                   hand-written CUDA for Hopper (``csrc/``).
 - ``diffusion`` — the multi-view SVD inpainting model (VideoUNet,
-                  ControlNet, VAE, CLIP tower, Euler-EDM sampling), whose
-                  long self-attention runs a hand-written CUDA
-                  flash-attention kernel.
-- ``data``      — the SVD inference dataset.
-- ``pipelines`` — stage CLIs (``render``, ``train_gs``, ``svd_test``).
+                  ControlNet, VAE, CLIP tower, Euler-EDM sampling, the
+                  diffusion losses), whose long self-attention runs
+                  hand-written CUDA flash-attention kernels (forward and
+                  backward).
+- ``data``      — the SVD inference and training datasets, warp maps.
+- ``parallel``  — the ControlNet train step: Adam as optax, EMA.
+- ``pipelines`` — stage CLIs (``render``, ``train_gs``, ``svd_test``,
+                  ``svd_train``).
 - ``utils``     — SH, schedules, graphics, synthetic scenes.
 - ``kernels``   — builds, binds and counts the CUDA kernels of ``csrc/``.
 

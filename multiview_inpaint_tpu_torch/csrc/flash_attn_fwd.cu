@@ -39,9 +39,7 @@
 // heads = 1. T must be a multiple of 64, D one of 16 ... 128 in steps of
 // 16; the wrapper checks both.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_attn_common.cuh"
 
 namespace {
 
@@ -49,53 +47,7 @@ constexpr int BQ = 64;       // query rows per block, 16 per warp
 constexpr int BK = 64;       // keys per staged tile
 constexpr int THREADS = 128;
 constexpr int PAD = 8;       // bf16 elements of padding per shared row
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 constexpr float NEG = -1e30f;  // the TPU kernel's initial row max
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo, low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Two consecutive elements (an even column) as one bf16 pair.
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t load_pair(const float* p) {
-  const float2 f = *reinterpret_cast<const float2*>(p);
-  return pack_bf16(f.x, f.y);
-}
-
-// Eight consecutive elements (16-byte aligned) as eight bf16.
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-__device__ __forceinline__ uint4 load8(const float* p) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
-                    pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
-}
-
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
-                                           float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
-}
-__device__ __forceinline__ void store_pair(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 operands, f32 accumulator.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
@@ -120,18 +72,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // This warp's 16 query rows as A fragments: rows g and g + 8, columns
   // 16 kk + 2 tig (+1) and 16 kk + 8 + 2 tig (+1).
   uint32_t qf[D / 16][4];
-  {
-    const T* q0 = q + base + (long long)(row0 + g) * st;
-    const T* q8 = q0 + 8 * st;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + tig * 2;
-      qf[kk][0] = load_pair(q0 + c);
-      qf[kk][1] = load_pair(q8 + c);
-      qf[kk][2] = load_pair(q0 + c + 8);
-      qf[kk][3] = load_pair(q8 + c + 8);
-    }
-  }
+  load_a_rows<T, D>(qf, q + base + (long long)row0 * st, st, g, tig);
 
   float acc[D / 8][4];
 #pragma unroll

@@ -4,12 +4,15 @@ Counterpart of ``multiview_inpaint_tpu/diffusion/attention_op.py``, with
 the JAX op's routing and one rule more: long self-attention (``tq == tk``,
 T >= 768, T a multiple of 256, head dim <= 128 and a multiple of 16, the
 kernel's tensor-core step, which the JAX op does not ask) on a CUDA tensor
-runs the flash-attention kernel K4 (``flash_attention.flash_attention``);
-every other shape (the temporal blocks' 14 frames, cross-attention to the
-one CLIP token, the ds4 and middle spatial blocks) and every CPU tensor
-takes K4's plain version (``flash_attention.flash_attention_ref``): f32
-logits and softmax, p cast to the working type, p.v in that type, as
-``jax.nn.dot_product_attention`` computes it. The plain math materialises
+runs the flash-attention kernel K4 (``flash_attention.flash_attention``,
+no logsumexp written; when an input carries a gradient, K4 saving the
+logsumexp with K5 as its backward, the JAX op's ``flash_mha`` custom
+VJP); every other shape (the temporal blocks' 14 frames, cross-attention
+to the one CLIP token, the ds4 and middle spatial blocks) and every CPU
+tensor takes K4's plain version (``flash_attention.flash_attention_ref``,
+differentiated by autograd): f32 logits and softmax, p cast to the
+working type, p.v in that type, as ``jax.nn.dot_product_attention``
+computes it. The plain math materialises
 the ``[B, H, T, T]`` f32 logits (5.3 GB per ds1 layer of the SVD step),
 which is why the long shapes never take it on the card. The port calls no
 library attention (``scaled_dot_product_attention``,
@@ -26,7 +29,8 @@ FLASH_MIN_LEN = 768
 
 
 def routes_to_flash(tq: int, tk: int, head_dim: int) -> bool:
-    """Whether a self-attention shape goes to K4 (on a CUDA tensor)."""
+    """Whether a self-attention shape goes to K4 (and K5 for its
+    gradient) on a CUDA tensor."""
     return (tq == tk and tq >= FLASH_MIN_LEN and tq % 256 == 0
             and head_dim <= 128 and head_dim % 16 == 0)
 

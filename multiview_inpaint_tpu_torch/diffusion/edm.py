@@ -1,9 +1,11 @@
-"""EDM math: the Karras sigma ladder, the denoiser scalings, ``denoise``.
+"""EDM math: the Karras sigma ladder, the denoiser scalings, ``denoise``,
+sigma sampling and loss weighting.
 
 Counterpart of ``multiview_inpaint_tpu/diffusion/edm.py`` (the
-reference's ``discretizer.py`` EDMDiscretization(0.002, 700, rho 7) and
-``denoiser_scaling.py``) for inference: sigma sampling and loss weights
-belong to the training slice.
+reference's ``discretizer.py`` EDMDiscretization(0.002, 700, rho 7),
+``denoiser_scaling.py``, ``sigma_sampling.py`` EDMSampling (lognormal,
+p_mean 1.0, p_std 1.6) and ``loss_weighting.py`` EDMWeighting(sigma_data
+1)).
 """
 
 from __future__ import annotations
@@ -58,3 +60,30 @@ def denoise(net_apply, x, sigma, scaling="v_edm_cnoise"):
     shape = (-1,) + (1,) * (x.ndim - 1)
     out = net_apply(x * c_in.reshape(shape), c_noise)
     return out * c_out.reshape(shape) + x * c_skip.reshape(shape)
+
+
+# --- sigma sampling and loss weighting ----------------------------------
+
+def edm_sigma_sample(shape, p_mean: float = 1.0, p_std: float = 1.6,
+                     generator=None, device=None, normal=None):
+    """Lognormal sigmas exp(p_mean + p_std n), n a standard normal of
+    ``shape`` drawn from ``generator`` unless given as ``normal``."""
+    if normal is None:
+        normal = torch.randn(shape, generator=generator, device=device)
+    return torch.exp(p_mean + p_std * normal)
+
+
+def edm_weighting(sigma, sigma_data: float = 1.0):
+    return (sigma ** 2 + sigma_data ** 2) / (sigma * sigma_data) ** 2
+
+
+def v_weighting(sigma):
+    return edm_weighting(sigma, sigma_data=1.0)
+
+
+def eps_weighting(sigma):
+    return sigma ** -2.0
+
+
+def unit_weighting(sigma):
+    return torch.ones_like(sigma)

@@ -1,10 +1,9 @@
-"""SVDEngine, the paper's ControlNet-augmented multi-view SVD model:
-inference.
+"""SVDEngine, the paper's ControlNet-augmented multi-view SVD model.
 
-Counterpart of the inference half of
-``multiview_inpaint_tpu/diffusion/engine.py`` (the reference's
-``models/csvd.py`` SVDEngine): the networks are ``nn.Module``s held by
-the engine, not a parameter pytree beside it.
+Counterpart of ``multiview_inpaint_tpu/diffusion/engine.py`` (the
+reference's ``models/csvd.py`` SVDEngine) for plain sampling and
+ControlNet training: the networks are ``nn.Module``s held by the engine,
+not a parameter pytree beside it.
 
 - ``apply_model``: concat [x, cond concat] (4 + 4 channels), run the
   ControlNet on the 7-channel hint, add its 13 residuals (x
@@ -17,15 +16,26 @@ the engine, not a parameter pytree beside it.
 - ``init_engine`` builds every network on the requested device and copies
   the UNet's encoder and middle into the ControlNet trunk
   (``init_controlnet_from_unet``).
-- first stage: KL-VAE encode (latents x 0.18215) and VideoDecoder decode,
-  always in f32.
+- first stage: KL-VAE encode (latents x 0.18215; the posterior's mode, or
+  a sample from injected noise) and VideoDecoder decode, always in f32.
+- ``loss``: the InpaintDiffusionLoss (one sigma per video, EDM weighting,
+  optionally the warp-consistency term) around ``denoise_fn``; every
+  network is frozen except what ``svd_data_parallel.trainable_params``
+  opens (the ControlNet, plus the UNet's label embedding when asked), so
+  autograd keeps only the activations between those weights and the
+  loss: the ControlNet trunk, the UNet's middle and decoder (where the
+  control residuals enter), and the encoder too when the label embedding
+  trains.
 
-Precision: the UNet and the ControlNet hold their weights in the compute
-type, rounded through the parameter type first (the JAX engine stores
-``param_dtype`` weights and casts them to the compute type per call); the
-CLIP tower stores ``param_dtype`` weights and computes in f32 on the f32
-frames; the VAE is f32. Training (``loss``) and the blended/inversion
-samplers wait for later slices.
+Precision: the ControlNet and the UNet's label embedding hold
+``param_dtype`` weights (the master weights of training) and are cast to
+the compute type per call, as the JAX engine casts all its weights; the
+rest of the UNet holds its weights in the compute type, rounded through
+the parameter type first (the same values the JAX cast gives). The CLIP
+tower stores ``param_dtype`` weights and computes in f32 on the f32
+frames; the VAE is f32. ``cfg.remat`` recomputes blocks in the backward
+pass (``UNetConfig.remat``). The blended and inversion samplers wait for
+a later slice.
 """
 
 from __future__ import annotations
@@ -36,8 +46,10 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from torch.func import functional_call
+
 from ..utils.device import DEFAULT_DEVICE, resolve_device
-from . import edm, samplers
+from . import edm, losses, samplers
 from .checkpoint import PREFIXES
 from .clip_vit import CLIPVisionTower, ViTConfig
 from .conditioners import (Conditioner, ConditionerConfig,
@@ -65,6 +77,7 @@ class EngineConfig:
     control_scales: float = 1.0
     scaling: str = "v_edm_cnoise"
     compute_dtype: str = "float32"  # "bfloat16" for mixed precision
+    remat: bool | str = False       # False, "all" (or True), "attn"
     vector_keys: tuple = ("fps_id", "motion_bucket_id", "cond_aug")
 
 
@@ -74,13 +87,11 @@ def _dtype(name) -> torch.dtype:
 
 def build_models(cfg: EngineConfig, device=None, param_dtype=torch.float32):
     """(VideoUNet, ControlNet, AutoencoderKL, CLIPVisionTower), their
-    parameters created on ``device``: the UNet and the ControlNet in
-    ``param_dtype`` then cast to the compute type, the VAE in f32, the
-    CLIP tower in ``param_dtype``."""
-    pd, cd = _dtype(param_dtype), _dtype(cfg.compute_dtype)
-    net = dict(device=device, dtype=pd)
-    return (VideoUNet(cfg.unet, **net).to(cd),
-            ControlNet(cfg.unet, cfg.hint_channels, **net).to(cd),
+    parameters created on ``device`` in ``param_dtype``, the VAE in f32.
+    The engine's ``remat`` threads into the UNet config (both networks)."""
+    net = dict(device=device, dtype=_dtype(param_dtype))
+    ucfg = dataclasses.replace(cfg.unet, remat=cfg.remat or cfg.unet.remat)
+    return (VideoUNet(ucfg, **net), ControlNet(ucfg, cfg.hint_channels, **net),
             AutoencoderKL(cfg.vae, device=device, dtype=torch.float32),
             CLIPVisionTower(cfg.vit, **net))
 
@@ -95,7 +106,14 @@ class SVDEngine(nn.Module):
         self.compute_dtype = _dtype(cfg.compute_dtype)
         self.unet, self.controlnet, self.vae, self.clip = build_models(
             cfg, device, param_dtype)
-        self.requires_grad_(False)   # inference: every network is frozen
+        # The trunk copies the UNet's param_dtype weights, as the JAX
+        # init_engine copies its stored ones; then the frozen UNet but its
+        # label embedding goes to the compute type.
+        self.init_controlnet_from_unet()
+        for name, child in self.unet.named_children():
+            if name != "label_emb":
+                child.to(self.compute_dtype)
+        self.requires_grad_(False)   # frozen until trainable_params
         self.guider = LinearPredictionGuider(
             max_scale=cfg.cfg_max, min_scale=cfg.cfg_min,
             num_frames=cfg.num_frames, additional_cond_keys=("control_hint",))
@@ -141,10 +159,15 @@ class SVDEngine(nn.Module):
 
     # --- first stage -----------------------------------------------------
     @torch.no_grad()
-    def encode_first_stage(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, H, W, 3] in [-1, 1] -> scaled latents [B, H/8, W/8, 4]
-        (the posterior's mode)."""
-        return SCALE_FACTOR * self.vae.encode(x.float()).mode()
+    def encode_first_stage(self, x: torch.Tensor,
+                           noise: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+        """x [B, H, W, 3] in [-1, 1] -> scaled latents [B, H/8, W/8, 4]:
+        the posterior's mode, or with ``noise`` (a standard normal of the
+        latents' shape) its sample mean + std * noise."""
+        post = self.vae.encode(x.float())
+        return SCALE_FACTOR * (post.mode() if noise is None
+                               else post.sample(noise.float()))
 
     @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor, timesteps: int = 1):
@@ -162,11 +185,23 @@ class SVDEngine(nn.Module):
             cfg=ConditionerConfig(vector_keys=tuple(self.cfg.vector_keys)))
 
     # --- core denoising path --------------------------------------------
-    @torch.no_grad()
+    def _cast_call(self, module: nn.Module, *args, **kwargs):
+        """``module`` with its weights not in the compute type (the
+        ``param_dtype`` masters) cast to it for this call, differentiably;
+        the module itself when none is."""
+        dt = self.compute_dtype
+        cast = {k: p.to(dt) for k, p in module.named_parameters()
+                if p.dtype != dt}
+        if not cast:
+            return module(*args, **kwargs)
+        return functional_call(module, cast, args, kwargs)
+
     def apply_model(self, x: torch.Tensor, t_noise: torch.Tensor,
                     cond: Dict) -> torch.Tensor:
         """x [(b t), h, w, 4] scaled latents; cond holds the per-frame
-        crossattn / vector / concat and the control hint (image size)."""
+        crossattn / vector / concat and the control hint (image size).
+        Differentiable in the trainable weights; sampling calls it under
+        ``torch.no_grad``."""
         cfg = self.cfg
         t = cfg.num_frames
         bt = x.shape[0]
@@ -179,12 +214,13 @@ class SVDEngine(nn.Module):
 
         xc = torch.cat([x, cond["concat"]], dim=-1).to(dt)
         ctx, vec = cast("crossattn"), cast("vector")
-        control = self.controlnet(xc, cond["control_hint"].to(dt), t_noise,
-                                  ctx, vec, num_video_frames=t,
-                                  image_only_indicator=ind)
+        control = self._cast_call(
+            self.controlnet, xc, cond["control_hint"].to(dt), t_noise, ctx,
+            vec, num_video_frames=t, image_only_indicator=ind)
         control = [c * cfg.control_scales for c in control]
-        out = self.unet(xc, t_noise, ctx, vec, num_video_frames=t,
-                        image_only_indicator=ind, control=control)
+        out = self._cast_call(self.unet, xc, t_noise, ctx, vec,
+                              num_video_frames=t, image_only_indicator=ind,
+                              control=control)
         return out.float()
 
     def denoise_fn(self):
@@ -212,6 +248,20 @@ class SVDEngine(nn.Module):
                                          sigmas, guider=self.guider,
                                          generator=generator)
 
+    # --- training --------------------------------------------------------
+    def loss(self, latents: torch.Tensor, cond: Dict,
+             warp: Optional[Dict] = None,
+             sigmas: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Mean InpaintDiffusionLoss of latents ``[(b t), h, w, 4]``: one
+        sigma per video (``sigmas`` ``[b]``) and ``noise`` of the latents'
+        shape, injected or drawn from ``generator``."""
+        return losses.inpaint_diffusion_loss(
+            self.denoise_fn(), latents, cond,
+            num_video_frames=self.cfg.num_frames, warp=warp, sigmas=sigmas,
+            noise=noise, generator=generator).mean()
+
     @torch.no_grad()
     def prepare_cond(self, batch: Dict, aug_noise=None,
                      unconditional: bool = False) -> Dict:
@@ -228,15 +278,13 @@ class SVDEngine(nn.Module):
 def init_engine(cfg: EngineConfig = EngineConfig(), seed: int = 0,
                 device=DEFAULT_DEVICE, param_dtype=None) -> SVDEngine:
     """A randomly initialised engine, every parameter created on
-    ``device`` from ``seed`` (the ControlNet trunk then copied from the
-    UNet). ``param_dtype`` (default f32) is the storage type of the UNet,
+    ``device`` from ``seed`` (the ControlNet trunk copied from the UNet).
+    ``param_dtype`` (default f32) is the storage type of the UNet,
     ControlNet and CLIP weights; the VAE stays f32."""
     dev = resolve_device(device)
     cards = ([dev.index if dev.index is not None else
               torch.cuda.current_device()] if dev.type == "cuda" else [])
     with torch.random.fork_rng(devices=cards):
         torch.manual_seed(seed)
-        eng = SVDEngine(cfg, device=dev,
-                        param_dtype=param_dtype or torch.float32)
-    eng.init_controlnet_from_unet()
-    return eng
+        return SVDEngine(cfg, device=dev,
+                         param_dtype=param_dtype or torch.float32)

@@ -1,21 +1,25 @@
-"""The flash-attention forward kernel (K4) and its plain version.
+"""The flash-attention kernels, forward (K4) and backward (K5), and their
+plain versions.
 
 Counterpart of ``multiview_inpaint_tpu/diffusion/flash_attention.py``
-(``_kernel`` via ``_flash_fwd_impl`` and ``flash_mha``): non-causal,
+(``_kernel`` via ``_flash_fwd_impl``, ``_bwd_kernel`` via
+``_flash_bwd_impl``, and the ``flash_mha`` custom VJP): non-causal,
 unmasked multi-head attention with f32 logits, an f32 softmax, p rounded
-to the value type before p.v, and an f32 sum. The CUDA source is
+to the value type before p.v, and an f32 sum. The CUDA sources are
 ``csrc/flash_attn_fwd.cu`` (one block per head and 64-row query tile,
-bf16 tensor-core products, the online softmax in registers; its note says
-more). f32 inputs are rounded to bf16 as the kernel stages them, so the
-f32 path keeps bf16 operands with f32 sums, as the TPU kernel's products
-do; its output differs from the f32 plain version by bf16 rounding of q,
-k, v and p (a few 1e-3 at unit-normal inputs).
+bf16 tensor-core products, the online softmax in registers) and
+``csrc/flash_attn_bwd.cu`` (a dk/dv pass per 64-key tile and a dq pass per
+64-query tile, from the forward's row logsumexp; their notes say more).
+f32 inputs are rounded to bf16 as the kernels stage them, so the f32 path
+keeps bf16 operands with f32 sums, as the TPU kernels' products do; its
+results differ from the f32 plain versions by bf16 rounding of the
+operands (a few 1e-3 at unit-normal inputs).
 
-The backward (K5) belongs to the training slice: on CUDA the wrapper
-raises for inputs that require a gradient rather than differentiate
-through the plain version.
+``FlashAttention`` is the differentiable form: its forward is K4 with the
+logsumexp saved, its backward K5, on CUDA tensors; on CPU tensors both
+are the plain versions.
 
-Two layouts reach the kernel without a copy: folded ``[B*H, T, D]``
+Two layouts reach the kernels without a copy: folded ``[B*H, T, D]``
 (``flash_mha``) and packed ``[B, T, H*D]`` (``flash_attention``, the
 projections as ``attention_op`` holds them).
 """
@@ -45,6 +49,28 @@ def lse_ref(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
     return torch.logsumexp(s, dim=-1)
 
 
+def mha_bwd_ref(q, k, v, o, lse, do, scale: float):
+    """Plain K5 on ``[BH, T, D]``: (dq, dk, dv) in the input type from the
+    forward's output ``o`` and row logsumexp ``lse`` ``[BH, T]`` f32 and
+    the output's cotangent ``do``, step by step as the JAX kernel computes
+    them: delta = rowsum(dO o) in f32, p = exp(s scale - lse), dv = p^T dO
+    with p rounded to the input type, dp = dO v^T, ds = p (dp - delta)
+    scale rounded to the input type, dk = ds^T q, dq = ds k, every product
+    summed in f32."""
+    dt = q.dtype
+    delta = (do.float() * o.float()).sum(-1)
+    do = do.to(dt).float()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+    p = torch.exp(s - lse[..., None])
+    dv = torch.einsum("bqk,bqd->bkd", p.to(dt).float(), do)
+    dp = torch.einsum("bqd,bkd->bqk", do, vf)
+    ds = (p * (dp - delta[..., None]) * scale).to(dt).float()
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf)
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
 def _fold(x: torch.Tensor, heads: int) -> torch.Tensor:
     b, t, hd = x.shape
     return x.reshape(b, t, heads, hd // heads).transpose(1, 2).reshape(
@@ -63,59 +89,146 @@ def flash_attention_ref(q, k, v, heads: int, scale: float) -> torch.Tensor:
                            _fold(v, heads), scale), heads)
 
 
+def flash_attention_bwd_ref(q, k, v, o, lse, do, heads: int, scale: float):
+    """Plain K5 on packed ``[B, T, H*D]`` (``lse`` ``[B*H, T]``):
+    ``mha_bwd_ref`` per head."""
+    grads = mha_bwd_ref(*(_fold(x, heads) for x in (q, k, v, o)), lse,
+                        _fold(do, heads), scale)
+    return tuple(_unfold(g, heads) for g in grads)
+
+
+def _check(name, q, others, heads):
+    """The kernels' argument rules: same contiguous shape, type and device
+    for every operand; bf16 or f32; T a multiple of 64; head dim in
+    ``HEAD_DIMS``; 16-byte aligned."""
+    n, t, hd = q.shape
+    d = hd // heads if heads > 0 else 0
+    for x in (q,) + tuple(others):
+        if (x.device != q.device or x.dtype != q.dtype or x.shape != q.shape
+                or not x.is_contiguous()):
+            raise ValueError(f"{name}: operands must be contiguous "
+                             f"{q.dtype} [{n}, {t}, {hd}] tensors on "
+                             f"{q.device}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: dtype {q.dtype} (bf16 or f32)")
+    if heads <= 0 or d * heads != hd or d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd}/{heads} not in {HEAD_DIMS}")
+    if t % BLOCK or t == 0:
+        raise ValueError(f"{name}: T={t} not a multiple of {BLOCK}")
+    if any(x.data_ptr() % 16 for x in (q,) + tuple(others)):
+        raise ValueError(f"{name}: operands must be 16-byte aligned")
+    return n, t, hd, d
+
+
 def _launch(q, k, v, heads: int, scale: float, save_lse: bool):
     """K4 on ``[N, T, heads*D]`` CUDA tensors read in place; returns the
     output (same shape and type) and the ``[N*heads, T]`` logsumexp or
-    None."""
-    dev = q.device
-    if any(x.requires_grad for x in (q, k, v)):
+    None. It takes no gradient: ``flash_attention`` sends inputs that
+    require one through ``FlashAttention``, whose forward calls this with
+    autograd off."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         raise RuntimeError(
-            "flash_attn_fwd: inputs require a gradient, but the backward "
-            "kernel (K5) is not ported; run inference under torch.no_grad()")
-    n, t, hd = q.shape
-    d = hd // heads if heads > 0 else 0
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if (x.device != dev or x.dtype != q.dtype or x.shape != q.shape
-                or not x.is_contiguous()):
-            raise ValueError(f"flash_attn_fwd: {name} must be a contiguous "
-                             f"{q.dtype} [{n}, {t}, {hd}] tensor on {dev}")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"flash_attn_fwd: dtype {q.dtype} (bf16 or f32)")
-    if heads <= 0 or d * heads != hd or d not in HEAD_DIMS:
-        raise ValueError(f"flash_attn_fwd: head dim {hd}/{heads} not in "
-                         f"{HEAD_DIMS}")
-    if t % BLOCK or t == 0:
-        raise ValueError(f"flash_attn_fwd: T={t} not a multiple of {BLOCK}")
-    if any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("flash_attn_fwd: inputs must be 16-byte aligned")
+            "flash_attn_fwd: inputs require a gradient; differentiate "
+            "through FlashAttention, whose backward is K5")
+    n, t, hd, d = _check("flash_attn_fwd", q, (k, v), heads)
     out = torch.empty_like(q)
-    lse = (torch.empty((n * heads, t), dtype=torch.float32, device=dev)
+    lse = (torch.empty((n * heads, t), dtype=torch.float32, device=q.device)
            if save_lse else None)
     lib = _kernels.library()
     rc = lib.mvi_flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
         int(q.dtype == torch.float32), n, heads, t, d, t * hd, hd, d,
-        float(scale), _kernels.stream_ptr(dev))
+        float(scale), _kernels.stream_ptr(q.device))
     _kernels.check(rc, "flash_attn_fwd")
     _kernels.LAUNCHES["flash_attn_fwd"] += 1
     return out, lse
 
 
-def _require_device(x: torch.Tensor) -> None:
+def _delta(do, o, heads: int) -> torch.Tensor:
+    """rowsum(dO o) in f32 per head and row, ``[N*heads, T]``."""
+    n, t, hd = o.shape
+    prod = (do.float() * o.float()).reshape(n, t, heads, hd // heads)
+    return prod.sum(-1).transpose(1, 2).reshape(n * heads, t).contiguous()
+
+
+def _launch_bwd(q, k, v, o, lse, do, heads: int, scale: float):
+    """K5 on ``[N, T, heads*D]`` CUDA tensors read in place (``do`` in
+    any float type, cast to the input type as the JAX backward does);
+    returns (dq, dk, dv) in the input's shape and type. One call is one
+    count: the dk/dv kernel and the dq kernel, launched back to back."""
+    delta = _delta(do, o, heads)
+    do = do.to(q.dtype).contiguous()
+    n, t, hd, d = _check("flash_attn_bwd", q, (k, v, do), heads)
+    for name, x in (("lse", lse), ("delta", delta)):
+        if (x.dtype != torch.float32 or x.shape != (n * heads, t)
+                or x.device != q.device or not x.is_contiguous()):
+            raise ValueError(f"flash_attn_bwd: {name} must be a contiguous "
+                             f"f32 [{n * heads}, {t}] tensor on {q.device}")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    lib = _kernels.library()
+    rc = lib.mvi_flash_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), int(q.dtype == torch.float32), n, heads, t, d,
+        t * hd, hd, d, float(scale), _kernels.stream_ptr(q.device))
+    _kernels.check(rc, "flash_attn_bwd")
+    _kernels.LAUNCHES["flash_attn_bwd"] += 1
+    return dq, dk, dv
+
+
+def _require_device(x: torch.Tensor, name: str = "flash_attn_fwd") -> None:
     if x.device.type != "cuda":
-        raise ValueError(f"flash_attn_fwd: unsupported device {x.device}")
+        raise ValueError(f"{name}: unsupported device {x.device}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     heads: int, scale: float) -> torch.Tensor:
     """Attention over packed ``[B, T, H*D]`` q/k/v (bf16 or f32, T a
     multiple of 64, D in ``HEAD_DIMS``). CPU tensors take the plain
-    version; CUDA tensors launch K4; any other device raises."""
+    version; CUDA tensors launch K4, with no logsumexp written unless an
+    input carries a gradient: then ``FlashAttention`` (K4 saving it, K5 as
+    the backward); any other device raises."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, heads, scale)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, heads, scale)
     _require_device(q)
     return _launch(q, k, v, heads, scale, False)[0]
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, heads: int, scale: float):
+    """(dq, dk, dv) of packed attention from the forward's output and
+    logsumexp: the plain version on CPU tensors, K5 on CUDA tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, heads, scale)
+    _require_device(q, "flash_attn_bwd")
+    return _launch_bwd(q, k, v, o, lse, do, heads, scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable packed attention: the forward is K4 saving the row
+    logsumexp, the backward K5 (the JAX ``flash_mha`` custom VJP); on CPU
+    tensors, their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads: int, scale: float):
+        if q.device.type == "cpu":
+            out = flash_attention_ref(q, k, v, heads, scale)
+            lse = lse_ref(_fold(q, heads), _fold(k, heads), scale)
+        else:
+            _require_device(q)
+            out, lse = _launch(q, k, v, heads, scale, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.heads, ctx.scale = heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         ctx.heads, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -10,6 +10,12 @@ this public boundary) with ``num_video_frames`` and
 ``image_only_indicator`` [b, t]. Inside, the blocks run NCHW on a
 channels-last view of the same memory.
 
+``cfg.remat`` (the reference's ``use_checkpoint``): ``"all"`` (or True)
+recomputes every VideoResBlock and SpatialVideoTransformer in the backward
+pass, ``"attn"`` only the transformers, each block on its own
+(``torch.utils.checkpoint``, non-reentrant), as the JAX package's
+``nn.remat`` per block does.
+
 ``control`` (the ControlledVideoUNet of the reference) is the list of 13
 ControlNet residuals added to the middle output and each decoder skip;
 ``extract_features=True`` returns every encoder and middle hidden state
@@ -26,6 +32,7 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import Downsample, GroupNorm32, Upsample, timestep_embedding, \
     zero_
@@ -51,20 +58,37 @@ class UNetConfig:
     # random-init net's output identically zero; False gives it a small
     # normal init instead (the JAX package's random-init training runs).
     out_zero_init: bool = True
+    # Per-block recomputation in the backward pass: False, "all" (or True)
+    # for every res and attention block, "attn" for the transformers only.
+    remat: bool | str = False
 
 
 class TimestepEmbedSequential(nn.Sequential):
     """One UNet block: a VideoResBlock, a SpatialVideoTransformer, a
-    Downsample or an Upsample (or a conv), each called with what it
-    takes."""
+    Downsample or an Upsample (or a conv), each called with what it takes;
+    the res and attention layers recomputed in the backward pass as
+    ``remat`` says."""
+
+    remat: bool | str = False
+
+    def _call(self, layer, *args):
+        full = self.remat in (True, "all")
+        if torch.is_grad_enabled() and (
+                full and isinstance(layer, VideoResBlock)
+                or (full or self.remat == "attn")
+                and isinstance(layer, SpatialVideoTransformer)):
+            return checkpoint(layer, *args, use_reentrant=False)
+        return layer(*args)
 
     def forward(self, x, emb, context, num_video_frames,
                 image_only_indicator):
         for layer in self:
             if isinstance(layer, VideoResBlock):
-                x = layer(x, emb, num_video_frames, image_only_indicator)
+                x = self._call(layer, x, emb, num_video_frames,
+                               image_only_indicator)
             elif isinstance(layer, SpatialVideoTransformer):
-                x = layer(x, context, num_video_frames, image_only_indicator)
+                x = self._call(layer, x, context, num_video_frames,
+                               image_only_indicator)
             else:
                 x = layer(x)
         return x
@@ -116,6 +140,7 @@ class VideoUNet(nn.Module):
                                                     res(ch, ch))
         self.feature_channels = chans + [ch]
         if encoder_only:
+            self._set_remat()
             return
 
         self.output_blocks = nn.ModuleList()
@@ -138,6 +163,12 @@ class VideoUNet(nn.Module):
                 out_conv.bias.zero_()
         self.out = nn.Sequential(GroupNorm32(ch0, **factory), nn.SiLU(),
                                  out_conv)
+        self._set_remat()
+
+    def _set_remat(self):
+        for m in self.modules():
+            if isinstance(m, TimestepEmbedSequential):
+                m.remat = self.cfg.remat
 
     def embed(self, timesteps, y, dtype):
         """The time (+ label) embedding [(b t), 4 ch0] in ``dtype``."""

@@ -9,8 +9,9 @@ of the checkout, which is then loaded with ``ctypes``. A stamp of the
 sources, the header and the flags lets later processes reuse the library.
 Every pointer and the stream pass as ``c_void_p``; each C function
 returns ``cudaGetLastError()`` (or an argument error) and ``check`` raises
-on anything but 0. The rasterizer (K1-K3) and the diffusion stack (K4)
-share this one build.
+on anything but 0. The rasterizer (K1-K3) and the diffusion stack (K4,
+K5; ``flash_attn_common.cuh`` holds their shared fragment helpers) share
+this one build.
 
 ``LAUNCHES`` counts kernel launches by name: each wrapper adds one where
 it launches its kernel, and nowhere else.
@@ -33,14 +34,14 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIB_NAME = "libmvi_kernels.so"
 SOURCES = ("pair_expand.cu", "composite.cu", "composite_bwd.cu",
-           "flash_attn_fwd.cu")
-HEADERS = ("composite_common.cuh",)
+           "flash_attn_fwd.cu", "flash_attn_bwd.cu")
+HEADERS = ("composite_common.cuh", "flash_attn_common.cuh")
 # No --use_fast_math: __expf/__logf would break the 3e-5 parity bar.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"pair_expand": 0, "composite": 0, "composite_bwd": 0,
-            "flash_attn_fwd": 0}
+            "flash_attn_fwd": 0, "flash_attn_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,6 +60,10 @@ _SIGNATURES = {
     # stride, row stride, head stride, scale, stream
     "mvi_flash_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
                            _L, _F, _P),
+    # q, k, v, dO, lse, delta, dq, dk, dv, is_f32, batch, heads, t, d,
+    # batch stride, row stride, head stride, scale, stream
+    "mvi_flash_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _L, _L, _L, _F, _P),
 }
 
 _lib = None

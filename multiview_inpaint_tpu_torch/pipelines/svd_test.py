@@ -78,15 +78,6 @@ def _engine_config(args) -> EngineConfig:
                         compute_dtype=args.compute_dtype)
 
 
-def _read(path: str, component=None):
-    """A weights file as a reference-keyed state dict."""
-    if path.endswith(".npz"):
-        return ckpt.state_dict_from_jax(ckpt.load_npz(path), component)
-    if path.endswith((".pth", ".ckpt")):
-        return ckpt.load_torch_state_dict(path)
-    raise ValueError(f"{path}: expected .npz (JAX layout) or .pth/.ckpt")
-
-
 def _report(name, report):
     for comp, (missing, unexpected) in report.items():
         print(f"{name} {comp}: {len(missing)} missing, {len(unexpected)} "
@@ -100,12 +91,12 @@ def run(args):
                       param_dtype=(None if args.tiny_model
                                    else args.param_dtype))
     if args.base_ckpt:
-        sd = _read(args.base_ckpt)
+        sd = ckpt.read_state_dict(args.base_ckpt)
         sd = {k: v for k, v in sd.items()
               if not k.startswith(ckpt.PREFIXES["controlnet"])}
         _report("base ckpt", eng.load_reference_state_dict(sd))
     if args.ctrl_ckpt:
-        sd = _read(args.ctrl_ckpt, component="controlnet")
+        sd = ckpt.read_state_dict(args.ctrl_ckpt, component="controlnet")
         sd = {k: v for k, v in sd.items()
               if k.startswith(ckpt.PREFIXES["controlnet"])}
         _report("ctrl ckpt", eng.load_reference_state_dict(sd))

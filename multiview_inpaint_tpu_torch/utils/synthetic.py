@@ -250,6 +250,47 @@ def write_gs_tree(root, scene="scene_case", ctrl="ctrl_0", modes=("x1",),
                                              f"{v}.png"), depth)
 
 
+def write_est_tree(root, scenes=1, frames=14, size=(512, 384), warp=False,
+                   seed=0):
+    """A synthetic training tree for ``svd_train``: for each scene
+    ``%09d/{rgb,est_depth,masks}/%05d.png`` at (H, W) = ``size`` (seeded
+    noise images; a fixed box mask) and ``poses.npy`` (camera-to-world
+    [frames, 4, 4], identity rotations on a slight zig-zag). With ``warp``
+    also ``depth/%05d.png`` (uint16 millimetres, a flat 2 m) and
+    ``metadata`` (JSON w, h and a column-major K), the
+    ``WarpSVDForwardDataset`` contract."""
+    import json
+
+    from PIL import Image
+
+    h, w = size
+    for scene in range(scenes):
+        d = os.path.join(root, f"{scene:09d}")
+        for sub in ("rgb", "est_depth", "masks") + (("depth",) if warp
+                                                    else ()):
+            os.makedirs(os.path.join(d, sub), exist_ok=True)
+        rng = np.random.default_rng(seed + scene)
+        for i in range(frames):
+            v = f"{i:05d}"
+            for sub in ("rgb", "est_depth"):
+                Image.fromarray(rng.integers(0, 255, (h, w, 3), np.uint8)
+                                ).save(os.path.join(d, sub, f"{v}.png"))
+            m = np.zeros((h, w), np.uint8)
+            m[h // 4:h * 5 // 8, w // 4:w * 3 // 4] = 255
+            Image.fromarray(m).save(os.path.join(d, "masks", f"{v}.png"))
+            if warp:
+                Image.fromarray(np.full((h, w), 2000, np.uint16)).save(
+                    os.path.join(d, "depth", f"{v}.png"))
+        poses = np.tile(np.eye(4, dtype=np.float32), (frames, 1, 1))
+        poses[:, 0, 3] = 0.02 * np.arange(frames)
+        poses[:, 1, 3] = 0.015 * (np.arange(frames) % 2)
+        np.save(os.path.join(d, "poses.npy"), poses)
+        if warp:
+            K = np.array([[60.0, 0, w / 2], [0, 60.0, h / 2], [0, 0, 1.0]])
+            with open(os.path.join(d, "metadata"), "w") as f:
+                json.dump({"w": w, "h": h, "K": list(K.T.reshape(-1))}, f)
+
+
 def write_bench_colmap_scene(root, yaws=(0.0, -0.06, 0.06, 0.12),
                              n_points=1000, seed=0):
     """A COLMAP scene of bench cameras at the given yaws (1920x1080,

@@ -1,6 +1,8 @@
-"""Profile one full-width SVD sampler step of the port on the GPU.
+"""Profile one full-width SVD sampler step, or train step, of the port on
+the GPU.
 
     python scripts/port_profile_svd.py [--trace_dir build/profile_svd]
+    python scripts/port_profile_svd.py --step train
 
 Builds the full-width engine as ``chip_smoke.py``'s main path 3 does
 (``init_engine`` with bf16 weights on the card, every all-zero parameter
@@ -14,6 +16,13 @@ convolutions, layout conversions, normalisation, softmax, copies,
 elementwise, the rest), the top kernels by name, and the card's SM clock,
 power draw and temperature before and after. The chrome trace is
 ``<trace_dir>/trace.json``. Imports the port only (no JAX).
+
+``--step train`` does the same for ``chip_smoke.py``'s main path 4: one
+ControlNet train step of ``svd_train`` at full width (one video of 14
+frames, bf16 weights and compute, Adam and the EMA update), three timed
+and three traced, and adds K5 to the kinds, the step's split into loss
+forward, backward and optimizer + EMA (CUDA events, mean of three) and
+the peak device memory.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EVALS = 3
 # Lower-case kernel-name fragments of each kind, first match wins.
 KINDS = (("K4", ("flash_fwd_kernel",)),
+         ("K5", ("flash_bwd_",)),
          ("layout", ("nchwtonhwc", "nhwctonchw")),
          ("conv", ("fprop", "conv", "winograd", "implicit_gemm")),
          ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
@@ -58,6 +68,7 @@ def main():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--trace_dir",
                    default=os.path.join(REPO, "build", "profile_svd"))
+    p.add_argument("--step", choices=("sample", "train"), default="sample")
     args = p.parse_args()
     sys.path.insert(0, REPO)
     sys.path.insert(0, os.path.join(REPO, "scripts"))
@@ -68,6 +79,7 @@ def main():
 
     from multiview_inpaint_tpu_torch.diffusion.engine import (EngineConfig,
                                                               init_engine)
+    from multiview_inpaint_tpu_torch.parallel import svd_data_parallel as dp
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -87,11 +99,46 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((frames, h // 8, w // 8, 4), generator=gen,
                     device="cuda") * (1 + eng.cfg.sigma_max ** 2) ** 0.5
-    gx, gs, gc = eng.guider.prepare(x, sigma, cond, uc)
-    denoise = eng.denoise_fn()
+    extra = {}
+    if args.step == "sample":
+        gx, gs, gc = eng.guider.prepare(x, sigma, cond, uc)
+        denoise = eng.denoise_fn()
 
-    def step():
-        return denoise(gx, gs, gc)
+        def step():
+            return denoise(gx, gs, gc)
+    else:
+        params = dp.trainable_params(eng)
+        opt = dp.build_optimizer(1e-4)
+        state = opt.init(params)
+        ema = {k: p.detach().clone() for k, p in params.items()}
+        lat = x[None] / (1 + eng.cfg.sigma_max ** 2) ** 0.5
+        cond_b = {k: v[None] for k, v in cond.items()}
+        train_step = dp.make_train_step(eng, opt, params, ema_decay=0.9999)
+
+        def step():
+            return train_step(state, ema, lat, cond_b, generator=gen)
+
+        def parts():
+            lat_f, cond_f, _ = dp.flatten_videos(lat, cond_b)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            loss = eng.loss(lat_f, cond_f, generator=gen)
+            ev[1].record()
+            grads = torch.autograd.grad(loss, list(params.values()))
+            ev[2].record()
+            opt.step(params, dict(zip(params, grads)), state)
+            dp.ema_update(ema, params, 0.9999)
+            ev[3].record()
+            torch.cuda.synchronize()
+            return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+        step()                               # warm-up before the split
+        torch.cuda.reset_peak_memory_stats()
+        split = [parts() for _ in range(EVALS)]
+        extra = {"split_ms_mean": dict(zip(
+                     ("loss_forward", "backward", "adam_ema"),
+                     (sum(c) / EVALS for c in zip(*split)))),
+                 "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
 
     step()                                   # warm-up (cuDNN, cuBLAS)
     before = clocks()
@@ -115,10 +162,12 @@ def main():
     for e in events:
         if e.get("cat") == "kernel" and "dur" in e:
             by_kind[kind(e["name"])] += e["dur"] / 1e3 / EVALS
-    print(json.dumps({"card": card, "sm_clock_power_temp": [before, after],
+    print(json.dumps({"card": card, "step": args.step,
+                      "sm_clock_power_temp": [before, after],
                       "ms_per_eval_cuda_events": ms,
                       "evals_traced": EVALS,
-                      "kernel_ms_per_eval_by_kind": dict(by_kind), **out}))
+                      "kernel_ms_per_eval_by_kind": dict(by_kind), **extra,
+                      **out}))
 
 
 if __name__ == "__main__":

@@ -241,3 +241,151 @@ def test_cuda_tiny_svd_engine_matches_cpu():
     spacing = torch.ldexp(torch.ones_like(x0), torch.frexp(x0).exponent - 24)
     assert ((z1.cpu() - z0).abs()
             <= 1e-4 * float(z0.abs().max()) + 4 * spacing).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 768, 2, 64), torch.bfloat16), ((1, 256, 1, 128), torch.bfloat16),
+    ((2, 256, 3, 32), torch.float32)])
+def test_cuda_flash_attention_backward_matches_plain_k5(shape, dtype):
+    """K5 against its plain version at unit-normal inputs, o and the
+    logsumexp from K4: dq, dk, dv within 0.02 of max|plain| and 0.01
+    relative rms (the bars of chip_smoke.py's phase 16), bit for bit from
+    one run to the next, one count per call; and the gradient through
+    ``attention_op`` on CUDA goes through K4 and K5."""
+    _require_cuda()
+    from multiview_inpaint_tpu_torch import kernels
+    from multiview_inpaint_tpu_torch.diffusion import attention_op
+    from multiview_inpaint_tpu_torch.diffusion import flash_attention as fa
+    b, t, h, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(t + d)
+    q, k, v, do = (torch.randn((b, t, h * d), generator=gen,
+                               device="cuda").to(dtype) for _ in range(4))
+    scale = d ** -0.5
+    with torch.no_grad():
+        o, lse = fa._launch(q, k, v, h, scale, True)
+        before = kernels.LAUNCHES["flash_attn_bwd"]
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, h, scale)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, h, scale)
+        assert kernels.LAUNCHES["flash_attn_bwd"] == before + 2
+        want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, h, scale)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and torch.equal(g, a)
+        err = (g.float() - w.float())
+        assert float(err.abs().max() / w.float().abs().max()) <= 0.02
+        assert float(err.pow(2).mean().sqrt()
+                     / w.float().pow(2).mean().sqrt()) <= 0.01
+    if t % 256 == 0 and t >= 768:
+        qa, ka, va = (x.clone().requires_grad_() for x in (q, k, v))
+        kernels.reset_launches()
+        out = attention_op.attention(qa, ka, va, h)
+        grads = torch.autograd.grad(out, (qa, ka, va), do)
+        assert kernels.LAUNCHES["flash_attn_fwd"] == 1
+        assert kernels.LAUNCHES["flash_attn_bwd"] == 1
+        for g, w in zip(grads, got):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_svd_train_step_matches_cpu():
+    """One train step of the tiny SVD engine (svd_train --tiny_model, 3
+    frames at 64x48, f32, TF32 off) on CUDA against the CPU with the same
+    weights, data, sigma and noise (the bars of chip_smoke.py's phase 18):
+    loss within 1e-4 relative, ControlNet gradients within 1e-4 of their
+    tensor's max|g| + 1e-7, parameters after one Adam step within 1e-3 lr
+    where |g| >= 1e-6."""
+    _require_cuda()
+    import argparse
+
+    from multiview_inpaint_tpu_torch.diffusion import engine
+    from multiview_inpaint_tpu_torch.parallel import svd_data_parallel as dp
+    from multiview_inpaint_tpu_torch.pipelines import svd_train
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = svd_train._engine_config(argparse.Namespace(
+            tiny_model=True, num_frames=3, pose_cond=False, warp_loss=False))
+        cpu = engine.init_engine(cfg, seed=0, device="cpu")
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for p in cpu.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=gen))
+        gpu = engine.init_engine(cfg, seed=1, device="cuda")
+        gpu.load_reference_state_dict(cpu.reference_state_dict())
+        rng = np.random.default_rng(2)
+        cond = {"crossattn": rng.normal(size=(1, 3, 1, 16)),
+                "vector": rng.normal(size=(1, 3, 768)),
+                "concat": rng.normal(size=(1, 3, 8, 6, 4)),
+                "control_hint": rng.uniform(size=(1, 3, 64, 48, 7))}
+        lat = rng.normal(size=(1, 3, 8, 6, 4))
+        noise = rng.normal(size=(1, 3, 8, 6, 4))
+        runs = []
+        for eng, dev in ((cpu, "cpu"), (gpu, "cuda")):
+            def t(x):
+                return torch.tensor(x, dtype=torch.float32, device=dev)
+            params = dp.trainable_params(eng)
+            opt = dp.build_optimizer(1e-4)
+            state = opt.init(params)
+            loss = dp.make_train_step(eng, opt, params)(
+                state, {}, t(lat), {k: t(v) for k, v in cond.items()},
+                sigmas=t([1.7]), noise=t(noise))
+            # the first moment after one step is 0.1 g
+            runs.append((float(loss),
+                         {k: p.detach().cpu() for k, p in params.items()},
+                         {k: m.cpu() / 0.1 for k, m in state["mu"].items()}))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    (l0, p0, g0), (l1, p1, g1) = runs
+    assert abs(l1 - l0) <= 1e-4 * abs(l0)
+    for k in g0:
+        assert float((g1[k] - g0[k]).abs().max()) <= (
+            1e-4 * float(g0[k].abs().max()) + 1e-7), k
+        big = g0[k].abs() >= 1e-6
+        if big.any():
+            assert float((p1[k] - p0[k]).abs()[big].max()) <= 1e-7, k
+
+
+@pytest.mark.cuda
+def test_cuda_foreach_adam_and_ema_equal_per_tensor_ops():
+    """Adam and the EMA update run as foreach ops on the card: bit for bit
+    the per-tensor ops of optax's order (bf16 constants, each op rounded
+    to bf16), over two steps of bf16 tensors of several shapes."""
+    _require_cuda()
+    from multiview_inpaint_tpu_torch.parallel import svd_data_parallel as dp
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shapes = [(320, 320), (7,), (4, 4, 3, 3), (1280,)]
+    params = {f"p{i}": (0.02 * torch.randn(s, generator=gen, device="cuda")
+                        ).to(torch.bfloat16) for i, s in enumerate(shapes)}
+    ref = {k: p.clone() for k, p in params.items()}
+    ema, ema_ref = ({k: p.clone() for k, p in params.items()}
+                    for _ in range(2))
+    opt = dp.build_optimizer(1e-4)
+    state = opt.init(params)
+    mu, nu = ({k: torch.zeros_like(p) for k, p in ref.items()}
+              for _ in range(2))
+
+    def c(x):
+        return torch.tensor(float(x), dtype=torch.bfloat16, device="cuda")
+
+    for count in (1, 2):
+        grads = {k: torch.randn(p.shape, generator=gen, device="cuda").to(
+            torch.bfloat16) * 1e-3 for k, p in params.items()}
+        opt.step(params, grads, state)
+        dp.ema_update(ema, params, 0.9999)
+        bc1 = np.float32(1) - np.float32(dp.B1) ** np.float32(count)
+        bc2 = np.float32(1) - np.float32(dp.B2) ** np.float32(count)
+        for k, p in ref.items():
+            g = grads[k]
+            mu[k] = c(1 - dp.B1) * g + c(dp.B1) * mu[k]
+            nu[k] = c(1 - dp.B2) * (g * g) + c(dp.B2) * nu[k]
+            upd = (mu[k] / c(bc1)) / (torch.sqrt(nu[k] / c(bc2) + c(0.0))
+                                      + c(dp.EPS))
+            ref[k] = p + c(-np.float32(1e-4)) * upd
+            ema_ref[k] = c(0.9999) * ema_ref[k] + c(1 - 0.9999) * ref[k]
+        for k in params:
+            assert torch.equal(params[k], ref[k]), k
+            assert torch.equal(state["mu"][k], mu[k]), k
+            assert torch.equal(ema[k], ema_ref[k]), k

@@ -33,11 +33,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                             "multiview_inpaint_tpu"))
-        slice4 = {pkg.__name__ + "." + m for m in (
+        slices = {pkg.__name__ + "." + m for m in (
             "diffusion.flash_attention", "diffusion.engine",
-            "data.svd_dataset", "pipelines.svd_test")}
-        print(len(mods), bad, sorted(slice4 - set(mods)))
-        sys.exit(1 if bad or len(mods) < 35 or not slice4 <= set(mods)
+            "data.svd_dataset", "pipelines.svd_test", "diffusion.losses",
+            "data.warp", "parallel.svd_data_parallel",
+            "pipelines.svd_train")}
+        print(len(mods), bad, sorted(slices - set(mods)))
+        sys.exit(1 if bad or len(mods) < 35 or not slices <= set(mods)
                  else 0)
     """)
     assert r.returncode == 0, r.stdout + r.stderr[-3000:]
@@ -53,7 +55,9 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
             RenderCamera, render)
         from multiview_inpaint_tpu_torch.gs import checkpoint
         from multiview_inpaint_tpu_torch.pipelines import render as cli
-        from multiview_inpaint_tpu_torch.pipelines import svd_test, train_gs
+        from multiview_inpaint_tpu_torch.pipelines import (svd_test,
+                                                           svd_train,
+                                                           train_gs)
         from multiview_inpaint_tpu_torch.diffusion import engine
         from multiview_inpaint_tpu_torch.utils import synthetic
         params = synthetic.make_gt_gaussians(8, device="cpu")
@@ -67,6 +71,8 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
                      lambda: checkpoint.load_train_state("chkpnt.npz"),
                      lambda: svd_test.main(["--data_root", "gs",
                                             "--tiny_model"]),
+                     lambda: svd_train.main(["--data_root", "est",
+                                             "--tiny_model"]),
                      lambda: engine.init_engine()):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call()
