@@ -10,7 +10,9 @@ non-zero:
 1. the card (``nvidia-smi`` name and power limit), torch, TF32 settings
    (both TF32 switches are set off, so the plain versions run in fp32;
    phase 7 puts them back to PyTorch's defaults for its own checks);
-2. build the CUDA kernels from ``multiview_inpaint_tpu_torch/csrc``;
+2. build the CUDA kernels from ``multiview_inpaint_tpu_torch/csrc``, and
+   print each flash kernel's registers, spills (ptxas) and dynamic shared
+   memory, and any ptxas warning or performance note about them;
 3. K1 (pair keys) against its plain version, bit for bit, on the 1080p
    bench frames of the 100k bench ball and the 2M-gaussian scene;
 4. K2 (composite) against its plain version on the same frames: max
@@ -61,9 +63,9 @@ non-zero:
     with 5 heads (ds1) and [28, 768, 10*64] with 10 heads (ds2) in bf16,
     and [2, 768, 64] in f32: max abs error (0.02) and relative to
     max|plain| (0.02), bit-equal on a second run and equal to K4 on the
-    folded [B*H, T, D] layout, kernel, plain and bound ms, and PyTorch's
-    ``scaled_dot_product_attention`` timed as a yardstick (the port never
-    calls it);
+    folded [B*H, T, D] layout, kernel, plain and bound ms, achieved
+    TFLOP/s, and PyTorch's ``scaled_dot_product_attention`` timed as a
+    yardstick (the port never calls it) with the kernel/SDPA factor;
 13. the tiny SVD engine (``svd_test --tiny_model``, 3 frames at 64x48)
     on CUDA against the CPU with the same weights (every all-zero
     parameter moved) and noise, f32 with TF32 off: conditioning, one
@@ -89,9 +91,9 @@ non-zero:
     (ds1) and [14, 768, 10*64] (ds2) bf16, and [2, 768, 64] f32, with o and
     the logsumexp from K4 and a seeded cotangent: dq, dk, dv within 0.02
     of max|plain| and 0.01 relative rms, bit-equal on a second run; kernel,
-    plain and bound ms, and the backward of PyTorch's
+    plain and bound ms, achieved TFLOP/s, and the backward of PyTorch's
     ``scaled_dot_product_attention`` timed as a yardstick (never called by
-    the port);
+    the port) with the kernel/SDPA factor;
 17. the gradient of one full-width ds1 SpatialVideoTransformer (320
     channels, 5 heads, 14 frames at 64x48, bf16, q and k scaled x3 as in
     phase 15) through K4 + K5 against the same block with
@@ -114,7 +116,8 @@ non-zero:
     first bf16 Adam step changed;
 20. the ``kernels`` JSON line (K1 and K2 at main path 1's big2m frame, K3
     at main path 2's first step, K4 at main path 3's ds1 shape, K5 at main
-    path 4's ds1 shape); the last line is the ``ok`` JSON object.
+    path 4's ds1 shape; K4 and K5 also carry ``vs_library``, kernel ms over
+    SDPA ms); the last line is the ``ok`` JSON object.
 
 Build outputs and the scenes go under ``build/`` in the checkout.
 """
@@ -225,6 +228,9 @@ K5_PER_STEP, K4_PER_TRAIN_STEP = 10, 14
 # (0.0299: the first key tile dropped; 0.168: no delta term), near their
 # geometric mean.
 K5_GRAD_RMS_TOL = 0.012
+# The planted faults of phases 15 and 17 drop the first 64 keys, the tile
+# against which their bars were set, whatever tile the kernels use.
+FAULT_KEYS = 64
 
 
 def fail(msg):
@@ -313,13 +319,33 @@ def phase_card(torch):
 
 
 def phase_build():
+    """Builds the kernels; prints the flash kernels' registers, spills
+    (ptxas) and dynamic shared memory."""
     from multiview_inpaint_tpu_torch import kernels as _kernels
     t0 = time.perf_counter()
     lib_path = _kernels.build()
-    _kernels.library()
+    lib = _kernels.library()
     print(f"[2 build] {os.path.relpath(lib_path, REPO)} from "
           f"{', '.join(_kernels.SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    smem = {"flash_fwd_kernel": lambda dp: lib.mvi_flash_attn_fwd_smem(dp),
+            "flash_bwd_dkdv_kernel": lambda dp: lib.mvi_flash_attn_bwd_smem(
+                0, dp),
+            "flash_bwd_dq_kernel": lambda dp: lib.mvi_flash_attn_bwd_smem(
+                1, dp)}
+    for src in ("flash_attn_fwd.cu", "flash_attn_bwd.cu"):
+        for name, regs, st, ld in _kernels.ptxas_report(src):
+            kind = next(k for k in smem if k in name)
+            dp = 128 if "Li128E" in name else 64
+            out = "f32" if "IfLi" in name else "bf16"
+            print(f"[2 build] {kind}<{out} out, D padded to {dp}>: {regs} "
+                  f"registers, {smem[kind](dp)} bytes dynamic shared "
+                  f"memory, spill stores {st} B, spill loads {ld} B",
+                  flush=True)
+        log = _kernels.BUILD_DIR / (src[:-3] + ".ptxas.txt")
+        for line in (log.read_text().splitlines() if log.exists() else ()):
+            if "warning" in line.lower() or "Performance" in line:
+                print(f"[2 build] {src}: {line.strip()}", flush=True)
 
 
 def phase_kernels(torch, card, name, params):
@@ -1057,7 +1083,7 @@ def phase_k4(torch, card):
         rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=max(t_ops, t_bytes) * 1e3,
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   library_ms=lib_ms)
+                   library_ms=lib_ms, vs_library=ms / lib_ms)
         records.append(rec)
         print(f"[12 K4 {dtype} [{b}, {t}, {h}*{d}], {h} heads] max abs err "
               f"{err:.4g} (bar {K4_ABS_TOL}), rel {rel:.4g} (bar "
@@ -1065,8 +1091,9 @@ def phase_k4(torch, card):
               f"to K4 on the folded [{b * h}, {t}, {d}]: {same_folded} | "
               f"kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain "
               f"{plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']}), SDPA {lib_ms:.4f} ms (yardstick only) "
-              f"| {card}", flush=True)
+              f"({rec['bound_by']}, {rec['bound_ms'] / ms:.3f} of it), SDPA "
+              f"{lib_ms:.4f} ms (yardstick only), kernel/SDPA "
+              f"{ms / lib_ms:.3f}x | {card}", flush=True)
         if not (torch.isfinite(out).all() and equal and same_folded
                 and err <= K4_ABS_TOL and rel <= K4_REL_TOL):
             fail(f"K4 disagrees with its plain version at [{b}, {t}, "
@@ -1368,8 +1395,7 @@ def phase_svd_eval(torch, card, probe):
     out_k4, n_k4 = evaluate(11, k4_logged)
     out_plain, n_plain = evaluate(11, ref)
     out_drop, _ = evaluate(11, lambda q, k, v, h, sm: ref(
-        q, k[:, flash_attention.BLOCK:], v[:, flash_attention.BLOCK:], h,
-        sm))
+        q, k[:, FAULT_KEYS:], v[:, FAULT_KEYS:], h, sm))
     out_base, _ = evaluate(11, lambda q, k, v, h, sm: real(
         q, k, v, h, sm * math.log(2)))
     out_seed, _ = evaluate(12, real)
@@ -1462,7 +1488,7 @@ def phase_k5(torch, card):
         rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=max(t_ops, t_bytes) * 1e3,
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   library_ms=lib_ms)
+                   library_ms=lib_ms, vs_library=ms / lib_ms)
         records.append(rec)
         print(f"[16 K5 {dtype} [{b}, {t}, {h}*{d}], {h} heads] dq/dk/dv max "
               f"abs err {err:.4g}, / max|plain| {rel:.4g} (bar "
@@ -1470,8 +1496,9 @@ def phase_k5(torch, card):
               f"bit-equal on a second run: {equal}, finite: {finite} | "
               f"kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain "
               f"{plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']}), SDPA backward {lib_ms:.4f} ms "
-              f"(yardstick only) | {card}", flush=True)
+              f"({rec['bound_by']}, {rec['bound_ms'] / ms:.3f} of it), SDPA "
+              f"backward {lib_ms:.4f} ms (yardstick only), kernel/SDPA "
+              f"{ms / lib_ms:.3f}x | {card}", flush=True)
         if not (finite and equal and rel <= K5_REL_TOL
                 and rms <= K5_RMS_TOL):
             fail(f"K5 disagrees with its plain version at [{b}, {t}, "
@@ -1490,7 +1517,7 @@ def _plain_bwd(torch, q, k, v, o, lse, do, heads, scale, fault=None):
     if fault == "delta":
         return fa.flash_attention_bwd_ref(q, k, v, torch.zeros_like(o), lse,
                                           do, heads, scale)
-    n0 = fa.BLOCK
+    n0 = FAULT_KEYS
     qf, kf, vf, of_, dof = (fa._fold(x, heads) for x in (q, k, v, o, do))
     dt = q.dtype
     delta = (dof.float() * of_.float()).sum(-1)

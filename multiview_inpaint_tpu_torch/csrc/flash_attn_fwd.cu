@@ -8,228 +8,328 @@
 // 64] with the CFG batch of 28 frames) and ds2 ([280, 768, 64]).
 //
 // What it computes, per head and query row: s = q.k^T * scale with f32
-// accumulation; a running max and denominator in f32 (online softmax); p
-// rounded to bf16 before p.v, whose sum is f32; out = acc / denom in the
-// input's type; optionally the row logsumexp m + log(denom) as [B*H, T]
-// f32 (the TPU kernel's 128-lane broadcast has no use here). f32 inputs
-// are rounded to bf16 as they are staged, so q.k and p.v take bf16
-// operands with f32 sums in both types, as in the TPU kernel.
+// accumulation of bf16 products; a running max and denominator in f32
+// (online softmax, f32 sum of the unrounded p); p rounded to bf16 before
+// p.v, whose sum is f32; out = acc / denom in the output's type; optionally
+// the row logsumexp m + log(denom) as [B*H, T] f32. q, k and v arrive in
+// bf16 (the wrapper rounds f32 inputs once, as the TPU kernel's products
+// do); o is bf16 or f32.
 //
-// What bounds it on the H100: operations. 4*T*T*D FLOP per head (q.k and
-// p.v) on the bf16 tensor cores (989 TFLOP/s) and T*T exponentials on the
-// special-function units; its bytes, q, k, v and o once each, are 64-128x
-// fewer than the card's balance point at these shapes.
+// What bounds it on the H100: operations, of two kinds at once. 4*T*T*D
+// FLOP per head (q.k and p.v) on the bf16 tensor cores (989 TFLOP/s) and
+// T*T exponentials on the special-function units (16 per SM and clock,
+// ~4.2e12/s): at D = 64 the exponentials alone take 92% of the tensor
+// cores' time, so the softmax has to overlap the products to come near
+// either. Its bytes, q, k, v and o once each, are 64-128x fewer than the
+// card's balance point at these shapes. Only wgmma reaches the tensor
+// cores' full rate, and it needs its operands in shared memory in time.
 //
-// What the design does about it (FlashAttention-2's layout, simple form):
-// one block of 4 warps per (head, 64-row query tile); each warp owns 16
-// query rows, holds them as mma.sync A fragments in registers for the whole
-// loop, and keeps its 16 x D f32 accumulator, row max and row sum in
-// registers. The block walks the keys in 64-row tiles staged in shared
-// memory (K row-major, V transposed, both padded against bank conflicts);
-// s = q.k^T and acc += p.v run as bf16 m16n8k16 tensor-core products with
-// f32 accumulation, and p goes from the s accumulator to the p.v A
-// fragment without leaving registers, so no [T, T] tile is ever written.
-// Sums are taken in a fixed order, so runs repeat bit for bit. Not yet
-// done (later work): wgmma, TMA loads, a multi-stage ring that overlaps
-// the next tile's load with this tile's products, warp specialisation.
+// What the design does about it (FlashAttention-3's shape): one block per
+// (head, 64 * NWG query rows), NWG = 3 consumer warpgroups for D <= 64 (2
+// for D > 64), plus a producer warpgroup that gives up its registers
+// (setmaxnreg) and from one thread issues TMA loads: q once, then the
+// 128-key tiles of K and V into a ring of 3 (D <= 64) or 2 shared-memory
+// stages tracked by mbarriers (K and V each signal their own arrival;
+// empty: every consumer is done with the stage). Each consumer owns 64
+// query rows: s = q.k^T is an SS wgmma product (m64 n128, both operands
+// K-major in shared memory); the online softmax runs in f32 registers (the
+// max on the raw logits, the scale folded into one fma per exponent, max
+// and sum as independent partials); p is rounded to bf16 into the
+// consumer's own swizzled shared tile, and o += p.v is an SS wgmma product
+// with V read MN-major from the very tile TMA wrote, so nothing is
+// transposed. The products of s for tile j and p.v for tile j - 1 are
+// issued together, so the softmax of tile j overlaps p.v; the consumers
+// interleave freely. Keeping p out of registers is what lets three
+// consumers fit in 160 registers each: more warps to hide the softmax's
+// latency, and each K/V tile serves 192 queries. (A strict ping-pong of two
+// consumers on named barriers measured slower on the H100.) Sums are taken
+// in a fixed order, so runs repeat bit for bit.
 //
-// Addressing: element (n, h, t, d) of q, k, v and o lies at n*sb + h*sh +
-// t*st + d, so the packed [B, T, H*D] projections are read in place (sb =
-// T*H*D, st = H*D, sh = D) and a folded [B*H, T, D] tensor is the case
-// heads = 1. T must be a multiple of 64, D one of 16 ... 128 in steps of
-// 16; the wrapper checks both.
+// Addressing: element (n, h, t, i) of q, k, v and o lies at n*sb + h*sh +
+// t*st + i, so the packed [B, T, H*D] projections are read in place (TMA
+// sees them as a 4-D tensor (D, H, T, B)) and a folded [B*H, T, D] tensor
+// is the case heads = 1. T must be a multiple of 128 (the rows of a last,
+// partial query tile read as zeros and are not stored), D one of 16 ...
+// 128 in steps of 16 (held in shared memory as 64 or 128 columns, TMA
+// filling the rest with zeros); the wrapper checks both.
 
 #include "flash_attn_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per block, 16 per warp
-constexpr int BK = 64;       // keys per staged tile
-constexpr int THREADS = 128;
-constexpr int PAD = 8;       // bf16 elements of padding per shared row
+constexpr int BK = 128;        // keys per staged tile
 constexpr float NEG = -1e30f;  // the TPU kernel's initial row max
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int heads, int t_len,
+// Consumer warpgroups (64 query rows each) and ring depth by padded head
+// dim: three consumers at 160 registers for D <= 64, two at 240 above.
+template <int DP>
+constexpr int NWG = DP == 64 ? 3 : 2;
+template <int DP>
+constexpr int BQ = 64 * NWG<DP>;
+template <int DP>
+constexpr int STAGES = DP == 64 ? 3 : 2;
+template <int DP>
+constexpr int THREADS = WG * (1 + NWG<DP>);
+
+template <int DP>
+constexpr size_t fwd_smem() {  // q, the ring of K and V, p, barriers, align
+  return (size_t)BQ<DP> * DP * 2 + (size_t)STAGES<DP> * 2 * BK * DP * 2 +
+         (size_t)NWG<DP> * 64 * BK * 2 + (1 + 3 * STAGES<DP>) * 8 + 1024;
+}
+
+// One tile of the online softmax in f32, in log2 units (s * scale *
+// log2(e)): updates the running max and row sums of rows g and g + 8, turns
+// s into the unrounded p and returns the rescale factors of the old sums.
+// The max is taken on the raw logits (scaling by a positive factor keeps
+// it) and the scale folds into the exponent's argument, one fma each. Max
+// and sum run as NP independent partials joined by a fixed tree: with two
+// warps per scheduler there is little else to hide a 64-long dependent
+// chain behind.
+template <int R>
+__device__ __forceinline__ void online_softmax(float (&s)[R], float& m0,
+                                               float& m8, float& l0,
+                                               float& l8, float scale_log2,
+                                               float& corr0, float& corr8) {
+  constexpr int NP = 8;   // partials per row half
+  static_assert(R % (4 * NP) == 0, "tile width");
+  float a0[NP], a8[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    a0[i] = fmaxf(s[4 * i], s[4 * i + 1]);
+    a8[i] = fmaxf(s[4 * i + 2], s[4 * i + 3]);
+  }
+#pragma unroll
+  for (int j = NP; j < R / 4; ++j) {
+    a0[j % NP] = fmaxf(a0[j % NP], fmaxf(s[4 * j], s[4 * j + 1]));
+    a8[j % NP] = fmaxf(a8[j % NP], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int w = NP / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int i = 0; i < w; ++i) {
+      a0[i] = fmaxf(a0[i], a0[i + w]);
+      a8[i] = fmaxf(a8[i], a8[i + w]);
+    }
+  float mx0 = a0[0], mx8 = a8[0];
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx8 = fmaxf(mx8, __shfl_xor_sync(0xffffffffu, mx8, 1));
+  mx8 = fmaxf(mx8, __shfl_xor_sync(0xffffffffu, mx8, 2));
+  mx0 = fmaxf(m0, mx0 * scale_log2);
+  mx8 = fmaxf(m8, mx8 * scale_log2);
+  corr0 = exp2_approx(m0 - mx0);
+  corr8 = exp2_approx(m8 - mx8);
+  m0 = mx0;
+  m8 = mx8;
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    s[4 * j] = exp2_approx(fmaf(s[4 * j], scale_log2, -mx0));
+    s[4 * j + 1] = exp2_approx(fmaf(s[4 * j + 1], scale_log2, -mx0));
+    s[4 * j + 2] = exp2_approx(fmaf(s[4 * j + 2], scale_log2, -mx8));
+    s[4 * j + 3] = exp2_approx(fmaf(s[4 * j + 3], scale_log2, -mx8));
+    const float p0 = s[4 * j] + s[4 * j + 1];
+    const float p8 = s[4 * j + 2] + s[4 * j + 3];
+    a0[j % NP] = j < NP ? p0 : a0[j % NP] + p0;
+    a8[j % NP] = j < NP ? p8 : a8[j % NP] + p8;
+  }
+#pragma unroll
+  for (int w = NP / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int i = 0; i < w; ++i) {
+      a0[i] += a0[i + w];
+      a8[i] += a8[i + w];
+    }
+  l0 = l0 * corr0 + a0[0];   // the f32 p, as the TPU kernel sums it
+  l8 = l8 * corr8 + a8[0];
+}
+
+template <typename TO, int DP>
+__global__ void __launch_bounds__(THREADS<DP>, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, TO* __restrict__ o,
+                 float* __restrict__ lse, int heads, int t_len, int d,
                  long long sb, long long st, long long sh,
                  float scale_log2) {
-  // K tile row-major [key][d]; V tile transposed [d][key], so both B
-  // operands are two consecutive bf16 along the reduction axis.
-  __shared__ __align__(16) __nv_bfloat16 ks[BK][D + PAD];
-  __shared__ __align__(16) __nv_bfloat16 vt[D][BK + PAD];
+  constexpr int S = STAGES<DP>, NC = NWG<DP>, ROWS = BQ<DP>;
+  constexpr int TILE = BK * DP * 2, PTILE = 64 * BK * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* qs = smem;
+  unsigned char* ring = qs + ROWS * DP * 2;   // stage s: K at 2s, V at 2s+1
+  unsigned char* pbuf = ring + S * 2 * TILE;  // p of each consumer
+  uint64_t* bars = reinterpret_cast<uint64_t*>(pbuf + NC * PTILE);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;          // the K tile of a stage landed
+  uint64_t* v_full = bars + 1 + S;      // its V tile landed
+  uint64_t* empty = bars + 1 + 2 * S;   // every consumer is done with it
 
-  const int bh = blockIdx.x;
-  const int n = bh / heads, h = bh - n * heads;
-  const long long base = (long long)n * sb + (long long)h * sh;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;   // mma group and thread in group
-  const int row0 = blockIdx.y * BQ + warp * 16;
+  const int bh = blockIdx.y;
+  const int n = bh / heads, h = bh - n * heads;
+  const int q0 = blockIdx.x * ROWS;
+  const int n_tiles = t_len / BK;
 
-  // This warp's 16 query rows as A fragments: rows g and g + 8, columns
-  // 16 kk + 2 tig (+1) and 16 kk + 8 + 2 tig (+1).
-  uint32_t qf[D / 16][4];
-  load_a_rows<T, D>(qf, q + base + (long long)row0 * st, st, g, tig);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m[2] = {NEG, NEG};   // running max (log2 units) of rows g, g + 8
-  float l[2] = {0.f, 0.f};   // this thread's share of the row sums
-
-  constexpr int CHUNKS = BK * D / 8;   // 16-byte pieces of one tile
-  for (int kt = 0; kt < t_len; kt += BK) {
-    __syncthreads();   // the previous tile is no longer read
-#pragma unroll
-    for (int i = 0; i < CHUNKS / THREADS; ++i) {
-      const int idx = tid + i * THREADS;
-      // K: consecutive threads along a row (coalesced, conflict-free).
-      const int kr = idx / (D / 8), kc = idx % (D / 8);
-      *reinterpret_cast<uint4*>(&ks[kr][kc * 8]) =
-          load8(k + base + (long long)(kt + kr) * st + kc * 8);
-      // V: consecutive threads down the keys, so the transposed 2-byte
-      // stores of one instruction fall in distinct banks.
-      const int vr = idx % BK, vc = idx / BK;
-      const uint4 w = load8(v + base + (long long)(kt + vr) * st + vc * 8);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&w);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt[vc * 8 + j][vr] = e[j];
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&k_full[i], 1);
+      mbar_init(&v_full[i], 1);
+      mbar_init(&empty[i], NC * WG / 32);   // one arrival per consumer warp
     }
-    __syncthreads();
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // s = q.k^T for this warp's 16 rows and the tile's 64 keys: eight
-    // 16x8 accumulators (rows g / g + 8, keys 8 nt + 2 tig (+1)).
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* kp = &ks[nt * 8 + g][kk * 16 + tig * 2];
-        mma16816(s[nt], qf[kk], load_pair(kp), load_pair(kp + 8));
+  if (tid < WG) {
+    // ---- producer warpgroup: one thread issues every load ----
+    reg_dealloc<24>();
+    if (tid == 0) {
+      // Rows of the last q tile beyond T read as zeros; they are not stored.
+      mbar_expect_tx(q_full, ROWS * DP * 2);
+      tma_load_tile<DP>(qs, &tq, q_full, ROWS, h, q0, n);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int i = it % S;
+        if (it >= S) mbar_wait(&empty[i], ((it / S) - 1) & 1);
+        mbar_expect_tx(&k_full[i], TILE);
+        tma_load_tile<DP>(ring + 2 * i * TILE, &tk, &k_full[i], BK, h,
+                          it * BK, n);
+        mbar_expect_tx(&v_full[i], TILE);
+        tma_load_tile<DP>(ring + (2 * i + 1) * TILE, &tv, &v_full[i], BK, h,
+                          it * BK, n);
       }
     }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    // Software-pipelined: the products s = q.k^T of tile j and o += p.v of
+    // tile j - 1 are issued together, and the softmax of tile j runs while
+    // p.v is still on the tensor cores. p goes to this warpgroup's shared
+    // tile (bf16) once p.v of tile j - 1 has read the previous one, which
+    // keeps the registers free for a third consumer.
+    if constexpr (NC == 3)
+      reg_alloc<160>();
+    else
+      reg_alloc<240>();
+    const int wg = tid / WG - 1;
+    const int r0 = wg * 64;   // this warpgroup's rows in q
+    const int lane = tid % 32;
+    unsigned char* ps = pbuf + wg * PTILE;
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    float m0 = NEG, m8 = NEG;   // running max (log2 units), rows g, g + 8
+    float l0 = 0.f, l8 = 0.f;   // this thread's share of the row sums
+    float s[BK / 2];            // rows g, g + 8 x keys 8 j + 2 c (+1)
+    float corr0, corr8;
+    mbar_wait(q_full, 0);
 
-    // Online softmax in f32, in log2 units: s * scale * log2(e).
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] *= scale_log2;
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {   // the 4 threads of a row's group
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-    const float corr0 = exp2f(m[0] - mx[0]), corr1 = exp2f(m[1] - mx[1]);
-    m[0] = mx[0];
-    m[1] = mx[1];
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mx[0]);
-      s[nt][1] = exp2f(s[nt][1] - mx[0]);
-      s[nt][2] = exp2f(s[nt][2] - mx[1]);
-      s[nt][3] = exp2f(s[nt][3] - mx[1]);
-      sum0 += s[nt][0] + s[nt][1];
-      sum1 += s[nt][2] + s[nt][3];
-    }
-    l[0] = l[0] * corr0 + sum0;   // the f32 p, as the TPU kernel sums it
-    l[1] = l[1] * corr1 + sum1;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= corr0;
-      acc[j][1] *= corr0;
-      acc[j][2] *= corr1;
-      acc[j][3] *= corr1;
-    }
+    mbar_wait(&k_full[0], 0);
+    wg_fence();
+    gemm_ss<BK, DP>(s, qs, ROWS, r0, ring, BK);
+    wg_commit();
+    wg_wait();
+    fence_regs(s);
+    online_softmax(s, m0, m8, l0, l8, scale_log2, corr0, corr8);
+    store_a_tile<BK>(ps, s, tid);
+    publish_to_wgmma(1 + wg);
 
-    // acc += p.v with p rounded to bf16: the accumulators of key tiles
-    // 2 kk and 2 kk + 1 are exactly the A fragment of keys 16 kk .. +15.
+    for (int it = 1; it < n_tiles; ++it) {
+      const int i = it % S, ip = (it - 1) % S;
+      mbar_wait(&k_full[i], (it / S) & 1);
+      mbar_wait(&v_full[ip], ((it - 1) / S) & 1);
+      wg_fence();
+      gemm_ss<BK, DP>(s, qs, ROWS, r0, ring + 2 * i * TILE, BK);
+      wg_commit();
+      gemm_ss_mn<DP, BK>(acc, ps, ring + (2 * ip + 1) * TILE);
+      wg_commit();
+      wg_wait<1>();   // s is ready; p.v may still run
+      fence_regs(s);
+      online_softmax(s, m0, m8, l0, l8, scale_log2, corr0, corr8);
+      wg_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[ip]);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const __nv_bfloat16* vp = &vt[j * 8 + g][kk * 16 + tig * 2];
-        mma16816(acc[j], pa, load_pair(vp), load_pair(vp + 8));
+      for (int j = 0; j < DP / 8; ++j) {
+        acc[4 * j] *= corr0;
+        acc[4 * j + 1] *= corr0;
+        acc[4 * j + 2] *= corr8;
+        acc[4 * j + 3] *= corr8;
       }
+      store_a_tile<BK>(ps, s, tid);
+      publish_to_wgmma(1 + wg);
     }
-  }
+    const int il = (n_tiles - 1) % S;
+    mbar_wait(&v_full[il], ((n_tiles - 1) / S) & 1);
+    wg_fence();
+    gemm_ss_mn<DP, BK>(acc, ps, ring + (2 * il + 1) * TILE);
+    wg_commit();
+    wg_wait();
+    fence_regs(acc);
 
-  // Whole-row sums, then out = acc / denom in the input's type.
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
-  T* o0 = o + base + (long long)(row0 + g) * st;
-  T* o8 = o0 + 8 * st;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 + tig * 2;
-    store_pair(o0 + c, acc[j][0] * inv0, acc[j][1] * inv0);
-    store_pair(o8 + c, acc[j][2] * inv1, acc[j][3] * inv1);
-  }
-  if (lse != nullptr && tig == 0) {
-    float* out = lse + (long long)bh * t_len + row0 + g;
-    out[0] = (m[0] + log2f(l[0])) * LN2;
-    out[8] = (m[1] + log2f(l[1])) * LN2;
+    // Whole-row sums, then out = acc / denom in the output's type.
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l8 += __shfl_xor_sync(0xffffffffu, l8, 1);
+    l8 += __shfl_xor_sync(0xffffffffu, l8, 2);
+    const long long base = (long long)n * sb + (long long)h * sh;
+    const int valid = t_len - (q0 + r0);   // rows of this warpgroup in T
+    store_rows<TO, DP>(o + base + (long long)(q0 + r0) * st, st, d, acc,
+                       1.f / l0, 1.f / l8, tid, valid);
+    const int r = 16 * ((tid % WG) / 32) + lane / 4;
+    if (lse != nullptr && (lane & 3) == 0) {
+      float* out = lse + (long long)bh * t_len + q0 + r0 + r;
+      if (r < valid) out[0] = (m0 + log2f(l0)) * LN2;
+      if (r + 8 < valid) out[8] = (m8 + log2f(l8)) * LN2;
+    }
   }
 }
 
-template <typename T>
+template <typename TO, int DP>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int batch, int heads, int t_len, int d, long long sb,
-           long long st, long long sh, float scale, cudaStream_t stream) {
-  const dim3 grid(batch * heads, t_len / BQ);
-  const float sl = scale * LOG2E;
-#define MVI_FLASH_CASE(DD)                                                \
-  case DD:                                                                \
-    flash_fwd_kernel<T, DD><<<grid, THREADS, 0, stream>>>(                \
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, heads, \
-        t_len, sb, st, sh, sl);                                           \
-    break;
-  switch (d) {
-    MVI_FLASH_CASE(16)
-    MVI_FLASH_CASE(32)
-    MVI_FLASH_CASE(48)
-    MVI_FLASH_CASE(64)
-    MVI_FLASH_CASE(80)
-    MVI_FLASH_CASE(96)
-    MVI_FLASH_CASE(112)
-    MVI_FLASH_CASE(128)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef MVI_FLASH_CASE
+           int batch, int heads, int t_len, int d, long long sb, long long st,
+           long long sh, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, batch, heads, t_len, d, sb, st, sh, BQ<DP>) ||
+      !make_map(&mk, k, batch, heads, t_len, d, sb, st, sh, BK) ||
+      !make_map(&mv, v, batch, heads, t_len, d, sb, st, sh, BK))
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t bytes = fwd_smem<DP>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_kernel<TO, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((t_len + BQ<DP> - 1) / BQ<DP>, batch * heads);
+  flash_fwd_kernel<TO, DP><<<grid, THREADS<DP>, bytes, stream>>>(
+      mq, mk, mv, (TO*)o, (float*)lse, heads, t_len, d, sb, st, sh,
+      scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// q, k, v bf16; o bf16 or (is_f32) f32; lse [batch*heads, T] f32 or NULL.
 extern "C" int mvi_flash_attn_fwd(const void* q, const void* k,
                                   const void* v, void* o, void* lse,
                                   int is_f32, int batch, int heads, int t_len,
                                   int d, long long sb, long long st,
                                   long long sh, float scale, void* stream) {
-  if (batch <= 0 || heads <= 0 || t_len <= 0 || t_len % BQ != 0)
+  if (batch <= 0 || heads <= 0 || t_len <= 0 || t_len % BK != 0 || d <= 0 ||
+      d > 128 || d % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_f32 ? launch<float>(q, k, v, o, lse, batch, heads, t_len, d, sb,
-                                st, sh, scale, s)
-                : launch<__nv_bfloat16>(q, k, v, o, lse, batch, heads, t_len,
-                                        d, sb, st, sh, scale, s);
+  if (d <= 64)
+    return is_f32 ? launch<float, 64>(q, k, v, o, lse, batch, heads, t_len,
+                                      d, sb, st, sh, scale, s)
+                  : launch<__nv_bfloat16, 64>(q, k, v, o, lse, batch, heads,
+                                              t_len, d, sb, st, sh, scale, s);
+  return is_f32 ? launch<float, 128>(q, k, v, o, lse, batch, heads, t_len, d,
+                                     sb, st, sh, scale, s)
+                : launch<__nv_bfloat16, 128>(q, k, v, o, lse, batch, heads,
+                                             t_len, d, sb, st, sh, scale, s);
+}
+
+// Dynamic shared memory of the forward kernel at padded head dim dp.
+extern "C" int mvi_flash_attn_fwd_smem(int dp) {
+  return dp <= 64 ? (int)fwd_smem<64>() : (int)fwd_smem<128>();
 }

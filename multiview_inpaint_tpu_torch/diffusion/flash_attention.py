@@ -6,14 +6,16 @@ Counterpart of ``multiview_inpaint_tpu/diffusion/flash_attention.py``
 ``_flash_bwd_impl``, and the ``flash_mha`` custom VJP): non-causal,
 unmasked multi-head attention with f32 logits, an f32 softmax, p rounded
 to the value type before p.v, and an f32 sum. The CUDA sources are
-``csrc/flash_attn_fwd.cu`` (one block per head and 64-row query tile,
-bf16 tensor-core products, the online softmax in registers) and
-``csrc/flash_attn_bwd.cu`` (a dk/dv pass per 64-key tile and a dq pass per
-64-query tile, from the forward's row logsumexp; their notes say more).
-f32 inputs are rounded to bf16 as the kernels stage them, so the f32 path
-keeps bf16 operands with f32 sums, as the TPU kernels' products do; its
-results differ from the f32 plain versions by bf16 rounding of the
-operands (a few 1e-3 at unit-normal inputs).
+``csrc/flash_attn_fwd.cu`` (one block per head and 192 query rows: a TMA
+producer warpgroup and three wgmma consumer warpgroups, the online softmax
+in registers) and ``csrc/flash_attn_bwd.cu`` (a dk/dv pass per 128 keys
+and a dq pass per 128 queries, from the forward's row logsumexp; their
+notes say more). The kernels take bf16 operands: f32 inputs are rounded
+to bf16 once here, as the TPU kernels' products round them, and the
+outputs come back in f32 from the f32 accumulators. So the f32 path keeps
+bf16 operands with f32 sums; its results differ from the f32 plain
+versions by bf16 rounding of the operands (a few 1e-3 at unit-normal
+inputs).
 
 ``FlashAttention`` is the differentiable form: its forward is K4 with the
 logsumexp saved, its backward K5, on CUDA tensors; on CPU tensors both
@@ -30,7 +32,7 @@ import torch
 
 from .. import kernels as _kernels
 
-BLOCK = 64                       # query rows per block and keys per tile
+BLOCK = 128                      # T must be a multiple of this
 HEAD_DIMS = tuple(range(16, 129, 16))
 
 
@@ -99,7 +101,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, heads: int, scale: float):
 
 def _check(name, q, others, heads):
     """The kernels' argument rules: same contiguous shape, type and device
-    for every operand; bf16 or f32; T a multiple of 64; head dim in
+    for every operand; bf16 or f32; T a multiple of ``BLOCK``; head dim in
     ``HEAD_DIMS``; 16-byte aligned."""
     n, t, hd = q.shape
     d = hd // heads if heads > 0 else 0
@@ -120,6 +122,13 @@ def _check(name, q, others, heads):
     return n, t, hd, d
 
 
+def _bf16(*xs):
+    """The kernels' operands: bf16 as they are, f32 rounded to bf16 (to
+    nearest even)."""
+    return tuple(x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
+                 for x in xs)
+
+
 def _launch(q, k, v, heads: int, scale: float, save_lse: bool):
     """K4 on ``[N, T, heads*D]`` CUDA tensors read in place; returns the
     output (same shape and type) and the ``[N*heads, T]`` logsumexp or
@@ -135,8 +144,9 @@ def _launch(q, k, v, heads: int, scale: float, save_lse: bool):
     lse = (torch.empty((n * heads, t), dtype=torch.float32, device=q.device)
            if save_lse else None)
     lib = _kernels.library()
+    qb, kb, vb = _bf16(q, k, v)
     rc = lib.mvi_flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
         int(q.dtype == torch.float32), n, heads, t, d, t * hd, hd, d,
         float(scale), _kernels.stream_ptr(q.device))
@@ -162,13 +172,16 @@ def _launch_bwd(q, k, v, o, lse, do, heads: int, scale: float):
     n, t, hd, d = _check("flash_attn_bwd", q, (k, v, do), heads)
     for name, x in (("lse", lse), ("delta", delta)):
         if (x.dtype != torch.float32 or x.shape != (n * heads, t)
-                or x.device != q.device or not x.is_contiguous()):
-            raise ValueError(f"flash_attn_bwd: {name} must be a contiguous "
-                             f"f32 [{n * heads}, {t}] tensor on {q.device}")
+                or x.device != q.device or not x.is_contiguous()
+                or x.data_ptr() % 16):
+            raise ValueError(f"flash_attn_bwd: {name} must be a contiguous, "
+                             f"16-byte aligned f32 [{n * heads}, {t}] tensor "
+                             f"on {q.device}")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _kernels.library()
+    qb, kb, vb, dob = _bf16(q, k, v, do)
     rc = lib.mvi_flash_attn_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), dob.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), int(q.dtype == torch.float32), n, heads, t, d,
         t * hd, hd, d, float(scale), _kernels.stream_ptr(q.device))
@@ -185,7 +198,7 @@ def _require_device(x: torch.Tensor, name: str = "flash_attn_fwd") -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     heads: int, scale: float) -> torch.Tensor:
     """Attention over packed ``[B, T, H*D]`` q/k/v (bf16 or f32, T a
-    multiple of 64, D in ``HEAD_DIMS``). CPU tensors take the plain
+    multiple of ``BLOCK``, D in ``HEAD_DIMS``). CPU tensors take the plain
     version; CUDA tensors launch K4, with no logsumexp written unless an
     input carries a gradient: then ``FlashAttention`` (K4 saving it, K5 as
     the backward); any other device raises."""

@@ -10,8 +10,12 @@ sources, the header and the flags lets later processes reuse the library.
 Every pointer and the stream pass as ``c_void_p``; each C function
 returns ``cudaGetLastError()`` (or an argument error) and ``check`` raises
 on anything but 0. The rasterizer (K1-K3) and the diffusion stack (K4,
-K5; ``flash_attn_common.cuh`` holds their shared fragment helpers) share
-this one build.
+K5; ``flash_attn_common.cuh`` holds their TMA, mbarrier and wgmma
+helpers) share this one build. The flash kernels' TMA tensor maps are
+encoded on the host with the driver's ``cuTensorMapEncodeTiled``, fetched
+at run time through ``cudaGetDriverEntryPoint``, so nothing links against
+``libcuda``. Each source's ``ptxas`` report (registers, spills) is kept
+beside the library as ``<source>.ptxas.txt``; ``ptxas_report`` reads it.
 
 ``LAUNCHES`` counts kernel launches by name: each wrapper adds one where
 it launches its kernel, and nowhere else.
@@ -39,6 +43,7 @@ HEADERS = ("composite_common.cuh", "flash_attn_common.cuh")
 # No --use_fast_math: __expf/__logf would break the 3e-5 parity bar.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+PTXAS_VERBOSE = ("-Xptxas", "-v")   # compile step only
 
 LAUNCHES = {"pair_expand": 0, "composite": 0, "composite_bwd": 0,
             "flash_attn_fwd": 0, "flash_attn_bwd": 0}
@@ -64,6 +69,10 @@ _SIGNATURES = {
     # batch stride, row stride, head stride, scale, stream
     "mvi_flash_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _L, _L, _L, _F, _P),
+    # dynamic shared memory bytes: forward at padded head dim; backward
+    # kernel (0 dk/dv, 1 dq) at padded head dim
+    "mvi_flash_attn_fwd_smem": (_I,),
+    "mvi_flash_attn_bwd_smem": (_I, _I),
 }
 
 _lib = None
@@ -111,7 +120,8 @@ def build() -> Path:
             obj = os.path.join(work, Path(src).stem + ".o")
             objs.append(obj)
             procs.append(subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", obj],
+                [nvcc, *NVCC_FLAGS, *PTXAS_VERBOSE, "-c", str(CSRC / src),
+                 "-o", obj],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
         errors = []
@@ -119,6 +129,8 @@ def build() -> Path:
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 errors.append(f"{src}:\n{log}")
+            else:
+                (BUILD_DIR / (Path(src).stem + ".ptxas.txt")).write_text(log)
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
         tmp = os.path.join(work, LIB_NAME)
@@ -130,6 +142,28 @@ def build() -> Path:
         os.replace(tmp, lib_path)
     stamp_path.write_text(stamp)
     return lib_path
+
+
+def ptxas_report(src: str) -> list:
+    """``(kernel, registers, spill stores, spill loads)`` of each entry
+    function of one source, from the ptxas report of the last build (an
+    empty list where there is none)."""
+    path = BUILD_DIR / (Path(src).stem + ".ptxas.txt")
+    if not path.exists():
+        return []
+    out, name, spills = [], None, (0, 0)
+    for line in path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line and name is not None:
+            words = line.replace(",", "").split()
+            spills = (int(words[words.index("spill") - 2]),
+                      int(words[words.index("loads") - 3]))
+        elif "Used" in line and "registers" in line and name is not None:
+            words = line.replace(",", "").split()
+            out.append((name, int(words[words.index("Used") + 1]), *spills))
+            name, spills = None, (0, 0)
+    return out
 
 
 def library() -> ctypes.CDLL:

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from multiview_inpaint_tpu_torch.diffusion import flash_attention as fa
 from multiview_inpaint_tpu_torch.gs import cameras, gaussians
 from multiview_inpaint_tpu_torch.ops.rasterizer import (RenderCamera, api,
                                                         binning,
@@ -151,36 +152,39 @@ def test_cuda_train_step_matches_cpu_train_step():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [768, 256])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype,bar", [(torch.bfloat16, 0.02),
                                        (torch.float32, 0.02)])
-def test_cuda_flash_attention_matches_plain_k4(dtype, bar):
-    """K4 against its plain version at unit-normal inputs: within the
-    JAX test's 0.02 (bf16 rounding of p, and of q, k, v for f32 inputs),
-    the [B, T, H*D] layout equal to the folded one, and bit for bit from
-    one run to the next."""
+def test_cuda_flash_attention_matches_plain_k4(dtype, bar, d, t):
+    """K4 against its plain version at unit-normal inputs, every head dim
+    the wrapper takes, two sequence lengths: within the JAX test's 0.02
+    (bf16 rounding of p, and of q, k, v for f32 inputs), the [B, T, H*D]
+    layout bit-equal to the folded one, and bit for bit from one run to
+    the next."""
     _require_cuda()
     from multiview_inpaint_tpu_torch import kernels
-    from multiview_inpaint_tpu_torch.diffusion import flash_attention as fa
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn((2, 768, 2 * 64), generator=gen,
+    gen = torch.Generator(device="cuda").manual_seed(d + t)
+    q, k, v = (torch.randn((2, t, 2 * d), generator=gen,
                            device="cuda").to(dtype) for _ in range(3))
+    scale = d ** -0.5
     before = kernels.LAUNCHES["flash_attn_fwd"]
     with torch.no_grad():
-        got = fa.flash_attention(q, k, v, 2, 0.125)
-        again = fa.flash_attention(q, k, v, 2, 0.125)
-        want = fa.flash_attention_ref(q, k, v, 2, 0.125)
+        got = fa.flash_attention(q, k, v, 2, scale)
+        again = fa.flash_attention(q, k, v, 2, scale)
+        want = fa.flash_attention_ref(q, k, v, 2, scale)
 
         def fold(x):
-            return x.reshape(2, 768, 2, 64).transpose(1, 2).reshape(
-                4, 768, 64).contiguous()
-        folded, lse = fa.flash_mha(fold(q), fold(k), fold(v), 0.125,
+            return x.reshape(2, t, 2, d).transpose(1, 2).reshape(
+                4, t, d).contiguous()
+        folded, lse = fa.flash_mha(fold(q), fold(k), fold(v), scale,
                                    save_lse=True)
     assert kernels.LAUNCHES["flash_attn_fwd"] == before + 3
     assert got.dtype == dtype and torch.equal(got, again)
     assert float((got.float() - want.float()).abs().max()) < bar
     assert torch.equal(fold(got), folded)
     s = torch.einsum("bqd,bkd->bqk", fold(q).float(), fold(k).float())
-    assert float((lse - torch.logsumexp(s * 0.125, -1)).abs().max()) < 0.02
+    assert float((lse - torch.logsumexp(s * scale, -1)).abs().max()) < 0.02
 
 
 @pytest.mark.cuda
@@ -246,17 +250,19 @@ def test_cuda_tiny_svd_engine_matches_cpu():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [
     ((2, 768, 2, 64), torch.bfloat16), ((1, 256, 1, 128), torch.bfloat16),
-    ((2, 256, 3, 32), torch.float32)])
+    ((2, 256, 3, 32), torch.float32)] + [
+    ((1, 384, 2, d), dtype) for d in fa.HEAD_DIMS
+    for dtype in (torch.bfloat16, torch.float32)])
 def test_cuda_flash_attention_backward_matches_plain_k5(shape, dtype):
     """K5 against its plain version at unit-normal inputs, o and the
-    logsumexp from K4: dq, dk, dv within 0.02 of max|plain| and 0.01
-    relative rms (the bars of chip_smoke.py's phase 16), bit for bit from
-    one run to the next, one count per call; and the gradient through
-    ``attention_op`` on CUDA goes through K4 and K5."""
+    logsumexp from K4, every head dim the wrapper takes: dq, dk, dv within
+    0.02 of max|plain| and 0.01 relative rms (the bars of chip_smoke.py's
+    phase 16), bit for bit from one run to the next and bit-equal to K5 on
+    the folded [B*H, T, D] layout, one count per call; and the gradient
+    through ``attention_op`` on CUDA goes through K4 and K5."""
     _require_cuda()
     from multiview_inpaint_tpu_torch import kernels
     from multiview_inpaint_tpu_torch.diffusion import attention_op
-    from multiview_inpaint_tpu_torch.diffusion import flash_attention as fa
     b, t, h, d = shape
     gen = torch.Generator(device="cuda").manual_seed(t + d)
     q, k, v, do = (torch.randn((b, t, h * d), generator=gen,
@@ -269,8 +275,12 @@ def test_cuda_flash_attention_backward_matches_plain_k5(shape, dtype):
         again = fa.flash_attention_bwd(q, k, v, o, lse, do, h, scale)
         assert kernels.LAUNCHES["flash_attn_bwd"] == before + 2
         want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, h, scale)
-    for g, a, w in zip(got, again, want):
+        folded = fa.flash_attention_bwd(
+            *(fa._fold(x, h).contiguous() for x in (q, k, v, o)), lse,
+            fa._fold(do, h).contiguous(), 1, scale)
+    for g, a, w, f in zip(got, again, want, folded):
         assert g.dtype == dtype and torch.equal(g, a)
+        assert torch.equal(fa._fold(g, h), f)
         err = (g.float() - w.float())
         assert float(err.abs().max() / w.float().abs().max()) <= 0.02
         assert float(err.pow(2).mean().sqrt()
