@@ -12,14 +12,22 @@ non-zero:
    phase 7 puts them back to PyTorch's defaults for its own checks);
 2. build the CUDA kernels from ``multiview_inpaint_tpu_torch/csrc``, and
    print each flash kernel's registers, spills (ptxas) and dynamic shared
-   memory, and any ptxas warning or performance note about them;
+   memory, and any ptxas warning or performance note about them, K2's
+   and K3's registers, spills and static shared memory (ptxas), and K3's
+   blocks per SM and splats per warp reduction;
 3. K1 (pair keys) against its plain version, bit for bit, on the 1080p
    bench frames of the 100k bench ball and the 2M-gaussian scene;
 4. K2 (composite) against its plain version on the same frames: max
    errors, pixels beyond rgb 3e-5 / depth 3e-4 (at most 0.01%), every
-   pixel within the stop-flip bound;
-5. K3 (composite backward) against its plain version on the same frames
-   under a seeded cotangent (``check_k3``): max error per row, pairs
+   pixel within the stop-flip bound; its tiles bit-equal with and without
+   the per-item state output, and that state against the plain K2's at
+   the same bars over every item-pixel (``compare_state``);
+5. K3 (composite backward), started from K2's per-item state, against
+   its plain version walking each tile from its start and against its
+   plain version from the same state, on the same frames under a
+   seeded cotangent (``check_k3``, which also prints the tile depths, the
+   work items and the walked, kept and contributing shares of
+   pair-pixels): max error per row, pairs
    beyond 2e-6 + 1e-4 max|row| (at most 0.01%), the same for the
    per-gaussian gradients after the gather's backward, every pair and
    gaussian within the flip allowance, rows 10-15 exactly 0, bit-equal
@@ -47,7 +55,10 @@ non-zero:
     ``train_step`` of that scene, whose K3 call (the real L1+SSIM
     cotangent) is held against the plain K3 as in phase 5 and sets the
     densification threshold (a quantile of that step's screen-space
-    gradient norms); then the ``train_gs`` CLI for 60 iterations in a
+    gradient norms), and K2 on its inputs timed with and without the
+    per-item state (tiles and state bit-equal to the step's, the state
+    against the plain K2's as in phase 4); then the
+    ``train_gs`` CLI for 60 iterations in a
     buffer a little larger than the init, counters zeroed before and read
     after: loss falls, densify ran twice and wrote rows, the capacity
     grew, PLY and npz written, no non-finite gradient, K3 launched once
@@ -57,7 +68,9 @@ non-zero:
     2 warm-up steps (CUDA events), the split of the real step into render
     forward, loss, backward (loss/assembly, K3, the gather's backward, the
     projection's backward) and Adam (``StepProbe``), and its K3 call held
-    against the plain K3 as in phase 5;
+    against the plain K3 as in phase 5; then a planted fault (``k3_fault``:
+    K3 fed the next item's state for the first item of the deepest tile)
+    that the same bar must fail;
 12. K4 (flash-attention forward) against its plain version as main path
     3 calls it, on the packed [B, T, H*D] projections: [28, 3072, 5*64]
     with 5 heads (ds1) and [28, 768, 10*64] with 10 heads (ds2) in bf16,
@@ -122,6 +135,7 @@ non-zero:
 Build outputs and the scenes go under ``build/`` in the checkout.
 """
 
+import ctypes
 import json
 import math
 import os
@@ -319,8 +333,9 @@ def phase_card(torch):
 
 
 def phase_build():
-    """Builds the kernels; prints the flash kernels' registers, spills
-    (ptxas) and dynamic shared memory."""
+    """Builds the kernels; prints each kernel's registers and spills
+    (ptxas), the flash kernels' dynamic and the composite kernels' static
+    shared memory, and K3's blocks per SM and splats per reduction."""
     from multiview_inpaint_tpu_torch import kernels as _kernels
     t0 = time.perf_counter()
     lib_path = _kernels.build()
@@ -334,7 +349,7 @@ def phase_build():
             "flash_bwd_dq_kernel": lambda dp: lib.mvi_flash_attn_bwd_smem(
                 1, dp)}
     for src in ("flash_attn_fwd.cu", "flash_attn_bwd.cu"):
-        for name, regs, st, ld in _kernels.ptxas_report(src):
+        for name, regs, st, ld, _ in _kernels.ptxas_report(src):
             kind = next(k for k in smem if k in name)
             dp = 128 if "Li128E" in name else 64
             out = "f32" if "IfLi" in name else "bf16"
@@ -346,6 +361,17 @@ def phase_build():
         for line in (log.read_text().splitlines() if log.exists() else ()):
             if "warning" in line.lower() or "Performance" in line:
                 print(f"[2 build] {src}: {line.strip()}", flush=True)
+    for src in ("composite.cu", "composite_bwd.cu"):
+        for name, regs, st, ld, sm in _kernels.ptxas_report(src):
+            print(f"[2 build] {name}: {regs} registers, {sm} bytes static "
+                  f"shared memory, spill stores {st} B, spill loads {ld} B",
+                  flush=True)
+    res = (ctypes.c_int * 2)()
+    _kernels.check(lib.mvi_composite_bwd_residency(TILE * TILE, res),
+                   "composite_bwd_kernel residency")
+    print(f"[2 build] K3 composite_bwd_kernel: {res[0]} blocks of "
+          f"{TILE * TILE} threads per SM, {res[1]} splats per warp "
+          f"reduction", flush=True)
 
 
 def phase_kernels(torch, card, name, params):
@@ -394,9 +420,16 @@ def phase_kernels(torch, card, name, params):
     k2_args = (attrs, seg_start, counts, tiles_x, tiles_y, TILE, TILE)
     with torch.no_grad():
         out_k = composite_cuda.composite_fwd(*k2_args)
-        out_p = composite.composite_segments(*k2_args)
+        out_s, state = composite_cuda.composite_fwd(*k2_args,
+                                                    with_state=True)
+        out_p, state_p = composite.composite_segments(*k2_args,
+                                                      with_state=True)
     if not (torch.isfinite(out_k).all() and torch.isfinite(out_p).all()):
         fail(f"K2 output not finite on {name}")
+    if not torch.equal(out_k, out_s):
+        fail(f"K2's tiles differ with the per-item state output on {name}")
+    state_note = compare_state(torch, f"4 K2 {name}", attrs, counts, state,
+                               state_p)
 
     def image(t8):
         tiles = t8.transpose(1, 2)                       # [T, PIX, 8]
@@ -439,7 +472,8 @@ def phase_kernels(torch, card, name, params):
           f"stop-flip bound: {within} | walked, kept, contributing share of "
           f"pair-pixels {walk_shares(walk, r.total * pix)} | kernel "
           f"{k2_ms:.4f} ms, plain {k2_plain_ms:.2f} ms, bound "
-          f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}) | {card}", flush=True)
+          f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}) | {state_note} | "
+          f"{card}", flush=True)
     if bad > BAD_FRACTION * n_pix or not within:
         fail(f"K2 disagrees with its plain version on {name}")
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -447,29 +481,53 @@ def phase_kernels(torch, card, name, params):
     g[:, 5:] = 0.0
     check_k3(torch, card, f"5 K3 {name}",
              (attrs, seg_start, counts, out_k, g, tiles_x, tiles_y, TILE,
-              TILE), gid, params.capacity)
+              TILE, state), gid, params.capacity)
     return k1, k2
 
 
-def check_k3(torch, card, label, k3_args, gid, n_gauss):
-    """K3 against its plain version on ``k3_args`` (attrs, seg_start,
-    counts, tiles8, g_tiles8, tiles_x, tiles_y, tile_h, tile_w), pair by
-    pair and, through ``gid`` (the gaussian of each pair), gaussian by
-    gaussian; fails on a breach, else returns K3's record for the kernels
-    line (launches filled in later)."""
-    from multiview_inpaint_tpu_torch.ops.rasterizer import (composite,
-                                                            composite_cuda)
+def compare_state(torch, label, attrs, counts, state_k, state_p):
+    """K2's per-item state ``state_k`` against the plain K2's ``state_p``
+    over the frame's items, at K2's bars: T and the rgb accumulators
+    within 3e-5, the depth accumulator within 3e-4, at all but 0.01% of
+    item-pixels, and every item-pixel within the stop-flip bound (a
+    flipped stop moves the carry by at most T_in <= 1e-2 of a splat's
+    colour or depth). Fails on a breach, else returns the summary."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import composite
 
-    attrs, seg_start, counts, _, _, *size = k3_args
+    n_items = int(composite.item_ends(counts)[-1]) if counts.numel() else 0
+    got, want = state_k[:n_items], state_p[:n_items]
+    e_t = (got[:, 0] - want[:, 0]).abs()
+    e_rgb = (got[:, 1:4] - want[:, 1:4]).abs().amax(1)
+    e_d = (got[:, 4] - want[:, 4]).abs()
     flip_t = composite.T_STOP / (1.0 - composite.ALPHA_MAX)
-    with torch.no_grad():
-        d_k = composite_cuda.composite_bwd(*k3_args)
-        again = composite_cuda.composite_bwd(*k3_args)
-        d_p = composite.composite_segments_bwd(*k3_args)
-    if not torch.isfinite(d_k).all() or d_k[:, 10:].any():
-        fail(f"K3 rows not finite, or rows 10-15 not 0, at {label}")
-    if not torch.equal(d_k, again):
-        fail(f"K3 does not repeat bit for bit at {label}")
+    c_max = float(attrs[:, 6:9].abs().max()) if attrs.shape[0] else 0.0
+    d_max = float(attrs[:, 9].abs().max()) if attrs.shape[0] else 0.0
+    bad = int(((e_t > RGB_TOL) | (e_rgb > RGB_TOL) | (e_d > DEPTH_TOL))
+              .sum())
+    within = bool((e_t <= flip_t + RGB_TOL).all()
+                  and (e_rgb <= flip_t * c_max + RGB_TOL).all()
+                  and (e_d <= flip_t * d_max + DEPTH_TOL).all())
+    note = (f"per-item state of {n_items} items vs plain: max abs err T "
+            f"{float(e_t.max()) if n_items else 0.0:.3g} rgb "
+            f"{float(e_rgb.max()) if n_items else 0.0:.3g} depth "
+            f"{float(e_d.max()) if n_items else 0.0:.3g}, {bad}/"
+            f"{e_t.numel()} item-px beyond, all within the stop-flip "
+            f"bound: {within}")
+    if bad > BAD_FRACTION * e_t.numel() or not within:
+        fail(f"K2's per-item state disagrees with the plain K2's at {label}:"
+             f" {note}")
+    return note
+
+
+def compare_k3(torch, d_k, d_p, gid, n_gauss):
+    """K3's rows ``d_k`` against the plain K3's ``d_p`` over rows 0-9,
+    pair by pair and, through ``gid`` (the gaussian of each pair),
+    gaussian by gaussian: (max abs err per row, share of pairs beyond the
+    bar, all pairs within the flip allowance, the same three per
+    gaussian, whether all of it holds)."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import composite
+
+    flip_t = composite.T_STOP / (1.0 - composite.ALPHA_MAX)
 
     def compare(got, want):
         """(max abs err per row, share beyond the bar, all within the
@@ -484,7 +542,6 @@ def check_k3(torch, card, label, k3_args, gid, n_gauss):
                        + grad_bar(want, 0)).all())
         return err.amax(dim=0), share, within
 
-    e_rows, share, within = compare(d_k, d_p)
     # The gather's backward: pair rows summed into their gaussians.
     hit = torch.zeros(n_gauss, dtype=torch.bool, device=DEVICE)
     hit[gid] = True
@@ -493,8 +550,54 @@ def check_k3(torch, card, label, k3_args, gid, n_gauss):
         return torch.zeros((n_gauss, d.shape[1]), device=DEVICE).index_add_(
             0, gid, d)[hit]
 
+    e_rows, share, within = compare(d_k, d_p)
     e_gauss, share_g, within_g = compare(per_gaussian(d_k),
                                          per_gaussian(d_p))
+    ok = (share <= BAD_FRACTION and share_g <= BAD_FRACTION and within
+          and within_g)
+    return e_rows, share, within, e_gauss, share_g, within_g, ok
+
+
+def depth_stats(torch, counts):
+    """The tile depth distribution the composite kernels see: pairs per
+    non-empty tile (mean, max), the work items and the tiles cut into
+    more than one."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import composite
+    busy = counts[counts > 0].double()
+    n_items = composite.item_ends(counts)
+    return (f"{int(busy.numel())} non-empty tiles, mean "
+            f"{float(busy.mean()) if busy.numel() else 0.0:.1f} max "
+            f"{int(counts.max())} pairs | {int(n_items[-1])} items of <= "
+            f"{composite.ITEM_PAIRS} pairs ("
+            f"{int((counts > composite.ITEM_PAIRS).sum())} tiles split; "
+            f"grid {composite.max_items(counts.numel(), int(counts.sum()))})")
+
+
+def check_k3(torch, card, label, k3_args, gid, n_gauss):
+    """K3 against its plain version on ``k3_args`` (attrs, seg_start,
+    counts, tiles8, g_tiles8, tiles_x, tiles_y, tile_h, tile_w, the
+    forward's per-item state), pair by pair and gaussian by gaussian
+    (``compare_k3``), twice: against the plain K3 walking each tile from
+    its start, which owes nothing to K2's state, and against the plain
+    K3 started from that state. Fails on a breach of either, else returns
+    K3's record for the kernels line (launches filled in later)."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (composite,
+                                                            composite_cuda)
+
+    attrs, seg_start, counts, _, _, *size, _ = k3_args
+    with torch.no_grad():
+        d_k = composite_cuda.composite_bwd(*k3_args)
+        again = composite_cuda.composite_bwd(*k3_args)
+        d_walk = composite.composite_segments_bwd(*k3_args[:-1])
+        d_p = composite.composite_segments_bwd(*k3_args)
+    if not torch.isfinite(d_k).all() or d_k[:, 10:].any():
+        fail(f"K3 rows not finite, or rows 10-15 not 0, at {label}")
+    if not torch.equal(d_k, again):
+        fail(f"K3 does not repeat bit for bit at {label}")
+    e_walk, share_w, within_w, e_gauss_w, share_gw, within_gw, ok_w = (
+        compare_k3(torch, d_k, d_walk, gid, n_gauss))
+    e_rows, share, within, e_gauss, share_g, within_g, ok = compare_k3(
+        torch, d_k, d_p, gid, n_gauss)
     k3_ms = cuda_ms(torch, lambda: composite_cuda.composite_bwd(*k3_args),
                     5)
     with torch.no_grad():
@@ -506,24 +609,71 @@ def check_k3(torch, card, label, k3_args, gid, n_gauss):
     walk = walk_counts(torch, attrs, seg_start, counts, size)
     t_bytes = (n_pairs * 64 * 2 + n_tiles * 16
                + n_tiles * pix * 2 * 32) / HBM_BYTES_PER_S
-    k3 = dict(max_abs_err=float(e_rows.max()), ms=k3_ms,
+    k3 = dict(max_abs_err=float(max(e_walk.max(), e_rows.max())), ms=k3_ms,
               plain_ms=k3_plain_ms, **bound(t_bytes, walk, K3_CONTRIB_OPS),
               library_ms=None)
-    print(f"[{label}] pairs={n_pairs} in {n_tiles} {th}x{tw} tiles (max "
-          f"{int(counts.max())} per tile) | max abs err per row "
-          f"{[float(f'{e:.3g}') for e in e_rows.tolist()]} | pairs beyond "
-          f"{GRAD_ATOL} + {GRAD_RTOL} max|row|: {share:.3g} (within flip "
-          f"allowance: {within}) | per gaussian max err "
+    print(f"[{label}] pairs={n_pairs} in {n_tiles} {th}x{tw} tiles: "
+          f"{depth_stats(torch, counts)} | vs the plain K3 from each tile's "
+          f"start: max abs err per row "
+          f"{[float(f'{e:.3g}') for e in e_walk.tolist()]} | pairs beyond "
+          f"{GRAD_ATOL} + {GRAD_RTOL} max|row|: {share_w:.3g} (within flip "
+          f"allowance: {within_w}) | per gaussian max err "
+          f"{float(e_gauss_w.max()):.3g}, beyond: {share_gw:.3g} (within: "
+          f"{within_gw}) | vs the plain K3 from K2's state: max abs err per "
+          f"row {[float(f'{e:.3g}') for e in e_rows.tolist()]} | pairs "
+          f"beyond {share:.3g} (within: {within}) | per gaussian max err "
           f"{float(e_gauss.max()):.3g}, beyond: {share_g:.3g} (within: "
           f"{within_g}) | rows 10-15 zero, repeats bit for bit | walked, "
           f"kept, contributing share of pair-pixels "
           f"{walk_shares(walk, n_pairs * pix)} | kernel {k3_ms:.4f} ms, "
           f"plain {k3_plain_ms:.2f} ms, bound {k3['bound_ms']:.4f} ms "
           f"({k3['bound_by']}) | {card}", flush=True)
-    if (share > BAD_FRACTION or share_g > BAD_FRACTION or not within
-            or not within_g):
+    if not (ok_w and ok):
         fail(f"K3 disagrees with its plain version at {label}")
     return k3
+
+
+def k3_fault(torch, card, label, k3_args, gid, n_gauss):
+    """A planted fault that the K3 bar must catch: K3 fed, for the first
+    item of the deepest tile, the state of the item after it, held by
+    ``compare_k3`` against the plain K3 walking each tile from its start
+    and against the plain K3 on the true state. Fails if the bar passes
+    it against either."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (composite,
+                                                            composite_cuda)
+
+    *args, state = k3_args
+    counts = args[2]
+    deep = int(torch.argmax(counts))
+    first = int(composite.item_ends(counts)[deep]) - (
+        -(-int(counts[deep]) // composite.ITEM_PAIRS))
+    if counts[deep] <= composite.ITEM_PAIRS:
+        fail(f"{label}: the deepest tile has one item, no fault to plant")
+    bad = state.clone()
+    bad[first] = state[first + 1]
+    with torch.no_grad():
+        d_k = composite_cuda.composite_bwd(*args, bad)
+        refs = (("the plain K3 from each tile's start",
+                 composite.composite_segments_bwd(*args)),
+                ("the plain K3 from the true state",
+                 composite.composite_segments_bwd(*k3_args)))
+    passed = []
+    for what, d_p in refs:
+        e_rows, share, within, e_gauss, share_g, within_g, ok = compare_k3(
+            torch, d_k, d_p, gid, n_gauss)
+        print(f"[{label}] K3 fed the next item's state for item {first} "
+              f"(tile {deep}, {int(counts[deep])} pairs) vs {what}: max abs "
+              f"err per row {[float(f'{e:.3g}') for e in e_rows.tolist()]} "
+              f"| pairs beyond the bar {share:.3g} (within flip allowance: "
+              f"{within}), gaussians beyond {share_g:.3g} (within: "
+              f"{within_g}) | the K3 bar "
+              f"{'PASSES it' if ok else 'fails it, as it must'} | {card}",
+              flush=True)
+        if ok:
+            passed.append(what)
+    if passed:
+        fail(f"the K3 bar does not catch the next-item state at {label} "
+             f"against {passed}")
 
 
 def _small_scene(device):
@@ -929,6 +1079,7 @@ def phase_train(torch, card, iterations=TRAIN_ITERS, extra=()):
         scene.cameras_extent)
     k3 = check_k3(torch, card, "10 K3 orbit-train first step",
                   probe.k3_args, probe.gid, state.params.capacity)
+    k2_with_state(torch, card, probe.k3_args)
     seen = state.stats.denom > 0
     threshold = float(torch.quantile(state.stats.grad_accum[seen],
                                      DENSIFY_QUANTILE))
@@ -992,6 +1143,38 @@ def phase_train(torch, card, iterations=TRAIN_ITERS, extra=()):
     return launches, k3
 
 
+def k2_with_state(torch, card, k3_args):
+    """K2 on K3's inputs (main path 2's first step) with and without
+    the per-item state: tiles bit-equal, the state held against the plain
+    K2's (``compare_state``), and both timed."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (composite,
+                                                            composite_cuda)
+
+    attrs, seg_start, counts, tiles8, _, *size, state = k3_args
+    n_items = int(composite.item_ends(counts)[-1])  # rows past it are unset
+    k2_args = (attrs.detach(), seg_start, counts, *size)
+    with torch.no_grad():
+        plain = composite_cuda.composite_fwd(*k2_args)
+        with_st, st = composite_cuda.composite_fwd(*k2_args, with_state=True)
+        ms = cuda_ms(torch, lambda: composite_cuda.composite_fwd(*k2_args),
+                     10)
+        ms_st = cuda_ms(torch, lambda: composite_cuda.composite_fwd(
+            *k2_args, with_state=True), 10)
+        _, st_p = composite.composite_segments(*k2_args, with_state=True)
+    note = compare_state(torch, "10 K2 orbit-train", attrs, counts, st, st_p)
+    same = (torch.equal(plain, with_st) and torch.equal(plain, tiles8)
+            and torch.equal(st[:n_items], state[:n_items]))
+    print(f"[10 K2 orbit-train] tiles equal with and without the per-item "
+          f"state ({tuple(st.shape)}, {st.numel() * 4 / 1e6:.1f} MB) and "
+          f"equal to the step's, state equal to the step's: {same} | "
+          f"{note} | kernel {ms:.4f} ms, with the state {ms_st:.4f} ms | "
+          f"{card}",
+          flush=True)
+    if not same:
+        fail("K2's tiles or state differ with the state output at "
+             "orbit-train")
+
+
 def phase_step_time(torch, card):
     """The train step at full width: median ms/step, the split of the
     real step (mean of 3 probed steps) and its K3 call against the plain
@@ -1040,6 +1223,8 @@ def phase_step_time(torch, card):
           f"{card}", flush=True)
     check_k3(torch, card, "11 K3 ball2m-train step", probe.k3_args,
              probe.gid, state.params.capacity)
+    k3_fault(torch, card, "11 K3 planted fault", probe.k3_args, probe.gid,
+             state.params.capacity)
 
 
 def phase_k4(torch, card):

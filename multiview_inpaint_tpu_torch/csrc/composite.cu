@@ -16,7 +16,15 @@
 //   logs) at the end of the chunk, so the next chunk may contribute again.
 // It writes raw rows per tile [8, PIX]: bg-free rgb and depth
 // accumulators, the final T in row 4, zeros in rows 5-7. Empty tiles
-// write (0,0,0,0,1,0,0,0).
+// write (0,0,0,0,1,0,0,0). When the caller will run the backward (K3,
+// composite_bwd.cu), it also stores the per-item state [items, 5, PIX]:
+// at the first chunk of every work item (kItemChunks chunks of the
+// tile's segment, numbered through `item_end`), the T carried into it
+// and the four accumulators there, which K3 starts that item from. The
+// T is the kernel's own __fmul_rn(trans, expf(contrib)) carry, the
+// recurrence K3 walks, so an item starts from exactly the T that the
+// walk from the tile's start reaches. Storing it changes no other
+// output.
 //
 // What bounds it on the H100: operations. Every pair-pixel runs ~15 FP32
 // ops and an expf (the gate path); the contributing ones add log1pf, two
@@ -36,9 +44,10 @@
 // (power, alpha, the gates, the stop) come from composite_common.cuh,
 // which the backward kernel (K3) shares, with one rounding per operation
 // as in the plain PyTorch version, so nvcc's FMA contraction cannot move a
-// gate or stop decision off the plain version's or off K3's. Tensor
-// cores, TMA and a block-level early exit are left to the work that makes
-// it fast.
+// gate or stop decision off the plain version's or off K3's. The state
+// adds 20 bytes per item and pixel (there are at most tiles + pairs /
+// 1,024 items), written coalesced. Tensor cores, TMA and a block-level
+// early exit are left to the work that makes it fast.
 
 #include <cuda_runtime.h>
 
@@ -47,15 +56,18 @@
 namespace {
 
 using mvi::kChunk;
+using mvi::kItemPairs;
 using mvi::kOutRows;
 using mvi::kRows;
+using mvi::kStateRows;
 
 __global__ void __launch_bounds__(256)
 composite_kernel(const float* __restrict__ attrs,
                  const long long* __restrict__ seg_start,
                  const long long* __restrict__ counts,
-                 float* __restrict__ out, int tiles_x, int tile_w,
-                 int tile_h) {
+                 const long long* __restrict__ item_end,
+                 float* __restrict__ state, float* __restrict__ out,
+                 int tiles_x, int tile_w, int tile_h) {
   __shared__ float s_attr[kChunk * kRows];
 
   const int tile = blockIdx.x;
@@ -69,8 +81,21 @@ composite_kernel(const float* __restrict__ attrs,
 
   float trans = 1.0f;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
+  // This pixel's state at the tile's first item (null without a state).
+  float* st = nullptr;
+  if (state != nullptr)
+    st = state + (item_end[tile] - (count + kItemPairs - 1) / kItemPairs)
+                     * kStateRows * pix + t;
 
   for (long long c0 = 0; c0 < count; c0 += kChunk) {
+    if (st != nullptr && c0 % kItemPairs == 0) {
+      float* s = st + (c0 / kItemPairs) * kStateRows * pix;
+      s[0] = trans;
+      s[pix] = acc_r;
+      s[2 * pix] = acc_g;
+      s[3 * pix] = acc_b;
+      s[4 * pix] = acc_d;
+    }
     const long long left = count - c0;
     const int n = left < kChunk ? (int)left : kChunk;
     const float* src = attrs + (start + c0) * kRows;
@@ -110,15 +135,18 @@ composite_kernel(const float* __restrict__ attrs,
 
 }  // namespace
 
+// `item_end` and `state` are both null (no state) or both set.
 extern "C" int mvi_composite(const void* attrs, const void* seg_start,
-                             const void* counts, void* out, int num_tiles,
+                             const void* counts, const void* item_end,
+                             void* state, void* out, int num_tiles,
                              int tiles_x, int tile_w, int tile_h,
                              void* stream) {
   if (num_tiles > 0) {
     composite_kernel<<<num_tiles, tile_w * tile_h, 0,
                        (cudaStream_t)stream>>>(
         (const float*)attrs, (const long long*)seg_start,
-        (const long long*)counts, (float*)out, tiles_x, tile_w, tile_h);
+        (const long long*)counts, (const long long*)item_end,
+        (float*)state, (float*)out, tiles_x, tile_w, tile_h);
   }
   return (int)cudaGetLastError();
 }

@@ -34,6 +34,7 @@ the JAX ``load_params`` reads.
 from __future__ import annotations
 
 import os
+import pickle
 import re
 from typing import Dict, Optional, Tuple
 
@@ -178,19 +179,32 @@ def state_dict_from_jax(flat: Dict[str, np.ndarray],
 def read_state_dict(path: str, component: Optional[str] = None
                     ) -> Dict[str, torch.Tensor]:
     """A weights file as a reference-keyed state dict: an npz in the JAX
-    ``save_params`` layout (``component`` as in ``state_dict_from_jax``)
-    or a torch ``.pth``/``.ckpt`` state dict."""
+    ``save_params`` layout (``component`` as in ``state_dict_from_jax``),
+    a ``.safetensors`` file or a torch ``.pth``/``.ckpt`` state dict."""
     if path.endswith(".npz"):
         return state_dict_from_jax(load_params(path), component)
-    if path.endswith((".pth", ".ckpt")):
+    if path.endswith((".safetensors", ".pth", ".ckpt")):
         return load_torch_state_dict(path)
-    raise ValueError(f"{path}: expected .npz (JAX layout) or .pth/.ckpt")
+    raise ValueError(f"{path}: expected .npz (JAX layout), .safetensors or "
+                     f".pth/.ckpt")
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A ``.pth``/``.ckpt`` file in the torch key space (its
-    ``state_dict`` entry when it has one)."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+    """A ``.safetensors``, ``.pth`` or ``.ckpt`` file in the torch key
+    space (its ``state_dict`` entry when it has one). A pickle that the
+    weights-only load refuses (a Lightning ``.ckpt`` keeps its
+    hyper-parameters as Python objects) is loaded in full, as the JAX
+    ``weights_io.load_torch_state_dict`` loads every pickle: only open
+    checkpoints you trust."""
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+        return load_file(path)
+    try:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:
+        print(f"{path}: the weights-only load refused it ("
+              f"{str(e).splitlines()[0]}); loading it in full")
+        sd = torch.load(path, map_location="cpu", weights_only=False)
     if "state_dict" in sd:
         sd = sd["state_dict"]
     return sd

@@ -55,12 +55,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # starts, x0, y0, w, count, n_active, tiles_x, keys, stream
     "mvi_expand_keys": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
-    # attrs, seg_start, counts, out, num_tiles, tiles_x, tile_w, tile_h,
-    # stream
-    "mvi_composite": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # attrs, seg_start, counts, fwd, grad, d_attrs, num_tiles, tiles_x,
-    # tile_w, tile_h, stream
-    "mvi_composite_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # attrs, seg_start, counts, item_end (or NULL), state (or NULL), out,
+    # num_tiles, tiles_x, tile_w, tile_h, stream
+    "mvi_composite": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # attrs, seg_start, counts, item_end, state, fwd, grad, d_attrs,
+    # num_tiles, max_items, tiles_x, tile_w, tile_h, stream
+    "mvi_composite_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _P),
     # q, k, v, o, lse (or NULL), is_f32, batch, heads, t, d, batch
     # stride, row stride, head stride, scale, stream
     "mvi_flash_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
@@ -73,6 +74,9 @@ _SIGNATURES = {
     # kernel (0 dk/dv, 1 dq) at padded head dim
     "mvi_flash_attn_fwd_smem": (_I,),
     "mvi_flash_attn_bwd_smem": (_I, _I),
+    # K3 at threads per block, int[2] out: blocks per SM, splats per warp
+    # reduction
+    "mvi_composite_bwd_residency": (_I, _P),
 }
 
 _lib = None
@@ -145,9 +149,9 @@ def build() -> Path:
 
 
 def ptxas_report(src: str) -> list:
-    """``(kernel, registers, spill stores, spill loads)`` of each entry
-    function of one source, from the ptxas report of the last build (an
-    empty list where there is none)."""
+    """``(kernel, registers, spill stores, spill loads, static shared
+    memory bytes)`` of each entry function of one source, from the ptxas
+    report of the last build (an empty list where there is none)."""
     path = BUILD_DIR / (Path(src).stem + ".ptxas.txt")
     if not path.exists():
         return []
@@ -161,7 +165,10 @@ def ptxas_report(src: str) -> list:
                       int(words[words.index("loads") - 3]))
         elif "Used" in line and "registers" in line and name is not None:
             words = line.replace(",", "").split()
-            out.append((name, int(words[words.index("Used") + 1]), *spills))
+            smem = (int(words[words.index("smem") - 2]) if "smem" in words
+                    else 0)
+            out.append((name, int(words[words.index("Used") + 1]), *spills,
+                        smem))
             name, spills = None, (0, 0)
     return out
 

@@ -16,6 +16,14 @@ the first splat that would push T below 1e-4 is skipped and so is every
 later splat of that chunk (their prefix includes its log), but the carry
 sums only contributing logs, so a low-alpha splat of the NEXT chunk can
 contribute again. (CUDA 3DGS stops the pixel for good instead.)
+
+Work items: a tile's segment is cut into items of ``ITEM_CHUNKS`` chunks
+(``ITEM_PAIRS`` pairs), numbered over the frame in tile order
+(``item_ends``). The forward can return its state at the start of every
+item (``STATE_ROWS`` per pixel: the carried T and the rgb and depth
+accumulators), and the backward can start each item from that state
+instead of walking the tile from its start, which lets the CUDA backward
+(K3) give each item a block of its own.
 """
 
 from __future__ import annotations
@@ -40,14 +48,48 @@ CHUNK = 128  # splats per compositing step (the reference's chunk)
 # rgb accumulators, 3 depth accumulator, 4 final T, 5-7 zero.
 NROWS = 16
 OUT_ROWS = 8
+# Chunks per work item, the CUDA kernels' kItemChunks
+# (csrc/composite_common.cuh), and the pairs an item spans.
+ITEM_CHUNKS = 8
+ITEM_PAIRS = ITEM_CHUNKS * CHUNK
+# Per-item state rows: 0 the carried T at the item's start, 1-3 the rgb
+# accumulators and 4 the depth accumulator there.
+STATE_ROWS = 5
 # Tile-batch size of the plain version: bounds its [tiles, PIX, CHUNK]
 # intermediates to ~2^25 elements whatever the frame size.
 _PLAIN_ELEMS = 1 << 25
 
 
 def alpha_gate(opacity: torch.Tensor) -> torch.Tensor:
-    """Per-splat minimum contributing alpha (see GATE_E)."""
+    """Per-splat minimum contributing alpha (see GATE_E). K3 rejects a
+    splat early where its power is below ``kPowerGated``
+    (csrc/composite_common.cuh), which is sound only while this gate is
+    at least opacity * e^-4.5; tests/test_torch_k3_items.py holds the
+    two together."""
     return torch.clamp(opacity * GATE_E, min=ALPHA_MIN)
+
+
+def item_ends(counts: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumsum over the tiles of their items (a segment of c
+    pairs is ceil(c / ITEM_PAIRS) items): tile t's items are numbered
+    [ends[t] - items_t, ends[t])."""
+    return torch.cumsum(torch.div(counts + (ITEM_PAIRS - 1), ITEM_PAIRS,
+                                  rounding_mode="floor"), 0)
+
+
+def max_items(n_tiles: int, n_pairs: int) -> int:
+    """An upper bound on the items of any frame of ``n_tiles`` tiles and
+    ``n_pairs`` pairs, known without reading the counts: sum_t ceil(c_t /
+    M) <= sum_t (c_t // M + 1) <= n_pairs // M + n_tiles."""
+    return n_tiles + n_pairs // ITEM_PAIRS
+
+
+def _item_of(ends, counts, tl, c0):
+    """The item number of chunk ``c0`` (a multiple of ITEM_PAIRS) of the
+    tiles ``tl``."""
+    first = ends[tl] - torch.div(counts[tl] + (ITEM_PAIRS - 1), ITEM_PAIRS,
+                                 rounding_mode="floor")
+    return first + c0 // ITEM_PAIRS
 
 
 def tile_pixel_coords(tiles_x: int, tiles_y: int, tile_w: int, tile_h: int,
@@ -130,14 +172,18 @@ def _chunks(counts, pix, chunk):
 
 def composite_segments(attrs: torch.Tensor, seg_start: torch.Tensor,
                        counts: torch.Tensor, tiles_x: int, tiles_y: int,
-                       tile_h: int, tile_w: int,
-                       chunk: int = CHUNK) -> torch.Tensor:
+                       tile_h: int, tile_w: int, chunk: int = CHUNK,
+                       with_state: bool = False):
     """Plain version of the composite kernel (K2).
 
     attrs [P, 16] pair-sorted packed attributes; seg_start/counts [T]
     int64 segment of each tile. Returns raw [T, 8, PIX] tiles (see
     OUT_ROWS); the caller composites the background. Differentiable
-    through autograd (every update is out of place).
+    through autograd (every update is out of place). With ``with_state``
+    it also returns the per-item state [max_items(T, P), STATE_ROWS, PIX]
+    (not differentiated; rows past the frame's items are 0): the carry T
+    and the accumulators at the start of every item, recorded from this
+    walk's own carry.
     """
     dev = attrs.device
     n_tiles = tiles_x * tiles_y
@@ -147,7 +193,16 @@ def composite_segments(attrs: torch.Tensor, seg_start: torch.Tensor,
     acc = torch.zeros((n_tiles, pix, 4), dtype=torch.float32, device=dev)
     lane = torch.arange(chunk, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    if with_state:
+        ends = item_ends(counts)
+        state = torch.zeros((max_items(n_tiles, attrs.shape[0]),
+                             STATE_ROWS, pix), dtype=torch.float32,
+                            device=dev)
     for c0, tl in _chunks(counts, pix, chunk):
+        if with_state and c0 % ITEM_PAIRS == 0:
+            item = _item_of(ends, counts, tl, c0)
+            state[item, 0] = t_carry[tl].detach()
+            state[item, 1:] = acc[tl].detach().transpose(1, 2)
         s = _chunk(attrs, seg_start, counts, coords, t_carry, tl, c0, lane,
                    zero)
         acc = acc.index_put((tl,), acc[tl] + s.w @ s.a[:, :, 6:10])
@@ -155,14 +210,17 @@ def composite_segments(attrs: torch.Tensor, seg_start: torch.Tensor,
             torch.sum(torch.where(s.contrib, s.logs, zero), dim=-1)))
     pad = torch.zeros((n_tiles, OUT_ROWS - 5, pix), dtype=torch.float32,
                       device=dev)
-    return torch.cat([acc.transpose(1, 2), t_carry[:, None, :], pad], dim=1)
+    tiles8 = torch.cat([acc.transpose(1, 2), t_carry[:, None, :], pad],
+                       dim=1)
+    return (tiles8, state) if with_state else tiles8
 
 
 def composite_segments_bwd(attrs: torch.Tensor, seg_start: torch.Tensor,
                            counts: torch.Tensor, tiles8: torch.Tensor,
                            g_tiles8: torch.Tensor, tiles_x: int,
-                           tiles_y: int, tile_h: int,
-                           tile_w: int) -> torch.Tensor:
+                           tiles_y: int, tile_h: int, tile_w: int,
+                           state: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """Plain version of the composite backward kernel (K3).
 
     From the forward's raw tiles ``tiles8`` and their cotangent
@@ -180,6 +238,11 @@ def composite_segments_bwd(attrs: torch.Tensor, seg_start: torch.Tensor,
     stop decisions are the forward's. Rows: 0-1 d mean, 2-4 d conic,
     5 d opacity, 6-8 d rgb, 9 d depth; rows 10 (the alpha gate: a
     comparison carries no gradient) and 11-15 are 0.
+
+    With the forward's per-item ``state`` (``composite_segments(...,
+    with_state=True)``) every item starts from it: T from its row 0 and
+    the prefix of w.A from g . its accumulators, as the CUDA K3 does.
+    Without it the walk carries both from the tile's start.
     """
     dev = attrs.device
     n_tiles = tiles_x * tiles_y
@@ -194,10 +257,15 @@ def composite_segments_bwd(attrs: torch.Tensor, seg_start: torch.Tensor,
                           device=dev)
     lane = torch.arange(CHUNK, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    ends = item_ends(counts) if state is not None else None
     for c0, tl in _chunks(counts, pix, CHUNK):
+        g = g4[tl]                                           # [L, P, 4]
+        if state is not None and c0 % ITEM_PAIRS == 0:
+            st = state[_item_of(ends, counts, tl, c0)]       # [L, 5, P]
+            t_carry[tl] = st[:, 0]
+            prefix[tl] = torch.sum(g * st[:, 1:].transpose(1, 2), dim=-1)
         s = _chunk(attrs, seg_start, counts, coords, t_carry, tl, c0, lane,
                    zero)
-        g = g4[tl]                                           # [L, P, 4]
         big_a = g @ s.a[:, :, 6:10].transpose(1, 2)          # [L, P, C]
         wa = s.w * big_a
         suffix = (total[tl] - prefix[tl])[:, :, None] - torch.cumsum(wa, -1)

@@ -3,7 +3,8 @@ grids.
 
     python -m multiview_inpaint_tpu_torch.pipelines.svd_test \\
         --data_root gs [--ctrl_ckpt ctrl.npz|ctrl.pth] \\
-        [--base_ckpt svd.npz|svd.pth] [--out gs/inpainted] \\
+        [--base_ckpt svd.npz|svd.safetensors|svd.pth] \\
+        [--out gs/inpainted] \\
         [--device cuda|cpu] [--tiny_model]
 
 Port of ``multiview_inpaint_tpu/pipelines/svd_test.py``, plain sampling:
@@ -18,12 +19,12 @@ and the frames under ``inpainted/<scene>/<ctrl>/<mode>/NN.png``.
 
 Weights: ``--base_ckpt`` (UNet, VAE, CLIP) and ``--ctrl_ckpt`` (the
 ControlNet) read the JAX package's npz layout through
-``diffusion.checkpoint.state_dict_from_jax``, and ``.pth``/``.ckpt`` files
-in the reference's torch key space directly; without them the weights are
-random from ``--seed``. Random numbers (the initial noise, the
-conditioning augmentation's noise) come from a ``torch.Generator`` seeded
-with ``--seed``. Not offered yet: ``--sampling blended|inversion``,
-``--shard_frames``, ``--dump_latents`` and safetensors files.
+``diffusion.checkpoint.state_dict_from_jax``, and ``.safetensors``,
+``.pth`` and ``.ckpt`` files in the reference's torch key space directly;
+without them the weights are random from ``--seed``. Random numbers (the
+initial noise, the conditioning augmentation's noise) come from a
+``torch.Generator`` seeded with ``--seed``. Not offered yet: ``--sampling
+blended|inversion``, ``--shard_frames`` and ``--dump_latents``.
 """
 
 from __future__ import annotations

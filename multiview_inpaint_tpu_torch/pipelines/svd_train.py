@@ -89,8 +89,8 @@ def _engine_config(args) -> EngineConfig:
 
 
 def _load_base(eng, path: str) -> None:
-    """UNet, VAE and CLIP weights (npz in the JAX layout, or a torch
-    state dict), then the ControlNet trunk from the UNet."""
+    """UNet, VAE and CLIP weights (npz in the JAX layout, safetensors or
+    a torch state dict), then the ControlNet trunk from the UNet."""
     sd = {k: v for k, v in ckpt.read_state_dict(path).items()
           if not k.startswith(ckpt.PREFIXES["controlnet"])}
     for comp, (missing, unexpected) in eng.load_reference_state_dict(
@@ -306,8 +306,8 @@ def main(argv=None):
     p.add_argument("--size", type=int, nargs=2, default=[512, 384])
     p.add_argument("--cond_aug", type=float, default=0.0)
     p.add_argument("--base_ckpt", default=None,
-                   help="pretrained SVD weights (torch .pth/.ckpt or the "
-                        "JAX npz layout)")
+                   help="pretrained SVD weights (.safetensors, torch "
+                        ".pth/.ckpt or the JAX npz layout)")
     p.add_argument("--resume", default=None,
                    help="a ControlNet checkpoint of this CLI (npz)")
     p.add_argument("--ema", action="store_true")

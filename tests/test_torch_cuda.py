@@ -106,17 +106,133 @@ def test_cuda_composite_backward_matches_plain_k3(tile):
             proj.depth)[bins.order[bins.gid_sorted]].contiguous()
         args = (attrs, bins.seg_start, bins.counts)
         size = (tx, ty, th, tw)
-        tiles8 = composite_cuda.composite_fwd(*args, *size)
+        tiles8, state = composite_cuda.composite_fwd(*args, *size,
+                                                     with_state=True)
         gen = torch.Generator(device="cuda").manual_seed(0)
         g = torch.randn(tiles8.shape, generator=gen, device="cuda")
         g[:, 5:] = 0
-        got = composite_cuda.composite_bwd(*args, tiles8, g, *size)
-        again = composite_cuda.composite_bwd(*args, tiles8, g, *size)
+        got = composite_cuda.composite_bwd(*args, tiles8, g, *size, state)
+        again = composite_cuda.composite_bwd(*args, tiles8, g, *size,
+                                             state)
         want = composite.composite_segments_bwd(*args, tiles8, g, *size)
     assert bins.total_pairs > 0 and torch.isfinite(got).all()
     assert torch.equal(got, again)
     assert _k3_bar_share(got[:, :10], want[:, :10]) <= 1e-4
     assert not got[:, 10:].any()
+
+
+def _state_share(got, want):
+    """Share of item-pixels whose carried T or rgb accumulators differ by
+    more than 3e-5, or whose depth accumulator differs by more than 3e-4
+    (a state [items, 5, PIX])."""
+    bad = (((got[:, 0:4] - want[:, 0:4]).abs() > RGB_TOL).any(dim=1)
+           | ((got[:, 4] - want[:, 4]).abs() > DEPTH_TOL))
+    return float(bad.float().mean())
+
+
+def _item_frame(counts, tile, seed=0):
+    """Packed attrs on the card of faint splats over a row of tiles of
+    shape ``tile`` (h, w), tile t's segment ``counts[t]`` pairs long: the
+    pixels of a deep tile see through several items."""
+    th, tw = tile
+    rng = np.random.default_rng(seed)
+    tile_of = np.repeat(np.arange(len(counts)), counts)
+    n = tile_of.size
+    means = np.stack([tile_of * tw + rng.uniform(-4, tw + 4, n),
+                      rng.uniform(-4, th + 4, n)], -1)
+    sx, sy = rng.uniform(2, 8, n), rng.uniform(2, 8, n)
+    rho = rng.uniform(-0.5, 0.5, n)
+    det = (1 - rho ** 2) * sx ** 2 * sy ** 2
+    conic = np.stack([sy ** 2 / det, -rho * sx * sy / det, sx ** 2 / det],
+                     -1)
+    from multiview_inpaint_tpu_torch.ops.rasterizer import composite_cuda
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    attrs = composite_cuda.pack_attrs(
+        f(means), f(conic), f(rng.uniform(0.005, 0.03, n)),
+        f(rng.uniform(0, 1, (n, 3))), f(rng.uniform(1, 5, n))).contiguous()
+    counts = torch.tensor(counts, dtype=torch.int64, device="cuda")
+    return attrs, torch.cumsum(counts, 0) - counts, counts
+
+
+def _item_counts():
+    from multiview_inpaint_tpu_torch.ops.rasterizer import composite
+    m = composite.ITEM_PAIRS
+    return [m - 1, m, m + 1, 0, 2 * m - 1, 2 * m, 2 * m + 1, 1, 127, 128,
+            129, 0, 5 * m + 17]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(16, 16), (8, 16)])
+def test_cuda_k3_items_at_boundaries_and_deep_tiles(tile):
+    """Tiles deeper than several items, counts at item boundaries +- 1,
+    empty tiles: K2's tiles are bit-equal with and without the per-item
+    state, that state matches the plain K2's at K2's bars, and K3 from it
+    matches the plain K3 walking each tile from its start and the plain
+    K3 from the same state at the gradient bar, repeats bit for bit and
+    leaves rows 10-15 at 0."""
+    _require_cuda()
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (composite,
+                                                            composite_cuda)
+    counts = _item_counts()
+    attrs, seg_start, cnt = _item_frame(counts, tile)
+    size = (len(counts), 1, *tile)
+    with torch.no_grad():
+        bare = composite_cuda.composite_fwd(attrs, seg_start, cnt, *size)
+        tiles8, state = composite_cuda.composite_fwd(
+            attrs, seg_start, cnt, *size, with_state=True)
+        _, state_p = composite.composite_segments(
+            attrs, seg_start, cnt, *size, with_state=True)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        g = torch.randn(tiles8.shape, generator=gen, device="cuda")
+        g[:, 5:] = 0
+        args = (attrs, seg_start, cnt, tiles8, g, *size, state)
+        got = composite_cuda.composite_bwd(*args)
+        again = composite_cuda.composite_bwd(*args)
+        want = composite.composite_segments_bwd(*args)
+        walk = composite.composite_segments_bwd(*args[:-1])
+    assert torch.equal(bare, tiles8)
+    # Every item's first row of T is K2's carry into it: 1 at a tile's
+    # first item, below 1 further in (the pixels see through).
+    ends = composite.item_ends(cnt)
+    n_items = int(ends[-1])
+    assert n_items == sum(-(-c // composite.ITEM_PAIRS) for c in counts)
+    assert _state_share(state[:n_items], state_p[:n_items]) <= 1e-4
+    first = ends - (cnt + composite.ITEM_PAIRS - 1) // composite.ITEM_PAIRS
+    deep = len(counts) - 1
+    assert torch.equal(state[int(first[deep]), 0],
+                       torch.ones_like(state[0, 0]))
+    assert float(state[int(first[deep]) + 1, 0].max()) < 1.0
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert _k3_bar_share(got[:, :10], want[:, :10]) <= 1e-4
+    assert _k3_bar_share(got[:, :10], walk[:, :10]) <= 1e-4
+    assert not got[:, 10:].any() and float(want[:, :10].abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_k3_all_empty_and_no_pairs():
+    """A frame without pairs: K2 writes T = 1, K3 returns [0, 16]."""
+    _require_cuda()
+    from multiview_inpaint_tpu_torch.ops.rasterizer import composite_cuda
+    attrs, seg_start, cnt = _item_frame([0, 0, 0], (16, 16))
+    size = (3, 1, 16, 16)
+    tiles8, state = composite_cuda.composite_fwd(attrs, seg_start, cnt,
+                                                 *size, with_state=True)
+    assert torch.equal(tiles8[:, 4], torch.ones_like(tiles8[:, 4]))
+    d = composite_cuda.composite_bwd(attrs, seg_start, cnt, tiles8,
+                                     torch.ones_like(tiles8), *size, state)
+    assert d.shape == (0, 16)
+
+
+@pytest.mark.cuda
+def test_cuda_k3_refuses_a_missing_state():
+    _require_cuda()
+    from multiview_inpaint_tpu_torch.ops.rasterizer import composite_cuda
+    attrs, seg_start, cnt = _item_frame([5, 300], (16, 16))
+    size = (2, 1, 16, 16)
+    tiles8 = composite_cuda.composite_fwd(attrs, seg_start, cnt, *size)
+    with pytest.raises(ValueError, match="state"):
+        composite_cuda.composite_bwd(attrs, seg_start, cnt, tiles8,
+                                     torch.ones_like(tiles8), *size)
 
 
 def _train_scene(device):

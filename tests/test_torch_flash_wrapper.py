@@ -81,6 +81,7 @@ def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
         "ptxas info    : Function properties for _Z3helperv\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'\n"
-        "ptxas info    : Used 40 registers, 380 bytes cmem[0]\n")
+        "ptxas info    : Used 40 registers, used 1 barriers, 47140 bytes "
+        "smem, 380 bytes cmem[0]\n")
     assert kernels.ptxas_report("flash_attn_fwd.cu") == [
-        ("_Z3fooILi64EEv", 168, 8, 12), ("_Z3barv", 40, 0, 0)]
+        ("_Z3fooILi64EEv", 168, 8, 12, 0), ("_Z3barv", 40, 0, 0, 47140)]
