@@ -13,15 +13,17 @@ non-zero:
 2. build the CUDA kernels from ``multiview_inpaint_tpu_torch/csrc``, and
    print each flash kernel's registers, spills (ptxas) and dynamic shared
    memory, and any ptxas warning or performance note about them, K2's
-   and K3's registers, spills and static shared memory (ptxas), and K3's
-   blocks per SM and splats per warp reduction;
+   and K3's registers, spills and static shared memory (ptxas), K2's
+   blocks per SM, and K3's blocks per SM and splats per warp reduction;
 3. K1 (pair keys) against its plain version, bit for bit, on the 1080p
    bench frames of the 100k bench ball and the 2M-gaussian scene;
 4. K2 (composite) against its plain version on the same frames: max
    errors, pixels beyond rgb 3e-5 / depth 3e-4 (at most 0.01%), every
    pixel within the stop-flip bound; its tiles bit-equal with and without
    the per-item state output, and that state against the plain K2's at
-   the same bars over every item-pixel (``compare_state``);
+   the same bars over every item-pixel (``compare_state``); on the 2M
+   frame, a planted fault (``k2_fault``: every gate box pulled in by one
+   pixel) that the same bar must fail;
 5. K3 (composite backward), started from K2's per-item state, against
    its plain version walking each tile from its start and against its
    plain version from the same state, on the same frames under a
@@ -55,9 +57,10 @@ non-zero:
     ``train_step`` of that scene, whose K3 call (the real L1+SSIM
     cotangent) is held against the plain K3 as in phase 5 and sets the
     densification threshold (a quantile of that step's screen-space
-    gradient norms), and K2 on its inputs timed with and without the
-    per-item state (tiles and state bit-equal to the step's, the state
-    against the plain K2's as in phase 4); then the
+    gradient norms), K1 on its inputs (bit-equal keys) timed with its
+    bound, and K2 on its inputs timed with and without the per-item
+    state, with its bound (tiles and state bit-equal to the step's, the
+    state against the plain K2's as in phase 4); then the
     ``train_gs`` CLI for 60 iterations in a
     buffer a little larger than the init, counters zeroed before and read
     after: loss falls, densify ran twice and wrote rows, the capacity
@@ -247,17 +250,28 @@ K5_GRAD_RMS_TOL = 0.012
 FAULT_KEYS = 64
 
 
+# ``cuda_ms`` sleeps the device this long per timed call before starting
+# its clock (the wrappers take tens of microseconds of host time each);
+# the sleep counts clock cycles, at most the H100's 1.98 GHz.
+HOST_LAUNCH_S = 200e-6
+SLEEP_CYCLES_PER_S = 1.98e9
+
+
 def fail(msg):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
 def cuda_ms(torch, fn, iters):
     """Mean device ms per call over ``iters`` back-to-back calls, after
-    one warm-up call."""
+    one warm-up call. The calls are queued behind a device-side sleep
+    long enough for the host to enqueue them all (``HOST_LAUNCH_S`` per
+    call), so a kernel shorter than its wrapper's host time is timed as
+    the device runs it, not at the host's launch rate."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(iters * HOST_LAUNCH_S * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(iters):
         fn()
@@ -335,7 +349,8 @@ def phase_card(torch):
 def phase_build():
     """Builds the kernels; prints each kernel's registers and spills
     (ptxas), the flash kernels' dynamic and the composite kernels' static
-    shared memory, and K3's blocks per SM and splats per reduction."""
+    shared memory, K2's blocks per SM, and K3's blocks per SM and splats
+    per reduction."""
     from multiview_inpaint_tpu_torch import kernels as _kernels
     t0 = time.perf_counter()
     lib_path = _kernels.build()
@@ -366,6 +381,11 @@ def phase_build():
             print(f"[2 build] {name}: {regs} registers, {sm} bytes static "
                   f"shared memory, spill stores {st} B, spill loads {ld} B",
                   flush=True)
+    k2_blocks = (ctypes.c_int * 1)()
+    _kernels.check(lib.mvi_composite_residency(TILE * TILE, k2_blocks),
+                   "composite_kernel residency")
+    print(f"[2 build] K2 composite_kernel: {k2_blocks[0]} blocks of "
+          f"{TILE * TILE} threads per SM", flush=True)
     res = (ctypes.c_int * 2)()
     _kernels.check(lib.mvi_composite_bwd_residency(TILE * TILE, res),
                    "composite_bwd_kernel residency")
@@ -403,7 +423,9 @@ def phase_kernels(torch, card, name, params):
     k1_ms = cuda_ms(torch, lambda: pair_expand.expand_keys(*k1_args), 50)
     k1_plain_ms = cuda_ms(torch,
                           lambda: pair_expand.expand_keys_ref(*k1_args), 5)
-    k1_bytes = r.total * 8 + r.n_active * (8 + 4 + 4 + 4 + 8)
+    # Keys out; starts, x0, y0 and w of the actives in (the counts follow
+    # from the starts and the total).
+    k1_bytes = r.total * 8 + r.n_active * (8 + 4 + 4 + 4)
     k1 = dict(max_abs_err=0.0, ms=k1_ms, plain_ms=k1_plain_ms,
               bound_ms=k1_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
               library_ms=None)
@@ -431,6 +453,47 @@ def phase_kernels(torch, card, name, params):
     state_note = compare_state(torch, f"4 K2 {name}", attrs, counts, state,
                                state_p)
 
+    e_rgb, e_d, e_t, bad, within = k2_verdict(torch, out_k, out_p, attrs,
+                                              size)
+    n_pix = e_d.numel()
+    k2_ms = cuda_ms(torch, lambda: composite_cuda.composite_fwd(*k2_args),
+                    10)
+    with torch.no_grad():
+        k2_plain_ms = cuda_ms(
+            torch, lambda: composite.composite_segments(*k2_args), 1)
+    walk, k2_bound = k2_bound_of(torch, *k2_args)
+    k2 = dict(max_abs_err=float(max(e_rgb.max(), e_d.max(), e_t.max())),
+              ms=k2_ms, plain_ms=k2_plain_ms, **k2_bound, library_ms=None)
+    print(f"[4 K2 {name}] max abs err rgb {float(e_rgb.max()):.3g} depth "
+          f"{float(e_d.max()):.3g} T {float(e_t.max()):.3g} | {bad}/{n_pix} "
+          f"px beyond rgb {RGB_TOL} / depth {DEPTH_TOL} | all px within "
+          f"stop-flip bound: {within} | walked, kept, contributing share of "
+          f"pair-pixels {walk_shares(walk, r.total * pix)} | kernel "
+          f"{k2_ms:.4f} ms, plain {k2_plain_ms:.2f} ms, bound "
+          f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}) | {state_note} | "
+          f"{card}", flush=True)
+    if bad > BAD_FRACTION * n_pix or not within:
+        fail(f"K2 disagrees with its plain version on {name}")
+    if name == "big2m":
+        k2_fault(torch, card, f"4 K2 {name} planted fault", k2_args, out_p,
+                 size)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    g = torch.randn(out_k.shape, generator=gen, device=DEVICE)
+    g[:, 5:] = 0.0
+    check_k3(torch, card, f"5 K3 {name}",
+             (attrs, seg_start, counts, out_k, g, tiles_x, tiles_y, TILE,
+              TILE, state), gid, params.capacity)
+    return k1, k2
+
+
+def k2_verdict(torch, out_k, out_p, attrs, size):
+    """K2's raw tiles ``out_k`` against the plain K2's ``out_p`` as
+    images of ``size`` (tiles_x, tiles_y, tile_h, tile_w, width,
+    height): the per-pixel errors of rgb, depth (the sentinel through the
+    final T) and T, the pixels beyond rgb 3e-5 / depth 3e-4, and whether
+    every pixel lies within the stop-flip bound."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import api, composite
+
     def image(t8):
         tiles = t8.transpose(1, 2)                       # [T, PIX, 8]
         return (api.assemble(tiles[..., 0:3], *size),
@@ -442,47 +505,52 @@ def phase_kernels(torch, card, name, params):
     e_rgb = (rgb_k - rgb_p).abs().amax(-1)
     e_d = (d_k - d_p).abs()
     e_t = (t_k - t_p).abs()
-    n_pix = e_d.numel()
     bad = int(((e_rgb > RGB_TOL) | (e_d > DEPTH_TOL)).sum())
     # A flipped stop decision moves a pixel by at most T_in <=
     # T_STOP / (1 - 0.99) = 1e-2 times that splat's colour or depth (and
     # the depth sentinel through the final T).
     flip_t = composite.T_STOP / (1.0 - composite.ALPHA_MAX)
-    c_max = float(attrs[:, 6:9].abs().max()) if r.total else 0.0
-    d_max = float(attrs[:, 9].abs().max()) if r.total else 0.0
+    c_max = float(attrs[:, 6:9].abs().max()) if attrs.shape[0] else 0.0
+    d_max = float(attrs[:, 9].abs().max()) if attrs.shape[0] else 0.0
     within = bool((e_rgb <= flip_t * c_max + RGB_TOL).all()
                   and (e_d <= flip_t * (d_max + composite.DEPTH_EMPTY)
                        + DEPTH_TOL).all()
                   and (e_t <= flip_t + RGB_TOL).all())
-    k2_ms = cuda_ms(torch, lambda: composite_cuda.composite_fwd(*k2_args),
-                    10)
-    with torch.no_grad():
-        k2_plain_ms = cuda_ms(
-            torch, lambda: composite.composite_segments(*k2_args), 1)
+    return e_rgb, e_d, e_t, bad, within
+
+
+def k2_bound_of(torch, attrs, seg_start, counts, tiles_x, tiles_y, th, tw):
+    """The walk's pair-pixel counts (``walk_counts``) and K2's
+    ``bound_ms``/``bound_by`` on these inputs: its bytes (64 per pair and
+    16 per tile in, 8 rows per pixel out) or its least operations."""
     walk = walk_counts(torch, attrs, seg_start, counts,
-                       (tiles_x, tiles_y, TILE, TILE))
-    t_bytes = (r.total * 64 + n_tiles * 16
-               + n_tiles * 8 * pix * 4) / HBM_BYTES_PER_S
-    k2 = dict(max_abs_err=float(max(e_rgb.max(), e_d.max(), e_t.max())),
-              ms=k2_ms, plain_ms=k2_plain_ms,
-              **bound(t_bytes, walk, K2_CONTRIB_OPS), library_ms=None)
-    print(f"[4 K2 {name}] max abs err rgb {float(e_rgb.max()):.3g} depth "
-          f"{float(e_d.max()):.3g} T {float(e_t.max()):.3g} | {bad}/{n_pix} "
-          f"px beyond rgb {RGB_TOL} / depth {DEPTH_TOL} | all px within "
-          f"stop-flip bound: {within} | walked, kept, contributing share of "
-          f"pair-pixels {walk_shares(walk, r.total * pix)} | kernel "
-          f"{k2_ms:.4f} ms, plain {k2_plain_ms:.2f} ms, bound "
-          f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}) | {state_note} | "
-          f"{card}", flush=True)
-    if bad > BAD_FRACTION * n_pix or not within:
-        fail(f"K2 disagrees with its plain version on {name}")
-    gen = torch.Generator(device=DEVICE).manual_seed(0)
-    g = torch.randn(out_k.shape, generator=gen, device=DEVICE)
-    g[:, 5:] = 0.0
-    check_k3(torch, card, f"5 K3 {name}",
-             (attrs, seg_start, counts, out_k, g, tiles_x, tiles_y, TILE,
-              TILE, state), gid, params.capacity)
-    return k1, k2
+                       (tiles_x, tiles_y, th, tw))
+    n_tiles = tiles_x * tiles_y
+    t_bytes = (attrs.shape[0] * 64 + n_tiles * 16
+               + n_tiles * 8 * th * tw * 4) / HBM_BYTES_PER_S
+    return walk, bound(t_bytes, walk, K2_CONTRIB_OPS)
+
+
+def k2_fault(torch, card, label, k2_args, out_p, size):
+    """A planted fault that K2's bar must catch: every gate box pulled in
+    by one pixel on each side (``box_shrink``), so that warps skip splats
+    that some of their pixels keep. Fails if the bar passes it."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import composite_cuda
+
+    with torch.no_grad():
+        out_f = composite_cuda._launch(*k2_args, False, box_shrink=1.0)
+    e_rgb, e_d, _, bad, within = k2_verdict(torch, out_f, out_p,
+                                            k2_args[0], size)
+    caught = bad > BAD_FRACTION * e_d.numel() or not within
+    print(f"[{label}] K2 with every gate box pulled in by 1 px: max abs err "
+          f"rgb {float(e_rgb.max()):.3g} depth {float(e_d.max()):.3g} | "
+          f"{bad}/{e_d.numel()} px beyond the bar, all within the stop-flip "
+          f"bound: {within} | the K2 bar "
+          f"{'fails it, as it must' if caught else 'PASSES it'} | {card}",
+          flush=True)
+    if not caught:
+        fail(f"the K2 bar does not catch gate boxes pulled in by 1 px at "
+             f"{label}")
 
 
 def compare_state(torch, label, attrs, counts, state_k, state_p):
@@ -971,9 +1039,10 @@ class StepProbe:
     ``step`` runs one train step with wrappers around what the step
     calls: ``render``, ``loss_terms`` and ``apply_adam`` in
     ``gs_trainer``, and under the render the pair binning (to keep each
-    pair's gaussian), ``pack_attrs`` (a gradient hook on its output marks
-    the end of the gather's backward) and K3's wrapper (its inputs are
-    kept). Each boundary records a CUDA event.
+    pair's gaussian), K1's wrapper (its inputs are kept), ``pack_attrs``
+    (a gradient hook on its output marks the end of the gather's
+    backward) and K3's wrapper (its inputs are kept). Each boundary
+    records a CUDA event.
     """
     MARKS = ("step", "render", "loss", "k3_in", "k3_out", "gather",
              "adam_in", "adam_out")
@@ -985,6 +1054,7 @@ class StepProbe:
         from multiview_inpaint_tpu_torch.ops.rasterizer import (
             api, binning, composite_cuda)
         self.torch, self.ev, self.k3_args, self.gid = torch, {}, None, None
+        self.k1_args = None
 
         def marked(fn, first, last):
             def run(*a, **kw):
@@ -1010,7 +1080,12 @@ class StepProbe:
             self.k3_args = a
             return k3_marked(*a)
 
+        def k1(*a):
+            self.k1_args = a
+            return expand_keys(*a)
+
         bin_gaussians, pack_attrs = binning.bin_gaussians, api.pack_attrs
+        expand_keys = binning.expand_keys
         k3_marked = marked(composite_cuda.composite_bwd, "k3_in", "k3_out")
         self.patches = [
             (gs_trainer, "render", marked(gs_trainer.render, None, "render")),
@@ -1018,7 +1093,8 @@ class StepProbe:
              marked(gs_trainer.loss_terms, None, "loss")),
             (gs_trainer, "apply_adam",
              marked(gs_trainer.apply_adam, "adam_in", "adam_out")),
-            (binning, "bin_gaussians", bins), (api, "pack_attrs", pack),
+            (binning, "bin_gaussians", bins), (binning, "expand_keys", k1),
+            (api, "pack_attrs", pack),
             (composite_cuda, "composite_bwd", k3)]
 
     def mark(self, key):
@@ -1079,7 +1155,7 @@ def phase_train(torch, card, iterations=TRAIN_ITERS, extra=()):
         scene.cameras_extent)
     k3 = check_k3(torch, card, "10 K3 orbit-train first step",
                   probe.k3_args, probe.gid, state.params.capacity)
-    k2_with_state(torch, card, probe.k3_args)
+    k2_with_state(torch, card, probe)
     seen = state.stats.denom > 0
     threshold = float(torch.quantile(state.stats.grad_accum[seen],
                                      DENSIFY_QUANTILE))
@@ -1143,14 +1219,27 @@ def phase_train(torch, card, iterations=TRAIN_ITERS, extra=()):
     return launches, k3
 
 
-def k2_with_state(torch, card, k3_args):
-    """K2 on K3's inputs (main path 2's first step) with and without
-    the per-item state: tiles bit-equal, the state held against the plain
-    K2's (``compare_state``), and both timed."""
-    from multiview_inpaint_tpu_torch.ops.rasterizer import (composite,
-                                                            composite_cuda)
+def k2_with_state(torch, card, probe):
+    """K1 and K2 on the inputs of main path 2's first step (``probe``'s):
+    K1's keys bit-equal to the plain version's, K1 timed with its bound;
+    K2 with and without the per-item state: tiles bit-equal, the state
+    held against the plain K2's (``compare_state``), both timed, with
+    K2's bound."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (
+        composite, composite_cuda, pair_expand)
 
-    attrs, seg_start, counts, tiles8, _, *size, state = k3_args
+    k1_args = probe.k1_args
+    same_keys = torch.equal(pair_expand.expand_keys(*k1_args),
+                            pair_expand.expand_keys_ref(*k1_args))
+    k1_ms = cuda_ms(torch, lambda: pair_expand.expand_keys(*k1_args), 50)
+    k1_bound = (k1_args[6] * 8 + k1_args[5] * (8 + 4 + 4 + 4)) \
+        / HBM_BYTES_PER_S * 1e3
+    print(f"[10 K1 orbit-train] actives {k1_args[5]} pairs {k1_args[6]}: "
+          f"keys equal {same_keys} | kernel {k1_ms:.4f} ms, bound "
+          f"{k1_bound:.4f} ms (bytes) | {card}", flush=True)
+    if not same_keys:
+        fail("K1 keys differ from the plain version at orbit-train")
+    attrs, seg_start, counts, tiles8, _, *size, state = probe.k3_args
     n_items = int(composite.item_ends(counts)[-1])  # rows past it are unset
     k2_args = (attrs.detach(), seg_start, counts, *size)
     with torch.no_grad():
@@ -1161,15 +1250,18 @@ def k2_with_state(torch, card, k3_args):
         ms_st = cuda_ms(torch, lambda: composite_cuda.composite_fwd(
             *k2_args, with_state=True), 10)
         _, st_p = composite.composite_segments(*k2_args, with_state=True)
+    walk, k2_bound = k2_bound_of(torch, *k2_args)
     note = compare_state(torch, "10 K2 orbit-train", attrs, counts, st, st_p)
     same = (torch.equal(plain, with_st) and torch.equal(plain, tiles8)
             and torch.equal(st[:n_items], state[:n_items]))
     print(f"[10 K2 orbit-train] tiles equal with and without the per-item "
           f"state ({tuple(st.shape)}, {st.numel() * 4 / 1e6:.1f} MB) and "
           f"equal to the step's, state equal to the step's: {same} | "
-          f"{note} | kernel {ms:.4f} ms, with the state {ms_st:.4f} ms | "
-          f"{card}",
-          flush=True)
+          f"{note} | kernel {ms:.4f} ms, with the state {ms_st:.4f} ms, "
+          f"bound {k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']}; "
+          f"walked, kept, contributing share of pair-pixels "
+          f"{walk_shares(walk, attrs.shape[0] * size[2] * size[3])}) | "
+          f"{card}", flush=True)
     if not same:
         fail("K2's tiles or state differ with the state output at "
              "orbit-train")

@@ -69,6 +69,72 @@ def alpha_gate(opacity: torch.Tensor) -> torch.Tensor:
     return torch.clamp(opacity * GATE_E, min=ALPHA_MIN)
 
 
+# K2's gate culling (csrc/composite.cu). A splat's gate bound is the
+# least power at which it can pass its gate: ln(gate / opacity) less
+# BOUND_MARGIN (the roundings of expf, the product and logf). Its gate
+# box bounds the ellipse where the power reaches the bound, Q = a dx^2 +
+# 2 b dx dy + c dy^2 <= q with q = -2 bound * BOX_SLACK: half-extents
+# sqrt(q c / det) and sqrt(q a / det) (det = a c - b^2) plus BOX_PAD
+# pixels. Conics that are not positive definite, too near singular (a c
+# / det above BOX_COND) or not finite get the whole plane.
+BOUND_MARGIN = 1e-4
+BOX_SLACK = 1.01
+BOX_PAD = 0.0625
+BOX_COND = 1000.0
+# K2's warp rectangles: 8x4 pixels where the tile is made of them.
+WARP_RECT = (8, 4)
+
+
+def gate_bound(attrs: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2's gate bound: [P] float32, the least power at
+    which each packed splat (row 5 opacity, row 10 gate) can pass its
+    gate; +inf where none can, -inf where the gate is not positive or the
+    opacity is NaN (the kernels' fminf clamps a NaN alpha to 0.99). Equal
+    to the kernel's up to the last place of logf."""
+    op, g = attrs[:, 5], attrs[:, 10]
+    bound = torch.log(g / op) - BOUND_MARGIN
+    bound = torch.where(op > 0, bound, float("inf"))
+    return torch.where((g > 0) & ~torch.isnan(op), bound, -float("inf"))
+
+
+def gate_box(attrs: torch.Tensor, shrink: float = 0.0) -> torch.Tensor:
+    """Plain version of K2's gate box: [P, 4] float32 (x0, x1, y0, y1) of
+    every packed splat, the kernel's formula and roundings in float32 (up
+    to the last place of ``gate_bound``'s logf). A warp skips a splat
+    whose box misses its pixel rectangle; every pixel where the splat's
+    power reaches its gate bound, and so every pixel that keeps it, lies
+    inside the box. ``shrink`` pulls every side in by that many pixels
+    (a planted fault)."""
+    mx, my, a, b, c = attrs[:, :5].unbind(1)
+    bound = gate_bound(attrs)
+    q = torch.where(bound < 0, (-2.0 * BOX_SLACK) * bound, 0.0)
+    ac = a * c
+    det = ac - b * b
+    whole = ~((a > 0) & (det > 0) & (ac < float("inf"))
+              & (ac <= BOX_COND * det) & (q < float("inf")))
+    hx = torch.sqrt(q * c / det) + BOX_PAD - shrink
+    hy = torch.sqrt(q * a / det) + BOX_PAD - shrink
+    box = torch.stack([mx - hx, mx + hx, my - hy, my + hy], dim=1)
+    plane = torch.tensor([-1.0, 1.0, -1.0, 1.0], device=attrs.device) \
+        * float("inf")
+    return torch.where(whole[:, None], plane, box)
+
+
+def warp_pixels(tile_h: int, tile_w: int) -> torch.Tensor:
+    """[PIX] int64: the tile-local pixel (row-major index) of each thread
+    of K2's block. A warp takes a WARP_RECT rectangle where the tile is
+    made of them (16x16 and 8x16 tiles), else 32 consecutive pixels."""
+    t = torch.arange(tile_h * tile_w)
+    rw, rh = WARP_RECT
+    if tile_w % rw or tile_h % rh:
+        return t
+    warp, lane = t // 32, t % 32
+    per_row = tile_w // rw
+    lx = (warp % per_row) * rw + lane % rw
+    ly = (warp // per_row) * rh + lane // rw
+    return ly * tile_w + lx
+
+
 def item_ends(counts: torch.Tensor) -> torch.Tensor:
     """Inclusive cumsum over the tiles of their items (a segment of c
     pairs is ceil(c / ITEM_PAIRS) items): tile t's items are numbered

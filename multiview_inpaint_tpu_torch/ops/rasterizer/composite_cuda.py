@@ -4,8 +4,10 @@ K2 is the counterpart of
 ``multiview_inpaint_tpu/ops/rasterizer/pallas_composite.py`` (``_kernel``
 via ``composite_pallas``), K3 of ``pallas_backward.py`` (``_bwd_kernel``
 via ``composite_pallas_bwd``). The CUDA sources are ``csrc/composite.cu``
-(one block per tile, one thread per pixel, splats staged through shared
-memory in 128-splat chunks anchored at the tile's segment start) and
+(one block per tile, one thread per pixel, a warp per 8x4 rectangle;
+splats double-buffered through shared memory in 128-splat chunks
+anchored at the tile's segment start, each warp walking only the splats
+whose gate box meets its rectangle: ``composite.gate_box``) and
 ``csrc/composite_bwd.cu`` (one block per work item: ``ITEM_CHUNKS``
 chunks of one tile's segment), all in float32, with the per-splat
 decisions shared through ``csrc/composite_common.cuh``. Their plain
@@ -26,14 +28,19 @@ back to another device or to autograd through the plain forward.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from ... import kernels as _kernels
-from .composite import (NROWS, OUT_ROWS, STATE_ROWS, alpha_gate,
+from .composite import (CHUNK, NROWS, OUT_ROWS, STATE_ROWS, alpha_gate,
                         composite_segments, composite_segments_bwd,
                         item_ends, max_items)
 
-MAX_TILE_PIXELS = 256  # one thread per pixel; 16x16 and 8x16 tiles
+# One thread per pixel (16x16 and 8x16 tiles); K2 computes each chunk's
+# gate boxes one splat per thread, so a block has at least CHUNK threads.
+MIN_TILE_PIXELS, MAX_TILE_PIXELS = CHUNK, 256
 
 
 def pack_attrs(means2d, conic, opacity, color, depth) -> torch.Tensor:
@@ -56,10 +63,10 @@ def _check(attrs, seg_start, counts, tiles_x, tiles_y, tile_h, tile_w,
            tiles=()):
     n_tiles = tiles_x * tiles_y
     pix = tile_h * tile_w
-    if pix > MAX_TILE_PIXELS or pix % 32:
-        raise ValueError(f"composite kernels take tiles of <= "
-                         f"{MAX_TILE_PIXELS} pixels in whole warps, got "
-                         f"{tile_h}x{tile_w}")
+    if not MIN_TILE_PIXELS <= pix <= MAX_TILE_PIXELS or pix % 32:
+        raise ValueError(f"composite kernels take tiles of "
+                         f"{MIN_TILE_PIXELS}-{MAX_TILE_PIXELS} pixels in "
+                         f"whole warps, got {tile_h}x{tile_w}")
     if attrs.dtype != torch.float32 or attrs.dim() != 2 \
             or attrs.shape[1] != NROWS or not attrs.is_contiguous():
         raise ValueError(f"attrs must be contiguous float32 [P, {NROWS}], "
@@ -76,9 +83,39 @@ def _check(attrs, seg_start, counts, tiles_x, tiles_y, tile_h, tile_w,
                              f"[{n}, {rows}, {pix}] on {attrs.device}")
 
 
+# K2 launches the deepest tiles first (one device sort of the counts)
+# where its grid is at most DEPTH_ORDER_WAVES waves of resident blocks:
+# there a deep tile that starts late finishes last. On larger grids the
+# sort costs more than it saves, and tiles go in their own order
+# (measured in PERF.md).
+DEPTH_ORDER_WAVES = 4
+
+
+@functools.cache
+def resident_blocks(device: torch.device, threads: int) -> int:
+    """K2's blocks of ``threads`` threads resident on the whole card."""
+    per_sm = (ctypes.c_int * 1)()
+    _kernels.check(_kernels.library().mvi_composite_residency(
+        threads, per_sm), "composite residency")
+    return per_sm[0] * torch.cuda.get_device_properties(
+        device).multi_processor_count
+
+
 def _launch(attrs, seg_start, counts, tiles_x, tiles_y, tile_h, tile_w,
-            with_state):
+            with_state, box_shrink=0.0, by_depth=None):
+    """K2 on CUDA tensors. ``by_depth`` forces (True) or forbids (False)
+    the deepest-first launch order, which None leaves to the grid's
+    waves; ``box_shrink`` pulls every gate box in by that many pixels
+    (a planted fault, 0 otherwise)."""
     _check(attrs, seg_start, counts, tiles_x, tiles_y, tile_h, tile_w)
+    if attrs.data_ptr() % 16:
+        raise ValueError("composite: attrs must be 16-byte aligned (K2 "
+                         "stages its rows by 16-byte asynchronous copies)")
+    if by_depth is None:
+        by_depth = tiles_x * tiles_y <= DEPTH_ORDER_WAVES * resident_blocks(
+            attrs.device, tile_h * tile_w)
+    order = (torch.sort(counts, descending=True).indices if by_depth
+             else None)
     n_tiles = tiles_x * tiles_y
     pix = tile_h * tile_w
     out = torch.empty((n_tiles, OUT_ROWS, pix), dtype=torch.float32,
@@ -93,8 +130,10 @@ def _launch(attrs, seg_start, counts, tiles_x, tiles_y, tile_h, tile_w,
     rc = lib.mvi_composite(attrs.data_ptr(), seg_start.data_ptr(),
                            counts.data_ptr(),
                            None if ends is None else ends.data_ptr(),
+                           None if order is None else order.data_ptr(),
                            None if state is None else state.data_ptr(),
                            out.data_ptr(), n_tiles, tiles_x, tile_w, tile_h,
+                           float(box_shrink),
                            _kernels.stream_ptr(attrs.device))
     _kernels.check(rc, "composite")
     _kernels.LAUNCHES["composite"] += 1

@@ -9,10 +9,12 @@ and writes its rect's tiles there in row-major order, each as the int64
 key ``tile << 32 | g``. One ``torch.sort`` of the keys then orders pairs
 by tile and, within a tile, by depth rank.
 
-The CUDA source is ``csrc/pair_expand.cu``: one thread per active
-gaussian, the ``duplicateWithKeys`` shape of the CUDA reference. The TPU
-kernel's window, bf16 split and ``expand_needed`` report have no
-counterpart here: every thread knows its own slots.
+The CUDA source is ``csrc/pair_expand.cu``: each block owns a fixed
+range of pair slots, finds the gaussians that own them by searches over
+``starts`` (the kernel reads neither ``count`` nor anything past the
+actives) and writes one key per thread, consecutive threads on
+consecutive slots. The TPU kernel's window, bf16 split and
+``expand_needed`` report have no counterpart here.
 """
 
 from __future__ import annotations
@@ -63,13 +65,13 @@ def expand_keys(starts: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
     if not 0 <= n_active <= n:
         raise ValueError(f"n_active {n_active} outside [0, {n}]")
     keys = torch.empty(total, dtype=torch.int64, device=dev)
-    if n_active == 0:
+    if n_active == 0 or total == 0:
         # A grid of zero blocks is an invalid launch; no pairs, no keys.
         return keys
     lib = _kernels.library()
     rc = lib.mvi_expand_keys(starts.data_ptr(), x0.data_ptr(),
-                             y0.data_ptr(), w.data_ptr(), count.data_ptr(),
-                             n_active, tiles_x, keys.data_ptr(),
+                             y0.data_ptr(), w.data_ptr(), n_active, total,
+                             tiles_x, keys.data_ptr(),
                              _kernels.stream_ptr(dev))
     _kernels.check(rc, "pair_expand")
     _kernels.LAUNCHES["pair_expand"] += 1

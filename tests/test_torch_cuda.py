@@ -77,6 +77,38 @@ def test_cuda_pair_keys_bit_exact():
                        pair_expand.expand_keys_ref(*args))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(16, 16), (8, 16)])
+def test_cuda_composite_launch_orders_agree(tile):
+    """K2 on a 20k-gaussian bench frame in tile order and deepest tiles
+    first: bit-equal tiles either way and with the per-item state, within
+    rgb 3e-5 / depth 3e-4 of the plain K2 on all but 0.01% of pixels."""
+    _require_cuda()
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (composite,
+                                                            composite_cuda)
+    big = synthetic.make_big_scene(20_000, device="cuda")
+    cam = RenderCamera.from_camera(synthetic.bench_camera(), "cuda")
+    th, tw = tile
+    tx, ty = -(-cam.width // tw), -(-cam.height // th)
+    with torch.no_grad():
+        proj = api.project(big, cam, 0)
+        bins = binning.bin_gaussians(proj.means2d, proj.radius, proj.depth,
+                                     tx, ty, tw, th, extent=proj.extent)
+        attrs = composite_cuda.pack_attrs(
+            proj.means2d, proj.conic, proj.opacity, proj.color,
+            proj.depth)[bins.order[bins.gid_sorted]].contiguous()
+        args = (attrs, bins.seg_start, bins.counts, tx, ty, th, tw)
+        tiles = composite_cuda._launch(*args, False, by_depth=False)
+        deep, state = composite_cuda._launch(*args, True, by_depth=True)
+        want = composite.composite_segments(*args)
+    assert torch.equal(tiles, deep)
+    assert state.shape[0] == composite.max_items(tx * ty, attrs.shape[0])
+    err_rgb = (tiles[:, :3] - want[:, :3]).abs().amax(1)
+    err_d = (tiles[:, 3] - want[:, 3]).abs()
+    bad = (err_rgb > RGB_TOL) | (err_d > DEPTH_TOL)
+    assert int(bad.sum()) <= 1e-4 * bad.numel()
+
+
 def _k3_bar_share(got, want):
     """Share of pairs with a row beyond 2e-6 + 1e-4 max|row|."""
     bar = 2e-6 + 1e-4 * want.abs().amax(dim=0)
@@ -301,6 +333,40 @@ def test_cuda_flash_attention_matches_plain_k4(dtype, bar, d, t):
     assert torch.equal(fold(got), folded)
     s = torch.einsum("bqd,bkd->bqk", fold(q).float(), fold(k).float())
     assert float((lse - torch.logsumexp(s * scale, -1)).abs().max()) < 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40])
+def test_cuda_attention_pads_head_dims_for_k4_and_k5(d):
+    """A head dim the kernels do not take, through ``attention_op`` on
+    CUDA at T = 768: zero-padded to the next of ``HEAD_DIMS`` for K4 and
+    K5 (one launch each) at the true d^-0.5 scale, the output within K4's
+    0.02 and the gradients within K5's bars (0.02 of max|plain|, 0.01
+    relative rms) of the plain unpadded attention."""
+    _require_cuda()
+    from multiview_inpaint_tpu_torch import kernels
+    from multiview_inpaint_tpu_torch.diffusion import attention_op
+    b, t, h = 2, 768, 2
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v, do = (torch.randn((b, t, h * d), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    qa, ka, va = (x.clone().requires_grad_() for x in (q, k, v))
+    kernels.reset_launches()
+    out = attention_op.attention(qa, ka, va, h)
+    grads = torch.autograd.grad(out, (qa, ka, va), do)
+    assert kernels.LAUNCHES["flash_attn_fwd"] == 1
+    assert kernels.LAUNCHES["flash_attn_bwd"] == 1
+    qb, kb, vb = (x.clone().requires_grad_() for x in (q, k, v))
+    want = fa.flash_attention_ref(qb, kb, vb, h, d ** -0.5)
+    wants = torch.autograd.grad(want, (qb, kb, vb), do)
+    assert out.shape == want.shape and out.dtype == torch.bfloat16
+    assert float((out.float() - want.float()).abs().max()) < 0.02
+    for g, w in zip(grads, wants):
+        err = g.float() - w.float()
+        assert float(err.abs().max() / w.float().abs().max()) <= 0.02
+        assert float(err.pow(2).mean().sqrt()
+                     / w.float().pow(2).mean().sqrt()) <= 0.01
 
 
 @pytest.mark.cuda
