@@ -130,7 +130,39 @@ non-zero:
     checkpoint written and read back equal; step time, peak device memory,
     the checkpoint's save time and the share of ControlNet entries the
     first bf16 Adam step changed;
-20. the ``kernels`` JSON line (K1 and K2 at main path 1's big2m frame, K3
+20. main path 5's workspace (stage 1): the bench COLMAP scene of phase 9,
+    the 2M-gaussian PLY, a ``--registry`` JSON (front view view00, the
+    bicycle scene's orbit and vis parameters), an insertion box at the
+    front of the foreground clusters near the origin and a deletion box
+    inside the scene;
+21. main path 5: the ``gen_seq`` CLI (14 frames x modes x1, x2 at
+    512x384 and the 4 ``bds_train`` views at 1920x1080), counters zeroed
+    before: K1 and K2 launched exactly 32 times each and K3-K5 never, 14
+    renders/mask/masked PNGs per mode at 512x384, ``poses.npy`` (14, 4,
+    4), ``cam_center.npy`` at the box centre, 4 ``bds_train`` masks at
+    1080p, each mode's masks non-empty in a frame and not all ones in all;
+    then the CLI again under ``SeqProbe`` for its split (load, render,
+    mask, PNG writing), device ms per orbit frame, mask ms per frame at
+    512x384 and 1080p, and the OBB step's peak device memory;
+22. the ``gen_seq`` mask of frame 0 of x1 and of the front view at 1080p
+    (and of the front view with the foreground clusters alone, which has
+    empty pixels) through K1/K2 against the plain K2's route on the card:
+    equal counts of pixels at the 15.0 sentinel, masks that differ only
+    where t lies between the two depths within K2's stop-flip bound, the
+    box hit on CUDA against the CPU except on rays within 1e-6 of a
+    triangle edge (counted), the share of the box the scene hides in the
+    front view (in (0, 1)); a planted fault (K2's empty pixels at a final
+    T of 1 - 2^-24) that the sentinel check must fail; then phases 3-5's
+    checks and times of K1-K3 at frame 0 of x1 (512x384);
+23. the ``render_depth`` CLI (28 frames) and the ``vis_render --src`` CLI
+    (55 frames) on the same scene, counters zeroed before each: K1 and K2
+    launched exactly 28 and 55 times, no constant PNG; seconds and ms per
+    frame;
+24. the ``delete`` CLI on the 2M-gaussian PLY with the deletion box: some
+    rows removed, none left inside by ``contains``, ``contains`` on CUDA
+    against the CPU except on rows within 1e-6 of a face (counted); the
+    ``gen_pc`` CLI writes 10,000 points; seconds of each;
+25. the ``kernels`` JSON line (K1 and K2 at main path 1's big2m frame, K3
     at main path 2's first step, K4 at main path 3's ds1 shape, K5 at main
     path 4's ds1 shape; K4 and K5 also carry ``vs_library``, kernel ms over
     SDPA ms); the last line is the ``ok`` JSON object.
@@ -248,6 +280,25 @@ K5_GRAD_RMS_TOL = 0.012
 # The planted faults of phases 15 and 17 drop the first 64 keys, the tile
 # against which their bars were set, whatever tile the kernels use.
 FAULT_KEYS = 64
+
+
+# Main path 5 (stage 1) on the 2M-gaussian bench scene, scene id
+# <STAGE1_SCENE>_<STAGE1_CASE>. Its --registry JSON names view00 (the bench
+# camera, at z = -3 looking down +z) as the front view and gives the scene
+# the bicycle scene's orbit and vis parameters (``config/registries.py``).
+# The insertion box sits at the front of the foreground clusters near the
+# origin, partly behind the nearest of them from the front view (phase 22
+# prints the share hidden); the deletion box lies inside the scene.
+# gen_seq renders SEQ_FRAMES per mode at orbit_cameras' new_size (height,
+# width) plus the bench views; vis_render --src sweeps VIS_FRAMES - 1
+# frames.
+STAGE1_SCENE, STAGE1_CASE = "bench", "chair"
+STAGE1_ORBIT = dict(k_lift=math.pi / 6, r_scale=0.7, k_bias=0.0,
+                    view_range=math.pi / 3)
+INSERT_CENTER, INSERT_HALF = (0.15, -0.05, -0.75), 0.15
+DELETE_CENTER, DELETE_HALF = (0.0, 0.0, 0.0), 0.5
+SEQ_MODES, SEQ_FRAMES, VIS_FRAMES = ("x1", "x2"), 14, 56
+ORBIT_H, ORBIT_W = 512, 384
 
 
 # ``cuda_ms`` sleeps the device this long per timed call before starting
@@ -394,14 +445,16 @@ def phase_build():
           f"reduction", flush=True)
 
 
-def phase_kernels(torch, card, name, params):
-    """Phases 3-5 on one 1080p bench frame; returns the K1 and K2 records
-    of the kernels line (launches filled in later)."""
+def phase_kernels(torch, card, name, params, camera=None):
+    """Phases 3-5 on one frame of ``camera`` (the 1080p bench camera by
+    default); returns the K1 and K2 records of the kernels line (launches
+    filled in later)."""
     from multiview_inpaint_tpu_torch.ops.rasterizer import (
         RenderCamera, api, binning, composite, composite_cuda, pair_expand)
     from multiview_inpaint_tpu_torch.utils import synthetic
 
-    cam = RenderCamera.from_camera(synthetic.bench_camera(), DEVICE)
+    cam = RenderCamera.from_camera(camera or synthetic.bench_camera(),
+                                   DEVICE)
     tiles_x, tiles_y = -(-cam.width // TILE), -(-cam.height // TILE)
     n_tiles, pix = tiles_x * tiles_y, TILE * TILE
     size = (tiles_x, tiles_y, TILE, TILE, cam.width, cam.height)
@@ -2108,6 +2161,471 @@ def phase_svd_train(torch, card):
     return launches
 
 
+class SeqProbe:
+    """Times the real ``gen_seq`` CLI by parts: wrappers around what its
+    ``main`` and ``render_sequence`` call, ``render`` and ``box_mask``
+    (CUDA events around each call; ``box_mask`` also the peak device
+    memory above what was allocated when it began), ``Scene`` (the load)
+    and ``scene_io.save_image`` (host clock)."""
+
+    def __init__(self, torch):
+        from multiview_inpaint_tpu_torch.pipelines import gen_seq
+        self.torch = torch
+        self.events = {"render": [], "mask": []}   # (frame height, start, end)
+        self.host_s = {"load": 0.0, "png": 0.0}
+        self.png_s = {}                          # frame height: seconds
+        self.peak_mb = {}
+
+        def timed(kind, fn):
+            def run(*a, **kw):
+                if kind == "mask":
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a, **kw)
+                end.record()
+                img = out.rgb if kind == "render" else out
+                h = img.shape[0]
+                self.events[kind].append((h, start, end))
+                if kind == "mask":
+                    self.peak_mb[h] = max(self.peak_mb.get(h, 0.0), (
+                        torch.cuda.max_memory_allocated() - base) / 2**20)
+                return out
+            return run
+
+        def host(kind, fn):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                dt = time.perf_counter() - t0
+                self.host_s[kind] += dt
+                if kind == "png":
+                    h = a[1].shape[0]
+                    self.png_s[h] = self.png_s.get(h, 0.0) + dt
+                return out
+            return run
+
+        self.patches = [
+            (gen_seq, "render", timed("render", gen_seq.render)),
+            (gen_seq, "box_mask", timed("mask", gen_seq.box_mask)),
+            (gen_seq, "Scene", host("load", gen_seq.Scene)),
+            (gen_seq.scene_io, "save_image",
+             host("png", gen_seq.scene_io.save_image))]
+
+    def run(self, argv):
+        """``gen_seq.main(argv)`` with the wrappers in place; returns its
+        seconds on the host clock."""
+        from multiview_inpaint_tpu_torch.pipelines import gen_seq
+        saved = [(m, n, getattr(m, n)) for m, n, _ in self.patches]
+        for m, n, f in self.patches:
+            setattr(m, n, f)
+        try:
+            t0 = time.perf_counter()
+            gen_seq.main(argv)
+            self.torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        finally:
+            for m, n, f in saved:
+                setattr(m, n, f)
+
+    def ms(self, kind):
+        """{frame height: [device ms of each call]} of ``kind``."""
+        out = {}
+        for h, a, b in self.events[kind]:
+            out.setdefault(h, []).append(a.elapsed_time(b))
+        return out
+
+
+def phase_stage1_setup(card):
+    """Main path 5's workspace: the bench COLMAP scene, the big2m PLY (main
+    path 1's, or written anew), the ``--registry`` JSON and both boxes;
+    returns their paths."""
+    from multiview_inpaint_tpu_torch.gs import gaussians
+    from multiview_inpaint_tpu_torch.utils import synthetic
+
+    work = os.path.join(REPO, "build", "smoke_stage1")
+    shutil.rmtree(work, ignore_errors=True)
+    sid = f"{STAGE1_SCENE}_{STAGE1_CASE}"
+    s = dict(work=work, sid=sid, src=os.path.join(work, "scene"),
+             model=os.path.join(work, "output", STAGE1_SCENE),
+             ws=os.path.join(work, "ws"),
+             registry=os.path.join(work, "registry.json"),
+             del_box=os.path.join(work, "bds", "del", f"{STAGE1_SCENE}.obj"))
+    s["box"] = os.path.join(s["ws"], "bds", "add", f"{sid}.obj")
+    s["ply"] = os.path.join(s["model"], "point_cloud", "iteration_1",
+                            "point_cloud.ply")
+    names = synthetic.write_bench_colmap_scene(s["src"], YAWS)
+    main_ply = os.path.join(REPO, "build", "smoke", "model", "point_cloud",
+                            "iteration_1", "point_cloud.ply")
+    os.makedirs(os.path.dirname(s["ply"]))
+    if os.path.exists(main_ply):
+        shutil.copy(main_ply, s["ply"])
+    else:
+        gaussians.save_ply(synthetic.make_big_scene(BIG_N, device="cpu"),
+                           s["ply"])
+    front = os.path.splitext(names[0])[0]
+    with open(s["registry"], "w") as f:
+        json.dump({"front_views": {STAGE1_SCENE: front},
+                   "orbit_params": {STAGE1_SCENE: STAGE1_ORBIT},
+                   "vis_params": {STAGE1_SCENE: STAGE1_ORBIT}}, f)
+    synthetic.write_cube_obj(s["box"], center=INSERT_CENTER,
+                             half=INSERT_HALF)
+    synthetic.write_cube_obj(s["del_box"], center=DELETE_CENTER,
+                             half=DELETE_HALF)
+    print(f"[20 stage-1 setup] scene {sid}: the bench COLMAP scene "
+          f"({len(names)} views at 1920x1080), the big2m PLY ({BIG_N} "
+          f"gaussians), registry front view {front} (the bench camera at "
+          f"z = -3 looking down +z) with the bicycle scene's orbit and vis "
+          f"parameters {json.dumps(STAGE1_ORBIT)}; insertion box centre "
+          f"{INSERT_CENTER}, half {INSERT_HALF}, at the front of the "
+          f"foreground clusters near the origin (phase 22 prints the share "
+          f"of its front-view pixels the scene hides); deletion box centre "
+          f"{DELETE_CENTER}, half {DELETE_HALF} | {card}", flush=True)
+    return s
+
+
+def _stage1_argv(s):
+    return ["-s", s["src"], "-m", s["model"], "--scene_id", s["sid"],
+            "--workspace", s["ws"], "--registry", s["registry"],
+            "--resolution", "1", "--device", DEVICE]
+
+
+def _png_array(path):
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im)
+
+
+def _forward_launches(n):
+    return {"pair_expand": n, "composite": n, "composite_bwd": 0,
+            "flash_attn_fwd": 0, "flash_attn_bwd": 0}
+
+
+def phase_gen_seq(torch, card, s):
+    """Main path 5: the gen_seq CLI on big2m, counters zeroed before; then
+    the same CLI run again under ``SeqProbe`` for its time split. Returns
+    the launch counts of the first run."""
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.gs import obb
+    from multiview_inpaint_tpu_torch.pipelines import gen_seq
+
+    argv = _stage1_argv(s)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    gen_seq.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    n_train = len(YAWS)
+    want = len(SEQ_MODES) * SEQ_FRAMES + n_train
+
+    def seq(mode):
+        return os.path.join(s["ws"], "inpaint", "seq", s["sid"], mode,
+                            "ours_1")
+
+    center = obb.load_obb(s["box"]).center
+    checks = {f"K1 and K2 launched {want} times, K3-K5 0":
+              launches == _forward_launches(want)}
+    cover = {}
+    for mode in SEQ_MODES:
+        d = seq(mode)
+        shapes = {"renders": (ORBIT_H, ORBIT_W, 3), "mask": (ORBIT_H, ORBIT_W),
+                  "masked": (ORBIT_H, ORBIT_W, 3)}
+        masks = []
+        for sub, shape in shapes.items():
+            names = sorted(os.listdir(os.path.join(d, sub)))
+            arrs = [_png_array(os.path.join(d, sub, n)) for n in names]
+            checks[f"{mode} {len(arrs)} {sub} at {shape}"] = (
+                len(arrs) == SEQ_FRAMES
+                and all(a.shape == shape for a in arrs))
+            if sub == "mask":
+                masks = [a > 0 for a in arrs]
+        cover[mode] = [round(float(m.mean()), 4) for m in masks]
+        checks[f"{mode} masks non-empty in a frame, not all ones in all"] = (
+            any(m.any() for m in masks) and not all(m.all() for m in masks))
+        checks[f"{mode} poses (14, 4, 4)"] = np.load(os.path.join(
+            d, "poses.npy")).shape == (SEQ_FRAMES, 4, 4)
+        checks[f"{mode} cam_center at the box centre"] = bool(np.abs(
+            np.load(os.path.join(d, "cam_center.npy"))[0]
+            - center).max() <= 1e-5)
+    bds = os.path.join(seq("bds_train"), "mask")
+    bds_masks = [_png_array(os.path.join(bds, n))
+                 for n in sorted(os.listdir(bds))]
+    checks[f"bds_train {n_train} masks at 1920x1080"] = (
+        len(bds_masks) == n_train
+        and all(m.shape == (1080, 1920) for m in bds_masks))
+
+    probe = SeqProbe(torch)
+    probe_s = probe.run(argv)
+    render_ms, mask_ms = probe.ms("render"), probe.ms("mask")
+    orbit, full = render_ms.get(ORBIT_H, []), render_ms.get(1080, [])
+    split = {"load_s": probe.host_s["load"],
+             "render_s": (sum(orbit) + sum(full)) / 1e3,
+             "mask_s": sum(sum(v) for v in mask_ms.values()) / 1e3,
+             "png_s": probe.host_s["png"]}
+    split["other_s"] = probe_s - sum(split.values())
+    checks["probed run rendered every frame"] = (
+        len(orbit) == len(SEQ_MODES) * SEQ_FRAMES and len(full) == n_train)
+    print(f"[21 main gen_seq] gen_seq CLI, {BIG_N} gaussians, modes "
+          f"{list(SEQ_MODES)} x {SEQ_FRAMES} frames at {ORBIT_H}x{ORBIT_W} "
+          f"(HxW) + {n_train} bds_train views at 1920x1080, in {cli_s:.2f} s "
+          f"(PNGs written) | launches {launches} | mask cover per frame "
+          f"{json.dumps(cover)} | probed run {probe_s:.2f} s: "
+          f"{json.dumps({k: round(v, 3) for k, v in split.items()})}, PNG "
+          f"share {split['png_s'] / probe_s:.3f}, PNG s by frame height "
+          f"{json.dumps({k: round(v, 3) for k, v in probe.png_s.items()})} "
+          f"| device ms per orbit frame "
+          f"(CUDA events) median {statistics.median(orbit or [0]):.3f} (all "
+          f"{[round(t, 2) for t in orbit]}), per 1080p view median "
+          f"{statistics.median(full or [0]):.3f} | mask ms per frame median "
+          f"{ORBIT_H}x{ORBIT_W} "
+          f"{statistics.median(mask_ms.get(ORBIT_H, [0])):.3f}, 1080p "
+          f"{statistics.median(mask_ms.get(1080, [0])):.3f} | OBB step peak "
+          f"device memory above its start (MB) "
+          f"{json.dumps({k: round(v, 1) for k, v in probe.peak_mb.items()})}"
+          f" | {json.dumps(checks)} | {card}", flush=True)
+    if not all(checks.values()):
+        fail(f"main path 5 (gen_seq CLI) checks failed: {checks}")
+    return launches
+
+
+def _render_route(torch, params, cam, k2=None):
+    """``api.render`` of ``cam`` with its K2 call replaced by ``k2``
+    (None: K2 itself)."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import api
+    real = api.composite_tiles
+    if k2 is not None:
+        api.composite_tiles = k2
+    try:
+        with torch.no_grad():
+            return api.render(params, cam, torch.zeros(3, device=DEVICE),
+                              device=DEVICE)
+    finally:
+        api.composite_tiles = real
+
+
+def sentinel_counts(depth_a, depth_b):
+    """Pixels at exactly the empty-pixel depth 15.0 in each image; the
+    ``gen_seq`` mask needs both counts equal."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import DEPTH_EMPTY
+    return (int((depth_a == DEPTH_EMPTY).sum()),
+            int((depth_b == DEPTH_EMPTY).sum()))
+
+
+def phase_mask_plain(torch, card, s):
+    """The gen_seq mask through K1/K2 against the plain K2's route on the
+    card, for frame 0 of x1 and the front view at 1080p (and the front
+    view of the foreground clusters alone, which has empty pixels): equal
+    sentinel counts, masks that differ only where t lies between the two
+    depths within K2's stop-flip bound, and the box hit on CUDA against
+    the CPU off fragile rays; then a planted fault (K2's empty pixels at
+    a final T of 1 - 2^-24) that the sentinel check must fail."""
+    import dataclasses
+
+    from multiview_inpaint_tpu_torch.config import registries
+    from multiview_inpaint_tpu_torch.gs import gaussians, obb
+    from multiview_inpaint_tpu_torch.gs import scene as scene_mod
+    from multiview_inpaint_tpu_torch.gs.cameras import get_rays
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (
+        DEPTH_EMPTY, RenderCamera, api, composite)
+    from multiview_inpaint_tpu_torch.pipelines import gen_seq
+
+    registries.load_registry_overrides(s["registry"])
+    sc = scene_mod.Scene(s["src"], s["model"], resolution=1, shuffle=False,
+                         load_gaussians=False)
+    sc.scene_name = s["sid"]
+    front = sc.front_view()
+    box = obb.load_obb(s["box"])
+    o = registries.get_orbit_params(STAGE1_SCENE)
+    orbit0 = scene_mod.orbit_cameras(
+        front, box, mode="x1", frames=SEQ_FRAMES, view_range=o.view_range,
+        r_scale=o.r_scale, k_lift=o.k_lift, k_bias=o.k_bias)[0]
+    params = gaussians.load_ply(s["ply"], 0, device=DEVICE)
+    # make_big_scene's first 55% of rows are the foreground clusters; alone
+    # (ground plane and far shell dead) they leave the front view's edges
+    # empty, where the sentinel must hold.
+    live = params.live.clone()
+    live[int(BIG_N * 0.55):] = False
+    clusters = dataclasses.replace(params, live=live)
+    flip_t = composite.T_STOP / (1.0 - composite.ALPHA_MAX)
+
+    def plain_k2(*a):
+        return composite.composite_segments(*a)
+
+    frames = (("x1 frame 0", orbit0, params, True),
+              ("bds_train view00", front, params, True),
+              ("view00, the clusters alone", front, clusters, False))
+    checks, notes = {}, {}
+    for name, view, p, hits in frames:
+        cam = RenderCamera.from_camera(view, DEVICE)
+        out_k = _render_route(torch, p, cam)
+        out_p = _render_route(torch, p, cam, plain_k2)
+        d_k, d_p = out_k.depth, out_p.depth
+        n_k, n_p = sentinel_counts(d_k, d_p)
+        with torch.no_grad():
+            m_k = gen_seq.box_mask(view, box, d_k)
+            m_p = gen_seq.box_mask(view, box, d_p)
+            proj = api.project(p, cam, 0)
+            d_max = float(proj.depth[proj.radius > 0].max())
+        rays_o, rays_d = get_rays(view)
+        _, t, hit = obb.intersect(box, torch.from_numpy(rays_o).to(DEVICE),
+                                  torch.from_numpy(rays_d).to(DEVICE))
+        t = t.reshape(view.height, view.width)
+        bound = flip_t * (d_max + DEPTH_EMPTY) + DEPTH_TOL
+        explained = (((t < d_k) != (t < d_p))
+                     & ((d_k - d_p).abs() <= bound))
+        differ = m_k != m_p
+        note = dict(sentinel=[n_k, n_p], mask_px=int(m_k.sum()),
+                    masks_differ=int(differ.sum()),
+                    unexplained=int((differ & ~explained).sum()))
+        checks[f"{name}: sentinel counts equal"] = n_k == n_p
+        checks[f"{name}: masks differ only across t within the stop-flip "
+               f"bound"] = note["unexplained"] == 0
+        if hits:
+            _, _, hit_c = obb.intersect(box, torch.from_numpy(rays_o),
+                                        torch.from_numpy(rays_d))
+            fragile = torch.from_numpy(obb.fragile_rays(box, rays_o,
+                                                        rays_d))
+            hit_differ = hit.cpu() != hit_c
+            note.update(box_hits=int(hit.sum()), fragile_rays=int(
+                fragile.sum()), hits_differ_cuda_cpu=int(hit_differ.sum()))
+            checks[f"{name}: CUDA and CPU hits differ only on fragile "
+                   f"rays"] = not bool((hit_differ & ~fragile).any())
+        if view is front and p is params:
+            hidden = 1.0 - float(m_k.sum()) / max(int(hit.sum()), 1)
+            note["front_hidden_share"] = round(hidden, 4)
+            checks["the box is partly hidden in the front view"] = (
+                0.0 < hidden < 1.0)
+        notes[name] = note
+    checks["the clusters alone leave empty pixels"] = (
+        notes[frames[2][0]]["sentinel"][1] > 0)
+
+    real_k2 = api.composite_tiles
+
+    def faulty_k2(*a):
+        t8 = real_k2(*a).clone()
+        t_fin = t8[:, 4, :]
+        t8[:, 4, :] = torch.where(t_fin == 1.0,
+                                  torch.full_like(t_fin, 1.0 - 2.0 ** -24),
+                                  t_fin)
+        return t8
+
+    # The planted fault on the clusters alone, against their plain route.
+    cam = RenderCamera.from_camera(front, DEVICE)
+    d_f = _render_route(torch, clusters, cam, faulty_k2).depth
+    d_p = _render_route(torch, clusters, cam, plain_k2).depth
+    n_f, n_p = sentinel_counts(d_f, d_p)
+    empty = d_p == DEPTH_EMPTY
+    d_fault = float(d_f[empty].max()) if n_p else float("nan")
+    caught = n_f != n_p
+    print(f"[22 mask] the gen_seq mask through K1/K2 against the plain K2 on "
+          f"the card, the box hit on CUDA against the CPU (fragile: within "
+          f"{obb.FRAGILE_TOL} of a triangle edge, obb.fragile_rays): "
+          f"{json.dumps(notes)} | planted fault, K2's empty pixels at final "
+          f"T 1 - 2^-24 (depth {d_fault:.7f} there): sentinel counts "
+          f"{n_f} vs {n_p}, the sentinel check "
+          f"{'fails it, as it must' if caught else 'PASSES it'} | "
+          f"{json.dumps(checks)} | {card}", flush=True)
+    if not all(checks.values()):
+        fail(f"main path 5's mask disagrees with its plain route: {checks}")
+    if not caught:
+        fail("the sentinel check does not catch a final T of 1 - 2^-24")
+    # K1-K3 against their plain versions at the orbit frame's shapes, as
+    # phases 3-5 hold them at 1080p.
+    phase_kernels(torch, card, f"orbit{ORBIT_H}x{ORBIT_W}", params, orbit0)
+
+
+def phase_stage1_clis(torch, card, s):
+    """Main path 5's other renderers: the render_depth CLI (both modes)
+    and the vis_render CLI with --src (a 56-frame sweep) on big2m,
+    counters zeroed before each; returns their launch counts."""
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.pipelines import render_depth, vis_render
+
+    seq = os.path.join(s["ws"], "inpaint", "seq", s["sid"])
+    n_seq = len(SEQ_MODES) * SEQ_FRAMES
+    runs = (("render_depth", render_depth.main, [], n_seq,
+             [os.path.join(seq, m, "ours_1", "disp") for m in SEQ_MODES],
+             (ORBIT_H, ORBIT_W)),
+            ("vis_render --src", vis_render.main,
+             ["--src", "--iteration", "1"], VIS_FRAMES - 1,
+             [os.path.join(s["ws"], "vis", "vis_video", "src", s["sid"],
+                           "renders")], (ORBIT_H, ORBIT_W, 3)))
+    out = {}
+    for name, main, extra, want, dirs, shape in runs:
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        main(_stage1_argv(s) + extra)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = dict(_kernels.LAUNCHES)
+        pngs = [os.path.join(d, n) for d in dirs
+                for n in sorted(os.listdir(d))]
+        arrs = [_png_array(p) for p in pngs]
+        checks = {f"K1 and K2 launched {want} times, K3-K5 0":
+                  launches == _forward_launches(want),
+                  f"{want} PNGs at {shape}": len(arrs) == want and all(
+                      a.shape == shape for a in arrs),
+                  "no constant PNG": all(a.std() > 0 for a in arrs)}
+        print(f"[23 {name}] {name} CLI, {BIG_N} gaussians, {want} frames at "
+              f"{ORBIT_H}x{ORBIT_W} in {cli_s:.2f} s, "
+              f"{cli_s * 1e3 / want:.1f} ms per frame (PNGs written) | "
+              f"launches {launches} | {json.dumps(checks)} | {card}",
+              flush=True)
+        if not all(checks.values()):
+            fail(f"main path 5 ({name} CLI) checks failed: {checks}")
+        out[name] = launches
+    return out
+
+
+def phase_delete_gen_pc(torch, card, s):
+    """Main path 5's point tools on the big2m PLY: the delete CLI with a
+    box inside the scene (nothing left inside; contains on CUDA against
+    the CPU off fragile rows) and the gen_pc CLI (10,000 points)."""
+    from multiview_inpaint_tpu_torch.gs import obb, ply_io
+    from multiview_inpaint_tpu_torch.pipelines import delete, gen_pc
+
+    xyz = ply_io.load_gaussian_ply(s["ply"], 0)["xyz"]
+    t0 = time.perf_counter()
+    delete.main(["-m", s["model"], "--box", s["del_box"], "--iteration", "1",
+                 "--device", DEVICE])
+    torch.cuda.synchronize()
+    del_s = time.perf_counter() - t0
+    kept = ply_io.load_gaussian_ply(os.path.join(
+        s["model"], "point_cloud", "del", "point_cloud.ply"), 0)["xyz"]
+    box = obb.load_obb(s["del_box"])
+    with torch.no_grad():
+        left = int(obb.contains(box, torch.from_numpy(kept).to(DEVICE)).sum())
+        in_cuda = obb.contains(box, torch.from_numpy(xyz).to(DEVICE)).cpu()
+        in_cpu = obb.contains(box, torch.from_numpy(xyz))
+    dx = np.zeros_like(xyz)
+    dx[:, 0] = 1.0
+    fragile = torch.from_numpy(obb.fragile_rays(box, xyz, dx)
+                               | obb.fragile_rays(box, xyz, -dx))
+    differ = in_cuda != in_cpu
+    removed = len(xyz) - len(kept)
+    t0 = time.perf_counter()
+    gen_pc.main(["-m", s["model"], "--iteration", "1"])
+    pc_s = time.perf_counter() - t0
+    pts, _, _ = ply_io.fetch_point_cloud(os.path.join(s["model"], "xyz.ply"))
+    checks = {"removed > 0": removed > 0,
+              "removed = contains on CUDA": removed == int(in_cuda.sum()),
+              "none left inside": left == 0,
+              "contains CUDA = CPU off fragile rows":
+              not bool((differ & ~fragile).any()),
+              "gen_pc wrote 10000 points": len(pts) == 10000}
+    print(f"[24 delete, gen_pc] delete CLI on {len(xyz)} gaussians in "
+          f"{del_s:.2f} s: {removed} removed, {left} left inside | contains "
+          f"CUDA vs CPU: {int(differ.sum())} rows differ, "
+          f"{int(fragile.sum())} "
+          f"within {obb.FRAGILE_TOL} of a face | gen_pc CLI in {pc_s:.2f} s, "
+          f"{len(pts)} points | {json.dumps(checks)} | {card}", flush=True)
+    if not all(checks.values()):
+        fail(f"main path 5 (delete, gen_pc CLIs) checks failed: {checks}")
+
+
 def main():
     import torch
 
@@ -2142,6 +2660,11 @@ def main():
     phase_k5_grad(torch, card)
     phase_svd_train_step(torch)
     launches_svd_train = phase_svd_train(torch, card)
+    stage1 = phase_stage1_setup(card)
+    phase_gen_seq(torch, card, stage1)
+    phase_mask_plain(torch, card, stage1)
+    phase_stage1_clis(torch, card, stage1)
+    phase_delete_gen_pc(torch, card, stage1)
 
     k1, k2 = frames["big2m"]   # the render main path's scene and shapes
     kernels = [
@@ -2175,7 +2698,7 @@ def main():
                       "flash_attention.py:117",
              launches=launches_svd_train["flash_attn_bwd"], **k5),
     ]
-    print(f"[20 done] all phases passed in "
+    print(f"[25 done] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,18 @@
-"""Scene manager: workspace layout and the gaussian checkpoint cascade.
+"""Scene manager: workspace layout, camera sets, orbit synthesis.
 
-Port of the render-path part of ``multiview_inpaint_tpu/gs/scene.py``
-(reference ``gs-simp/scene/__init__.py``): the :class:`Workspace`
-directory contract, :class:`Scene` (cameras + the ``add -> del ->
-iteration_N`` checkpoint cascade) and ``_max_iteration``. The orbit, SDS
-and inpaint camera builders need the OBB module and come with stage 1's
-tools.
+Port of ``multiview_inpaint_tpu/gs/scene.py`` (reference
+``gs-simp/scene/__init__.py``): the :class:`Workspace` directory
+contract, :class:`Scene` (cameras + the ``add -> del -> iteration_N``
+checkpoint cascade) and the stage-1 camera builders, numpy copies of the
+JAX functions:
+
+- :func:`orbit_cameras` == ``Scene.getSeqCameras`` (:129-198): a 14-frame
+  orbit around the OBB anchored at the scene's front view, modes x1/x2
+  (horizontal +-) and y1/y2 (vertical).
+- :func:`sds_cameras` == ``getSDSCameras`` (:258-290): training cameras
+  within ``cos(view_range)`` of the front direction with box masks.
+
+The inpaint camera builders and ``load_sd_ply`` come with stage 2.
 """
 
 from __future__ import annotations
@@ -16,12 +23,19 @@ import os
 import random
 from typing import List, Optional
 
+import numpy as np
+
 from ..config.registries import FRONT_VIEWS, SPIN_NERF_SCENES
 from ..utils.device import DEFAULT_DEVICE
 from . import gaussians as g_mod
 from . import scene_io
-from .cameras import Camera
+from .cameras import Camera, retarget
 from .gaussians import GaussianParams
+from .obb import OBB
+
+
+def _normalize(v):
+    return v / (np.linalg.norm(v, axis=-1, keepdims=True) + 1e-12)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,3 +191,90 @@ def _max_iteration(pc_dir: str) -> int:
     if not its:
         raise FileNotFoundError(f"no iteration_* checkpoints in {pc_dir}")
     return max(its)
+
+
+def orbit_cameras(front_view: Camera, box: OBB, mode: str = "x1",
+                  frames: int = 14, view_range: float = np.pi / 3,
+                  y_range: float = np.pi / 12, r_scale: float = 1.0,
+                  k_lift: float = 0.0, k_bias: float = 0.0,
+                  new_size: tuple = (512, 384)) -> List[Camera]:
+    """Synthesize the orbital camera sequence around the OBB.
+
+    ``new_size`` is (height, width) like the reference's ``new_size``
+    list; frames are resized keeping focal length.
+    """
+    c2w = front_view.camera_to_world
+    front_pose = c2w[:3, 3]
+    front_y = _normalize(c2w[:3, 1])
+    box_axes = np.concatenate([box.axes, -box.axes], axis=0)
+    box_axes = _normalize(box_axes)
+    y_axis = box_axes[np.argmax(box_axes @ front_y)]
+
+    center = np.asarray(box.center)
+    f2c = center - front_pose
+    scaled_r = np.linalg.norm(f2c) * r_scale
+    norm_f2c = _normalize(f2c)
+    x_axis = _normalize(np.cross(y_axis, norm_f2c))
+    z_axis = _normalize(np.cross(x_axis, y_axis))
+
+    views = []
+    for v_i in range(frames):
+        if mode in ("x1", "x2"):
+            angle = view_range * v_i / frames
+            if mode == "x1":
+                angle = -angle
+            angle = angle + k_bias
+            pose = (center - z_axis * scaled_r * np.cos(angle)
+                    + x_axis * scaled_r * np.sin(angle)
+                    - y_axis * scaled_r * np.sin(k_lift))
+            z_vec = _normalize(center - pose)
+            x_vec = _normalize(np.cross(y_axis, z_vec))
+            y_vec = _normalize(np.cross(z_vec, x_vec))
+        elif mode in ("y1", "y2"):
+            angle = y_range * v_i / frames
+            if mode == "y1":
+                angle = -angle
+            pose = (center - z_axis * scaled_r * np.cos(angle)
+                    + y_axis * scaled_r * np.sin(angle)
+                    - y_axis * scaled_r * np.sin(k_lift))
+            z_vec = _normalize(center - pose)
+            y_vec = _normalize(np.cross(z_vec, x_axis))
+            x_vec = _normalize(np.cross(y_vec, z_vec))
+        else:
+            raise ValueError(f"unknown orbit mode {mode!r}")
+        new_c2w = np.eye(4, dtype=np.float32)
+        new_c2w[:3, 0] = x_vec
+        new_c2w[:3, 1] = y_vec
+        new_c2w[:3, 2] = z_vec
+        new_c2w[:3, 3] = pose
+        views.append(retarget(front_view, new_c2w, image_name=f"{v_i:02d}",
+                              width=new_size[1], height=new_size[0]))
+    return views
+
+
+def sds_cameras(scene: Scene, box: OBB, view_range: float = np.pi / 3,
+                iteration: int = 30000, shuffle: bool = True,
+                seed: int = 0) -> List[Camera]:
+    """Cone-filtered train cameras with box masks for SDS training."""
+    ws = scene.workspace
+    train_mask_dir = ws.seq_dir(scene.scene_name, "bds_train", iteration)
+    poses = np.load(os.path.join(ws.seq_dir(scene.scene_name, "x1",
+                                            iteration), "poses.npy"))
+    center = np.asarray(box.center)
+    front2center = _normalize(center - poses[0][:3, 3])
+    cos_thres = np.cos(view_range)
+    out = []
+    for cam in scene.train_cameras():
+        cam2center = _normalize(center - cam.camera_center)
+        if float(cam2center @ front2center) > cos_thres:
+            img = scene_io.load_image(
+                os.path.join(train_mask_dir, "renders",
+                             f"{cam.image_name}.png"))
+            mask = scene_io.load_image(
+                os.path.join(train_mask_dir, "mask",
+                             f"{cam.image_name}.png"), grayscale=True)
+            if mask.max() > 0:
+                out.append(dataclasses.replace(cam, image=img, mask=mask))
+    if shuffle:
+        random.Random(seed).shuffle(out)
+    return out

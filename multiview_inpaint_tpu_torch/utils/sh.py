@@ -65,3 +65,8 @@ def rgb_to_sh(rgb):
     """Works on torch tensors and numpy arrays alike."""
     return (rgb - 0.5) / C0
 
+
+
+def sh_to_rgb(sh):
+    """Inverse of ``rgb_to_sh``; tensors and numpy arrays alike."""
+    return sh * C0 + 0.5

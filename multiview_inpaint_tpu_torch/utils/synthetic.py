@@ -108,6 +108,29 @@ def make_colmap_scene(root, n_views=6, width=64, height=48, n_points=300,
     return gt
 
 
+def write_cube_obj(path, center=(0, 0, 0), half=0.5):
+    """Blender-convention cube OBJ (loader flips (x,y,z)->(x,-z,y)); the
+    same bytes as the JAX package's writer."""
+    cx, cy, cz = center
+    # world-space target corners: loader maps (x,y,z)obj -> (x,-z,y)
+    # so write obj coords (x, z, -y) of desired world corners.
+    corners = []
+    for dx in (-half, half):
+        for dy in (-half, half):
+            for dz in (-half, half):
+                wx, wy, wz = cx + dx, cy + dy, cz + dz
+                corners.append((wx, wz, -wy))
+    quads = [(1, 2, 4, 3), (5, 7, 8, 6), (1, 5, 6, 2),
+             (3, 4, 8, 7), (1, 3, 7, 5), (2, 6, 8, 4)]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        f.write("# cube\n")
+        for c in corners:
+            f.write(f"v {c[0]} {c[1]} {c[2]}\n")
+        for q in quads:
+            f.write("f " + " ".join(f"{i}//1" for i in q) + "\n")
+
+
 def make_big_scene(n: int, seed: int = 0, scale_lo: float = 0.0015,
                    scale_hi: float = 0.008, device=DEFAULT_DEVICE):
     """Reference-scale synthetic scene (1-6M gaussians): dense clustered
