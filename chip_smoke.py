@@ -162,15 +162,50 @@ non-zero:
     rows removed, none left inside by ``contains``, ``contains`` on CUDA
     against the CPU except on rows within 1e-6 of a face (counted); the
     ``gen_pc`` CLI writes 10,000 points; seconds of each;
-25. the ``kernels`` JSON line (K1 and K2 at main path 1's big2m frame, K3
+25. main path 6 (stage 2) on main path 5's workspace: stand-ins for the
+    ``svd_test`` frames, big2m and a 20,000-splat object of one saturated
+    colour inside the insertion box rendered together (K1/K2) at the 28
+    orbit poses and written as ctrl 0's inpainted PNGs, with each frame's
+    visible-object mask (the object's alpha > 0.5 where it lies nearer
+    than big2m);
+26. the ``seg_masks`` CLI with ``--auto --propagate`` on modes x1 and x2:
+    IoU of every frame's mask against the visible-object mask, median
+    above 0.6 (the JAX test's bar), the worst frame, the box mask's own
+    IoU beside it, ms per frame;
+27. ``seg_masks --ground`` at full width on mode x1: random ViT-H/14 and
+    23-layer text towers (every all-zero parameter moved, q and k x3)
+    written as a JAX-layout f32 npz, a merges file the script writes and
+    a plain-text query; every grounded mask within the same frame's
+    ``--auto`` mask; the 57 window scores of frame 0 against the same
+    towers in float64 on the card at 4 windows (bar 5e-3 of the largest
+    float64 score); ms per frame, the towers' load time, peak memory;
+28. one stage-2 step of each kind on ``load_sd_ply``'s 1,909,232 rows: a
+    512x384 seq view with the full loss and a 1080p training view with
+    the background loss (a cotangent exactly 0 inside the box): K3
+    against its plain version as in phase 5 (``check_k3``), K1 and K2
+    against theirs with the per-item state (``k2_with_state``), all timed
+    with their bounds, the pairs whose K3 rows are all zero, the step's
+    split and peak memory; the 51 cameras per epoch; the densification
+    threshold (a quantile of the seq step's screen-space gradients);
+29. the ``inpaint_rec`` CLI, 400 steps with densification at steps 50,
+    100 and 150, counters zeroed before and read after: K1, K2 and K3
+    launched once per step, the inpainted views' loss falls (first vs
+    last 20 of them), densify wrote rows, no non-finite gradient, the PLY
+    written and loaded, the masked PSNR of the seq views inside the SAM
+    masks above the initial state's by 1 dB; median step ms per view kind
+    and peak memory;
+30. the ``kernels`` JSON line (K1 and K2 at main path 1's big2m frame, K3
     at main path 2's first step, K4 at main path 3's ds1 shape, K5 at main
     path 4's ds1 shape; K4 and K5 also carry ``vs_library``, kernel ms over
-    SDPA ms); the last line is the ``ok`` JSON object.
+    SDPA ms; K1-K3 also carry ``main_path_6``: its launches and its
+    orbit-rec times and bounds at both step shapes); the last line is the
+    ``ok`` JSON object.
 
 Build outputs and the scenes go under ``build/`` in the checkout.
 """
 
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -299,6 +334,38 @@ INSERT_CENTER, INSERT_HALF = (0.15, -0.05, -0.75), 0.15
 DELETE_CENTER, DELETE_HALF = (0.0, 0.0, 0.0), 0.5
 SEQ_MODES, SEQ_FRAMES, VIS_FRAMES = ("x1", "x2"), 14, 56
 ORBIT_H, ORBIT_W = 512, 384
+
+
+# Main path 6 (stage 2) on main path 5's workspace. Stand-ins for the
+# svd_test frames (random weights would paint noise): big2m and an object
+# of OBJECT_N splats inside the insertion box (make_gt_gaussians' kind, one
+# saturated colour) rendered together at the 28 orbit poses. seg_masks
+# --auto --propagate must reach the JAX test's median IoU bar against the
+# object's visible mask; --ground runs the full-width towers (ViT-H/14,
+# the 23-layer text tower; random, every all-zero parameter moved, q and k
+# scaled by SVD_QK_GAIN so that the attention is far from uniform) on mode
+# x1, and holds the 57 window scores of frame 0 against the same towers in
+# float64 on the card at GROUND_WINDOWS (bar: GROUND_REL_TOL of the
+# largest float64 score). inpaint_rec trains REC_ITERS steps from
+# load_sd_ply's 1,879,232 + REC_SAMPLES rows, densifying at REC_DENSIFY
+# steps the rows whose mean screen-space gradient reaches the
+# REC_DENSIFY_QUANTILE quantile of its first step's (the reference's 2e-4
+# never fires here; main path 2's 0.8 quantile would split a fifth of the
+# trained background at each densification), and the
+# masked PSNR of the seq views inside the SAM masks must rise by
+# REC_PSNR_MARGIN dB over the initial state's.
+OBJECT_N, OBJECT_SPREAD, OBJECT_SCALE = 20_000, 0.12, 0.006
+OBJECT_RGB, OBJECT_OPACITY = (0.9, 0.15, 0.1), 0.95
+SEG_IOU_BAR = 0.6
+GROUND_QUERY = "a red chair"
+GROUND_MERGES = ("r e", "re d</w>", "c h", "ch a", "cha i", "chai r</w>",
+                 "a </w>")
+GROUND_WINDOWS, GROUND_REL_TOL = (0, 14, 30, 56), 5e-3
+REC_SAMPLES, REC_ITERS = 30_000, 400
+REC_DENSIFY = (50, 160, 50)      # from, until, interval: steps 50, 100, 150
+REC_DENSIFY_QUANTILE = 0.99
+REC_PSNR_MARGIN = 1.0
+REC_CAMERAS = 27 + 6 * len(YAWS)   # 27 seq views + 6 x 4 training views
 
 
 # ``cuda_ms`` sleeps the device this long per timed call before starting
@@ -1272,12 +1339,13 @@ def phase_train(torch, card, iterations=TRAIN_ITERS, extra=()):
     return launches, k3
 
 
-def k2_with_state(torch, card, probe):
-    """K1 and K2 on the inputs of main path 2's first step (``probe``'s):
-    K1's keys bit-equal to the plain version's, K1 timed with its bound;
-    K2 with and without the per-item state: tiles bit-equal, the state
-    held against the plain K2's (``compare_state``), both timed, with
-    K2's bound."""
+def k2_with_state(torch, card, probe, label="10", cell="orbit-train"):
+    """K1 and K2 on the inputs of the step ``probe`` ran (main path 2's
+    first step by default): K1's keys bit-equal to the plain version's,
+    K1 timed with its bound; K2 with and without the per-item state:
+    tiles bit-equal, the state held against the plain K2's
+    (``compare_state``), both timed, with K2's bound. Returns K1's and
+    K2's records (ms, plain ms, bound)."""
     from multiview_inpaint_tpu_torch.ops.rasterizer import (
         composite, composite_cuda, pair_expand)
 
@@ -1285,13 +1353,16 @@ def k2_with_state(torch, card, probe):
     same_keys = torch.equal(pair_expand.expand_keys(*k1_args),
                             pair_expand.expand_keys_ref(*k1_args))
     k1_ms = cuda_ms(torch, lambda: pair_expand.expand_keys(*k1_args), 50)
+    k1_plain_ms = cuda_ms(torch,
+                          lambda: pair_expand.expand_keys_ref(*k1_args), 3)
     k1_bound = (k1_args[6] * 8 + k1_args[5] * (8 + 4 + 4 + 4)) \
         / HBM_BYTES_PER_S * 1e3
-    print(f"[10 K1 orbit-train] actives {k1_args[5]} pairs {k1_args[6]}: "
-          f"keys equal {same_keys} | kernel {k1_ms:.4f} ms, bound "
-          f"{k1_bound:.4f} ms (bytes) | {card}", flush=True)
+    print(f"[{label} K1 {cell}] actives {k1_args[5]} pairs {k1_args[6]}: "
+          f"keys equal {same_keys} | kernel {k1_ms:.4f} ms, plain "
+          f"{k1_plain_ms:.4f} ms, bound {k1_bound:.4f} ms (bytes) | {card}",
+          flush=True)
     if not same_keys:
-        fail("K1 keys differ from the plain version at orbit-train")
+        fail(f"K1 keys differ from the plain version at {cell}")
     attrs, seg_start, counts, tiles8, _, *size, state = probe.k3_args
     n_items = int(composite.item_ends(counts)[-1])  # rows past it are unset
     k2_args = (attrs.detach(), seg_start, counts, *size)
@@ -1302,22 +1373,27 @@ def k2_with_state(torch, card, probe):
                      10)
         ms_st = cuda_ms(torch, lambda: composite_cuda.composite_fwd(
             *k2_args, with_state=True), 10)
+        k2_plain_ms = cuda_ms(
+            torch, lambda: composite.composite_segments(*k2_args), 1)
         _, st_p = composite.composite_segments(*k2_args, with_state=True)
     walk, k2_bound = k2_bound_of(torch, *k2_args)
-    note = compare_state(torch, "10 K2 orbit-train", attrs, counts, st, st_p)
+    note = compare_state(torch, f"{label} K2 {cell}", attrs, counts, st,
+                         st_p)
     same = (torch.equal(plain, with_st) and torch.equal(plain, tiles8)
             and torch.equal(st[:n_items], state[:n_items]))
-    print(f"[10 K2 orbit-train] tiles equal with and without the per-item "
+    print(f"[{label} K2 {cell}] tiles equal with and without the per-item "
           f"state ({tuple(st.shape)}, {st.numel() * 4 / 1e6:.1f} MB) and "
           f"equal to the step's, state equal to the step's: {same} | "
           f"{note} | kernel {ms:.4f} ms, with the state {ms_st:.4f} ms, "
-          f"bound {k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']}; "
-          f"walked, kept, contributing share of pair-pixels "
+          f"plain {k2_plain_ms:.2f} ms, bound {k2_bound['bound_ms']:.4f} ms "
+          f"({k2_bound['bound_by']}; walked, kept, contributing share of "
+          f"pair-pixels "
           f"{walk_shares(walk, attrs.shape[0] * size[2] * size[3])}) | "
           f"{card}", flush=True)
     if not same:
-        fail("K2's tiles or state differ with the state output at "
-             "orbit-train")
+        fail(f"K2's tiles or state differ with the state output at {cell}")
+    return (dict(ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound),
+            dict(ms=ms_st, plain_ms=k2_plain_ms, **k2_bound))
 
 
 def phase_step_time(torch, card):
@@ -2422,8 +2498,6 @@ def phase_mask_plain(torch, card, s):
     depths within K2's stop-flip bound, and the box hit on CUDA against
     the CPU off fragile rays; then a planted fault (K2's empty pixels at
     a final T of 1 - 2^-24) that the sentinel check must fail."""
-    import dataclasses
-
     from multiview_inpaint_tpu_torch.config import registries
     from multiview_inpaint_tpu_torch.gs import gaussians, obb
     from multiview_inpaint_tpu_torch.gs import scene as scene_mod
@@ -2626,6 +2700,527 @@ def phase_delete_gen_pc(torch, card, s):
         fail(f"main path 5 (delete, gen_pc CLIs) checks failed: {checks}")
 
 
+def _orbit_views(s, mode):
+    """The orbit cameras gen_seq rendered for ``mode`` (main path 5)."""
+    from multiview_inpaint_tpu_torch.config import registries
+    from multiview_inpaint_tpu_torch.gs import obb
+    from multiview_inpaint_tpu_torch.gs import scene as scene_mod
+
+    registries.load_registry_overrides(s["registry"])
+    sc = scene_mod.Scene(s["src"], s["model"], resolution=1, shuffle=False,
+                         load_images=False, load_gaussians=False)
+    sc.scene_name = s["sid"]
+    o = registries.get_orbit_params(STAGE1_SCENE)
+    return scene_mod.orbit_cameras(
+        sc.front_view(), obb.load_obb(s["box"]), mode=mode,
+        frames=SEQ_FRAMES, view_range=o.view_range, r_scale=o.r_scale,
+        k_lift=o.k_lift, k_bias=o.k_bias)
+
+
+def _seq_dir(s, mode, ctrl=None, kind="seq"):
+    from multiview_inpaint_tpu_torch.gs.scene import Workspace
+    ws = Workspace(s["ws"])
+    if kind == "seq":
+        return ws.seq_dir(s["sid"], mode, 1)
+    return getattr(ws, f"{kind}_dir")(s["sid"], ctrl, mode)
+
+
+def phase_stage2_frames(torch, card, s):
+    """Main path 6's stand-in for svd_test's frames: big2m and a
+    saturated object of OBJECT_N splats inside the insertion box rendered
+    together through ``render`` (K1/K2) at the 28 orbit poses, written as
+    ctrl 0's inpainted PNGs; returns each frame's visible-object mask (the
+    object's own alpha > 0.5 where its depth is nearer than big2m's) and
+    the orbit fov."""
+    from multiview_inpaint_tpu_torch.gs import gaussians, scene_io
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (
+        DEPTH_EMPTY, RenderCamera, render)
+    from multiview_inpaint_tpu_torch.utils import sh, synthetic
+
+    t0 = time.perf_counter()
+    big = gaussians.load_ply(s["ply"], 0, device=DEVICE)
+    obj = synthetic.make_gt_gaussians(n=OBJECT_N, seed=7,
+                                      spread=OBJECT_SPREAD, device=DEVICE)
+    n = OBJECT_N
+    dc = torch.as_tensor(sh.rgb_to_sh(np.asarray(OBJECT_RGB, np.float32)),
+                         dtype=torch.float32, device=DEVICE)
+    both = gaussians.from_arrays(
+        torch.cat([big.xyz, obj.xyz + torch.tensor(INSERT_CENTER,
+                                                   device=DEVICE)]),
+        torch.cat([big.features_dc, dc.expand(n, 1, 3)]),
+        torch.cat([big.features_rest, obj.features_rest]),
+        torch.cat([big.opacity, torch.full(
+            (n, 1), math.log(OBJECT_OPACITY / (1 - OBJECT_OPACITY)),
+            device=DEVICE)]),
+        torch.cat([big.scaling, torch.full((n, 3), math.log(OBJECT_SCALE),
+                                           device=DEVICE)]),
+        torch.cat([big.rotation, obj.rotation]), device=DEVICE)
+    live = torch.zeros_like(both.live)
+    live[len(big.xyz):] = True
+    alone = dataclasses.replace(both, live=live)
+    black = torch.zeros(3, device=DEVICE)
+    visible, png_s, render_ms = {}, 0.0, []
+    fov = None
+    for mode in SEQ_MODES:
+        views = _orbit_views(s, mode)
+        poses = np.load(os.path.join(_seq_dir(s, mode), "poses.npy"))
+        if not np.array_equal(np.stack([v.camera_to_world for v in views])
+                              .astype(np.float32), poses):
+            fail(f"main path 6: the orbit cameras of {mode} are not "
+                 f"gen_seq's poses")
+        fov = (views[0].fovx, views[0].fovy)
+        out_dir = _seq_dir(s, mode, 0, "inpainted")
+        for i, view in enumerate(views):
+            cam = RenderCamera.from_camera(view, DEVICE)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with torch.no_grad():
+                start.record()
+                img = render(both, cam, black, device=DEVICE).rgb
+                end.record()
+                o = render(alone, cam, black, device=DEVICE)
+                b = render(big, cam, black, device=DEVICE)
+            a = o.alpha.clamp(min=1e-6)
+            d_obj = (o.depth - (1 - o.alpha) * DEPTH_EMPTY) / a
+            visible[(mode, i)] = ((o.alpha > 0.5) & (d_obj < b.depth)
+                                  ).cpu().numpy()
+            t1 = time.perf_counter()
+            scene_io.save_image(os.path.join(out_dir, f"{i:02d}.png"),
+                                img.cpu().numpy())
+            png_s += time.perf_counter() - t1
+            render_ms.append(start.elapsed_time(end))
+    cover = [round(float(v.mean()), 4) for v in visible.values()]
+    print(f"[25 stage-2 frames] big2m + a {OBJECT_N}-splat object of colour "
+          f"{OBJECT_RGB} (spread {OBJECT_SPREAD}, scale {OBJECT_SCALE}, "
+          f"opacity {OBJECT_OPACITY}) at the insertion box centre, rendered "
+          f"together at {len(visible)} orbit poses ({ORBIT_H}x{ORBIT_W}) "
+          f"into ctrl 0's inpainted frames in "
+          f"{time.perf_counter() - t0:.2f} s (PNG {png_s:.2f} s; device ms "
+          f"per frame median {statistics.median(render_ms):.3f}) | visible "
+          f"object cover per frame {cover} | {card}", flush=True)
+    if sum(c > 0.002 for c in cover) < len(cover) // 2:
+        fail(f"main path 6: the object is visible in fewer than half the "
+             f"frames: {cover}")
+    return visible, fov
+
+
+def _mask_png(path):
+    return _png_array(path) > 127
+
+
+def phase_seg_auto(torch, card, s, visible, fov):
+    """Main path 6: the seg_masks CLI with --auto --propagate on modes x1
+    and x2 (14 frames each, the orbit fov), IoU of each frame's mask
+    against the object's visible mask; median above SEG_IOU_BAR."""
+    from multiview_inpaint_tpu_torch.pipelines import seg_masks
+
+    t0 = time.perf_counter()
+    seg_masks.main(["--scene_id", s["sid"], "--ctrl_id", "0", "--modes",
+                    *SEQ_MODES, "--frames", str(SEQ_FRAMES), "--iteration",
+                    "1", "--workspace", s["ws"], "--auto", "--propagate",
+                    "--fovx", repr(fov[0]), "--fovy", repr(fov[1]),
+                    "--device", DEVICE])
+    cli_s = time.perf_counter() - t0
+    def iou(a, b):
+        union = float((a | b).sum())
+        return round(float((a & b).sum()) / union if union else 1.0, 4)
+
+    ious, box_ious = {}, []
+    for (mode, i), want in visible.items():
+        got = _mask_png(os.path.join(_seq_dir(s, mode, 0, "sam_mask"),
+                                     f"{i:02d}.png"))
+        ious[f"{mode}/{i:02d}"] = iou(got, want)
+        box_ious.append(iou(_mask_png(os.path.join(
+            _seq_dir(s, mode), "mask", f"{i:02d}.png")), want))
+    med = statistics.median(ious.values())
+    worst = min(ious, key=ious.get)
+    print(f"[26 seg_masks auto] seg_masks CLI --auto --propagate, modes "
+          f"{list(SEQ_MODES)} x {SEQ_FRAMES} frames in {cli_s:.2f} s "
+          f"({cli_s * 1e3 / len(ious):.1f} ms per frame) | IoU against the "
+          f"visible object per frame {json.dumps(ious)} | median {med:.4f} "
+          f"(bar > {SEG_IOU_BAR}), worst {worst} {ious[worst]:.4f} | the "
+          f"box mask's own IoU median {statistics.median(box_ious):.4f} | "
+          f"{card}", flush=True)
+    if not med > SEG_IOU_BAR:
+        fail(f"main path 6: seg_masks --auto --propagate median IoU {med} "
+             f"<= {SEG_IOU_BAR}")
+
+
+def _clip_towers(torch):
+    """Full-width random CLIP towers on the card: every all-zero
+    parameter moved, q and k projections scaled by SVD_QK_GAIN."""
+    from multiview_inpaint_tpu_torch.diffusion.clip_text import (
+        CLIPTextTower, TextConfig)
+    from multiview_inpaint_tpu_torch.diffusion.clip_vit import (
+        CLIPVisionTower, ViTConfig)
+
+    torch.manual_seed(0)
+    towers = []
+    for seed, tower in enumerate((CLIPVisionTower(ViTConfig(), device=DEVICE),
+                                  CLIPTextTower(TextConfig(),
+                                                device=DEVICE))):
+        perturb_zero_params(torch, tower, 10 + seed)
+        with torch.no_grad():
+            for blk in tower.transformer.resblocks:
+                w = blk.attn.in_proj_weight.shape[1]
+                blk.attn.in_proj_weight[:2 * w] *= SVD_QK_GAIN
+                blk.attn.in_proj_bias[:2 * w] *= SVD_QK_GAIN
+        towers.append(tower.eval().requires_grad_(False))
+    return towers
+
+
+def phase_seg_ground(torch, card, s):
+    """Main path 6: seg_masks --ground at full width on mode x1 (ctrl 1):
+    the towers written as a JAX-layout npz, a merges file, a plain-text
+    query; every grounded mask within the same frame's --auto mask; the 57
+    window scores of frame 0 against the same towers in float64 on the
+    card at GROUND_WINDOWS; ms per frame and peak device memory."""
+    import copy
+
+    from multiview_inpaint_tpu_torch.diffusion import checkpoint
+    from multiview_inpaint_tpu_torch.gs import scene_io
+    from multiview_inpaint_tpu_torch.guidance import grounding
+    from multiview_inpaint_tpu_torch.pipelines import seg_masks
+
+    t0 = time.perf_counter()
+    vis, text = _clip_towers(torch)
+    n_params = sum(p.numel() for t in (vis, text) for p in t.parameters())
+    npz = os.path.join(s["work"], "clip.npz")
+    merges = os.path.join(s["work"], "merges.txt")
+    with open(merges, "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(GROUND_MERGES) + "\n")
+    checkpoint.save_params(npz, {
+        "vit_cfg": {k: np.asarray(v)
+                    for k, v in dataclasses.asdict(vis.cfg).items()},
+        "vision": checkpoint.state_dict_to_jax(
+            {checkpoint.PREFIXES["clip"] + k: v
+             for k, v in vis.state_dict().items()}, "clip"),
+        "text": checkpoint.state_dict_to_jax(
+            {checkpoint.TEXT_PREFIX + k: v
+             for k, v in text.state_dict().items()}, "clip_text")})
+    write_s = time.perf_counter() - t0
+    src = _seq_dir(s, "x1", 0, "inpainted")
+    dst = _seq_dir(s, "x1", 1, "inpainted")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    argv = ["--scene_id", s["sid"], "--ctrl_id", "1", "--modes", "x1",
+            "--frames", str(SEQ_FRAMES), "--iteration", "1", "--workspace",
+            s["ws"], "--auto", "--device", DEVICE]
+    seg_masks.main(argv)
+    out = _seq_dir(s, "x1", 1, "sam_mask")
+    auto = [_mask_png(os.path.join(out, f"{i:02d}.png"))
+            for i in range(SEQ_FRAMES)]
+    real_load = seg_masks.load_grounder
+    load_s = []
+
+    def timed_load(*a):
+        t = time.perf_counter()
+        g = real_load(*a)
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t)
+        return g
+
+    seg_masks.load_grounder = timed_load
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    try:
+        seg_masks.main(argv + ["--ground", GROUND_QUERY, "--clip_ckpt", npz,
+                               "--bpe_vocab", merges])
+        torch.cuda.synchronize()
+    finally:
+        seg_masks.load_grounder = real_load
+    cli_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20 - base_mb
+    grounded = [_mask_png(os.path.join(out, f"{i:02d}.png"))
+                for i in range(SEQ_FRAMES)]
+    subset = all(not (g & ~a).any() for g, a in zip(grounded, auto))
+    kept = [round(float(g.sum()) / max(float(a.sum()), 1.0), 4)
+            for g, a in zip(grounded, auto)]
+
+    # Frame 0's window scores in f32 against the same towers in f64.
+    img = scene_io.load_image(os.path.join(src, "00.png"))
+    g32 = grounding.CLIPGrounder(vis, text, merges)
+    wins = grounding.grounding_windows(*img.shape[:2])
+    _, s32 = g32(img, GROUND_QUERY)
+    g64 = grounding.CLIPGrounder(copy.deepcopy(vis).double(),
+                                 copy.deepcopy(text).double(), merges)
+    pick = wins[list(GROUND_WINDOWS)]
+    s64 = g64.scores(g64.crops(img, pick),
+                     g64.text_features(GROUND_QUERY)).cpu().numpy()
+    err = np.abs(s32[list(GROUND_WINDOWS)] - s64)
+    rel = float(err.max() / np.abs(s64).max())
+    del g64
+    torch.cuda.empty_cache()
+    frame_ms = (cli_s - sum(load_s)) * 1e3 / SEQ_FRAMES
+    checks = {f"{len(wins)} windows at {ORBIT_H}x{ORBIT_W}": len(wins) == 57,
+              "grounded masks within the auto masks": subset,
+              f"f32 scores within {GROUND_REL_TOL} of max|f64|":
+              rel <= GROUND_REL_TOL}
+    print(f"[27 seg_masks ground] towers {n_params / 1e9:.3f}B f32 "
+          f"parameters (ViT-H/14 + 23-layer text), npz written in "
+          f"{write_s:.2f} s ({os.path.getsize(npz) / 2**30:.2f} GiB) | "
+          f"seg_masks --ground {GROUND_QUERY!r} on x1 in {cli_s:.2f} s: "
+          f"towers loaded in {sum(load_s):.2f} s, {frame_ms:.1f} ms per "
+          f"frame, peak device memory {peak_mb:.0f} MB above its start | "
+          f"share of the auto mask kept per frame {kept} | frame 0 scores "
+          f"f32 vs f64 at windows {list(GROUND_WINDOWS)}: f64 "
+          f"{[round(float(v), 5) for v in s64]}, max abs err "
+          f"{float(err.max()):.3g}, relative to max|f64| {rel:.3g} (bar "
+          f"{GROUND_REL_TOL}); best window {wins[int(np.argmax(s32))].tolist()}"
+          f" | {json.dumps(checks)} | {card}", flush=True)
+    if not all(checks.values()):
+        fail(f"main path 6 (seg_masks --ground) checks failed: {checks}")
+
+
+class RecProbe:
+    """Wraps ``gs_trainer.train_step`` as the inpaint_rec CLI calls it:
+    each step's loss mode, image height, loss and CUDA events."""
+
+    def __init__(self, torch):
+        from multiview_inpaint_tpu_torch.models import gs_trainer
+        self.torch, self.steps, self.real = torch, [], gs_trainer.train_step
+
+    def __enter__(self):
+        from multiview_inpaint_tpu_torch.models import gs_trainer
+        torch = self.torch
+
+        def step(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real(*a, **kw)
+            end.record()
+            self.steps.append((kw.get("loss_mode", "full"), a[2].shape[0],
+                               out[1].loss, start, end))
+            return out
+
+        gs_trainer.train_step = step
+        return self
+
+    def __exit__(self, *exc):
+        from multiview_inpaint_tpu_torch.models import gs_trainer
+        gs_trainer.train_step = self.real
+
+    def by_kind(self):
+        """{(loss mode, height): ([losses], [ms])} in step order."""
+        out = {}
+        for mode, h, loss, a, b in self.steps:
+            losses, ms = out.setdefault((mode, h), ([], []))
+            losses.append(float(loss))
+            ms.append(a.elapsed_time(b))
+        return out
+
+
+def _rec_scene(s):
+    from multiview_inpaint_tpu_torch.config import registries
+    from multiview_inpaint_tpu_torch.gs.scene import Scene, Workspace
+
+    registries.load_registry_overrides(s["registry"])
+    sc = Scene(s["src"], s["model"], resolution=1, shuffle=False,
+               workspace=Workspace(s["ws"]), load_gaussians=False,
+               device=DEVICE)
+    sc.scene_name = s["sid"]
+    return sc
+
+
+def phase_stage2_step(torch, card, s):
+    """Main path 6: one stage-2 step of each kind on load_sd_ply's rows
+    before the CLI: a 512x384 seq view with the full loss and a 1080p
+    training view with the background loss (``StepProbe``), K3 held
+    against the plain K3 (``check_k3``), K1 and K2 against theirs
+    (``k2_with_state``), the pairs whose K3 rows are all zero and the
+    pixels whose cotangent is; returns the densification threshold and
+    the kernels' records of both shapes."""
+    from multiview_inpaint_tpu_torch.gs import obb, ply_io
+    from multiview_inpaint_tpu_torch.gs import scene as scene_mod
+    from multiview_inpaint_tpu_torch.models import gs_trainer
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (RenderCamera,
+                                                            composite_cuda)
+
+    sc = _rec_scene(s)
+    cams = scene_mod.inpaint_train_cameras(sc, n_mode=2, ctrl_id=0,
+                                           frames=SEQ_FRAMES, iteration=1)
+    n_seq = sum(c.inpainted for c in cams)
+    del_ply = os.path.join(s["model"], "point_cloud", "del",
+                           "point_cloud.ply")
+    n_del = len(ply_io.load_gaussian_ply(del_ply, 0)["xyz"])
+    t0 = time.perf_counter()
+    params = scene_mod.load_sd_ply(del_ply, obb.load_obb(s["box"]),
+                                   n_samples=REC_SAMPLES, device=DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_rows = int(params.num_live())
+    state = gs_trainer.init_state(params)
+    cfg = gs_trainer.OptimizationConfig()
+    bg = torch.zeros(3, device=DEVICE)
+    records, threshold = {}, None
+    for kind, cam in (("seq", next(c for c in cams if c.inpainted)),
+                      ("train_1080p", next(c for c in cams
+                                           if not c.inpainted))):
+        mode = "full" if cam.inpainted else "background"
+        gt = torch.as_tensor(np.asarray(cam.image, np.float32),
+                             device=DEVICE)
+        mask = (None if cam.inpainted else torch.as_tensor(
+            np.asarray(cam.mask, np.float32), device=DEVICE))
+        torch.cuda.reset_peak_memory_stats()
+        probe = StepProbe(torch)
+        (state, m), split = probe.step(
+            state, RenderCamera.from_camera(cam, DEVICE), gt, bg, cfg,
+            sc.cameras_extent, 0, mask, mode)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        label = f"28 {kind} {cam.width}x{cam.height} {mode}"
+        k3 = check_k3(torch, card, f"{label} K3", probe.k3_args, probe.gid,
+                      state.params.capacity)
+        k1, k2 = k2_with_state(torch, card, probe, "28", f"orbit-rec {kind}")
+        with torch.no_grad():
+            d_k = composite_cuda.composite_bwd(*probe.k3_args)
+        zero_rows = int((d_k[:, :10] == 0).all(dim=1).sum())
+        g = probe.k3_args[4]
+        zero_px = float((g[:, :5] == 0).all(dim=1).float().mean())
+        records[kind] = dict(K1=k1, K2=k2, K3=k3)
+        print(f"[{label}] {n_rows} rows in {state.params.capacity} "
+              f"(load_sd_ply in {load_s:.2f} s), pairs {m.pairs}, loss "
+              f"{float(m.loss):.5f}, non-finite gradients "
+              f"{int(m.nonfinite_grads)} | pairs with all-zero K3 rows "
+              f"{zero_rows} of {d_k.shape[0]} ({zero_rows / d_k.shape[0]:.4f})"
+              f", tile pixels with a zero cotangent {zero_px:.4f} | split "
+              f"(ms) {json.dumps({k: round(v, 3) for k, v in split.items()})}"
+              f" | peak device memory {peak_gb:.2f} GB | {card}", flush=True)
+        if int(m.nonfinite_grads) or not torch.isfinite(m.loss):
+            fail(f"main path 6 step {label}: non-finite loss or gradients")
+        if threshold is None:
+            seen = state.stats.denom > 0
+            threshold = float(torch.quantile(
+                state.stats.grad_accum[seen][:2**24], REC_DENSIFY_QUANTILE))
+    checks = {f"{REC_CAMERAS} cameras per epoch": len(cams) == REC_CAMERAS,
+              "27 of them seq views": n_seq == 27,
+              f"the del PLY's {n_del} rows + {REC_SAMPLES}":
+              n_rows == n_del + REC_SAMPLES}
+    print(f"[28 stage-2 steps] {json.dumps(checks)} | densify threshold "
+          f"{threshold:.4g} (the {REC_DENSIFY_QUANTILE} quantile of the seq "
+          f"step) | {card}", flush=True)
+    if not all(checks.values()):
+        fail(f"main path 6 (stage-2 steps) checks failed: {checks}")
+    del state, probe, params
+    torch.cuda.empty_cache()
+    return threshold, records
+
+
+def _masked_psnr(torch, params, cams):
+    """PSNR of renders of ``cams`` against their images inside their
+    masks (> 0.5), over all those pixels."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (RenderCamera,
+                                                            render)
+    se, n = 0.0, 0
+    for cam in cams:
+        with torch.no_grad():
+            rgb = render(params, RenderCamera.from_camera(cam, DEVICE),
+                         torch.zeros(3, device=DEVICE), device=DEVICE).rgb
+        gt = torch.as_tensor(np.asarray(cam.image, np.float32),
+                             device=DEVICE)
+        sel = torch.as_tensor(np.asarray(cam.mask) > 0.5, device=DEVICE)
+        se += float(((rgb.clamp(0, 1) - gt)[sel] ** 2).sum())
+        n += int(sel.sum()) * 3
+    return 10.0 * math.log10(n / max(se, 1e-12))
+
+
+def phase_inpaint_rec(torch, card, s, threshold):
+    """Main path 6: the inpaint_rec CLI (REC_ITERS steps on the 51
+    cameras), counters zeroed before and read after: K1, K2 and K3
+    launched once per step, the inpainted views' loss falls (first vs
+    last 20 such steps), densify ran and wrote rows, no non-finite
+    gradient, the PLY written and loaded, and the masked PSNR of the seq
+    views inside the SAM masks above the initial state's by
+    REC_PSNR_MARGIN; returns the launch counts."""
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.gs import gaussians, obb
+    from multiview_inpaint_tpu_torch.gs import scene as scene_mod
+    from multiview_inpaint_tpu_torch.pipelines import inpaint_rec
+
+    out = os.path.join(s["work"], "output_rec", s["sid"])
+    shutil.rmtree(out, ignore_errors=True)
+    first, until, every = REC_DENSIFY
+    _kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with RecProbe(torch) as probe:
+        inpaint_rec.main([
+            "-s", s["src"], "-m", out, "--scene_id", s["sid"], "--ctrl_id",
+            "0", "--bg_model", s["model"], "--bg_iteration", "1",
+            "--workspace", s["ws"], "--registry", s["registry"],
+            "--resolution", "1", "--n_mode", "2", "--frames",
+            str(SEQ_FRAMES), "--n_samples", str(REC_SAMPLES),
+            "--iterations", str(REC_ITERS), "--save_iterations",
+            str(REC_ITERS), "--densify_from_iter", str(first),
+            "--densify_until_iter", str(until), "--densification_interval",
+            str(every), "--densify_grad_threshold", repr(threshold),
+            "--opacity_reset_interval", "100000", "--log_interval", "10",
+            "--device", DEVICE])
+        torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(_kernels.LAUNCHES)
+    kinds = probe.by_kind()
+    seq_loss, seq_ms = kinds.get(("full", ORBIT_H), ([], []))
+    bg_h = next((h for mode, h in kinds if mode == "background"), 0)
+    bg_loss, bg_ms = kinds.get(("background", bg_h), ([], []))
+    with open(os.path.join(out, "ctrl_0", "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    steps = [r for r in log if "loss" in r]
+    densified = [r for r in log if "wanted" in r]
+    ply = os.path.join(out, "ctrl_0", "point_cloud",
+                       f"iteration_{REC_ITERS}", "point_cloud.ply")
+    final = gaussians.load_ply(ply, 0, device=DEVICE)
+    sc = _rec_scene(s)
+    seq_cams = scene_mod.inpaint_cameras(sc, n_mode=2, ctrl_id=0,
+                                         frames=SEQ_FRAMES, iteration=1)
+    init = scene_mod.load_sd_ply(
+        os.path.join(s["model"], "point_cloud", "del", "point_cloud.ply"),
+        obb.load_obb(s["box"]), n_samples=REC_SAMPLES, device=DEVICE)
+    psnr0 = _masked_psnr(torch, init, seq_cams)
+    psnr1 = _masked_psnr(torch, final, seq_cams)
+    n = 20
+    loss_first = statistics.mean(seq_loss[:n]) if seq_loss else 0.0
+    loss_last = statistics.mean(seq_loss[-n:]) if seq_loss else 0.0
+    checks = {
+        "K1, K2, K3 once per step": launches == {
+            "pair_expand": REC_ITERS, "composite": REC_ITERS,
+            "composite_bwd": REC_ITERS, "flash_attn_fwd": 0,
+            "flash_attn_bwd": 0},
+        "every step probed": len(probe.steps) == REC_ITERS,
+        "seq views' loss falls (first vs last 20)": loss_last < loss_first,
+        f"densify ran at {list(range(first, until, every))}":
+        [r["step"] for r in densified] == list(range(first, until, every)),
+        "densify wrote rows": bool(densified) and sum(
+            r["cloned"] + r["split"] for r in densified) > 0,
+        "no non-finite gradient": all(r["nonfinite_grads"] == 0
+                                      for r in steps),
+        "PLY written and loaded": int(final.num_live()) > 0,
+        f"masked PSNR up by > {REC_PSNR_MARGIN} dB":
+        psnr1 > psnr0 + REC_PSNR_MARGIN,
+    }
+    densify = [{k: r[k] for k in ("step", "cloned", "split", "pruned",
+                                  "wanted", "granted", "capacity")}
+               for r in densified]
+    print(f"[29 main inpaint_rec] inpaint_rec CLI, {REC_ITERS} steps on "
+          f"{REC_CAMERAS} cameras per epoch (27 seq views at "
+          f"{ORBIT_H}x{ORBIT_W}, 6 x {len(YAWS)} training views at "
+          f"height {bg_h}) from load_sd_ply's rows in {cli_s:.2f} s | "
+          f"launches {launches} | seq steps {len(seq_loss)}"
+          f", loss first/last {n} {loss_first:.5f} -> {loss_last:.5f}; "
+          f"background steps {len(bg_loss)} | median step ms (CUDA events) "
+          f"seq full {statistics.median(seq_ms or [0]):.3f}, training view "
+          f"background {statistics.median(bg_ms or [0]):.3f} | densify "
+          f"{densify} | points {steps[-1]['points'] if steps else None} | "
+          f"masked PSNR in the SAM masks {psnr0:.3f} -> {psnr1:.3f} dB | "
+          f"peak device memory {peak_gb:.2f} GB | {json.dumps(checks)} | "
+          f"{card}", flush=True)
+    if not all(checks.values()):
+        fail(f"main path 6 (inpaint_rec CLI) checks failed: {checks}")
+    return launches
+
+
 def main():
     import torch
 
@@ -2665,6 +3260,16 @@ def main():
     phase_mask_plain(torch, card, stage1)
     phase_stage1_clis(torch, card, stage1)
     phase_delete_gen_pc(torch, card, stage1)
+    visible, fov = phase_stage2_frames(torch, card, stage1)
+    phase_seg_auto(torch, card, stage1, visible, fov)
+    phase_seg_ground(torch, card, stage1)
+    threshold, rec = phase_stage2_step(torch, card, stage1)
+    launches_rec = phase_inpaint_rec(torch, card, stage1, threshold)
+
+    def path6(name, key):
+        """Main path 6's launches and its orbit-rec times of one kernel."""
+        return dict(launches=launches_rec[name],
+                    orbit_rec={kind: r[key] for kind, r in rec.items()})
 
     k1, k2 = frames["big2m"]   # the render main path's scene and shapes
     kernels = [
@@ -2672,18 +3277,21 @@ def main():
              source="multiview_inpaint_tpu_torch/csrc/pair_expand.cu",
              replaces="multiview_inpaint_tpu/ops/rasterizer/"
                       "pair_expand.py:92",
-             launches=launches["pair_expand"], **k1),
+             launches=launches["pair_expand"], **k1,
+             main_path_6=path6("pair_expand", "K1")),
         dict(name="composite", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/composite.cu",
              replaces="multiview_inpaint_tpu/ops/rasterizer/"
                       "pallas_composite.py:75",
-             launches=launches["composite"], **k2),
+             launches=launches["composite"], **k2,
+             main_path_6=path6("composite", "K2")),
         # K3 at the first step of main path 2, the path that runs it.
         dict(name="composite_bwd", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/composite_bwd.cu",
              replaces="multiview_inpaint_tpu/ops/rasterizer/"
                       "pallas_backward.py:54",
-             launches=launches_train["composite_bwd"], **k3),
+             launches=launches_train["composite_bwd"], **k3,
+             main_path_6=path6("composite_bwd", "K3")),
         # K4 at the ds1 shape of main path 3, the path that runs it.
         dict(name="flash_attn_fwd", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -2698,7 +3306,7 @@ def main():
                       "flash_attention.py:117",
              launches=launches_svd_train["flash_attn_bwd"], **k5),
     ]
-    print(f"[25 done] all phases passed in "
+    print(f"[30 done] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

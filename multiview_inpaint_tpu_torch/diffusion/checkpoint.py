@@ -14,11 +14,14 @@ the JAX package's ``weights_io`` key maps:
 - the VAE's ``down_N_block_M``, ``mid_block_N``, ``time_stack_in_norm``
   ... -> ``down.N.block.M``, ``mid.block_N``, ``time_stack.in_layers.0``;
 - CLIP's per-head query/key/value/out kernels -> OpenCLIP's packed
-  ``in_proj_weight``/``in_proj_bias`` and ``out_proj``.
+  ``in_proj_weight``/``in_proj_bias`` and ``out_proj``; the text tower's
+  ``token_embedding/embedding`` -> ``token_embedding.weight``.
 
 Each component's keys carry its reference prefix (``PREFIXES``), as in
 the SVD checkpoint and the ControlNet checkpoints; ``SVDEngine
-.load_reference_state_dict`` reads them.
+.load_reference_state_dict`` reads them. The OpenCLIP text tower
+(``clip_text.CLIPTextTower``) is the component ``clip_text``, under the
+SD2 text conditioner's prefix (``TEXT_PREFIX``); no engine holds it.
 
 ``state_dict_to_jax`` goes the other way, with the JAX package's own key
 maps (``weights_io._map_unet_key``, ``_map_vae_key``, ``_map_clip_tower``,
@@ -47,6 +50,8 @@ PREFIXES = {
     "vae": "first_stage_model.",
     "clip": "conditioner.embedders.0.open_clip.model.visual.",
 }
+TEXT_PREFIX = "cond_stage_model.model."
+_COMPONENTS = dict(PREFIXES, clip_text=TEXT_PREFIX)
 
 _VAE_RULES = [
     (re.compile(r"^down_(\d+)_block_(\d+)$"), r"down.\1.block.\2"),
@@ -130,6 +135,8 @@ def _clip_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
             sd[pre + f"{name}.{leaf}"] = arr
         elif len(parts) == 1:
             sd[parts[0]] = arr
+        elif parts[1] == "embedding":
+            sd[f"{parts[0]}.weight"] = arr
         else:
             leaf, arr = _leaf(parts[1], arr)
             sd[f"{parts[0]}.{leaf}"] = arr
@@ -148,20 +155,21 @@ def state_dict_from_jax(flat: Dict[str, np.ndarray],
 
     ``flat`` keys start with the engine component (``unet/``,
     ``controlnet/``, ``vae/``, ``clip/``: the layout of a saved engine
-    state) unless ``component`` names the one component they all belong
-    to (a ControlNet checkpoint is ``component="controlnet"``)."""
+    state; or ``clip_text/``) unless ``component`` names the one component
+    they all belong to (a ControlNet checkpoint is
+    ``component="controlnet"``)."""
     groups: Dict[str, Dict[str, np.ndarray]] = {}
     for path, arr in flat.items():
         if component is None:
             comp, _, rest = path.partition("/")
         else:
             comp, rest = component, path
-        if comp not in PREFIXES:
+        if comp not in _COMPONENTS:
             raise KeyError(f"{path}: unknown engine component {comp!r}")
         groups.setdefault(comp, {})[rest] = np.asarray(arr)
     out: Dict[str, torch.Tensor] = {}
     for comp, sub in groups.items():
-        if comp == "clip":
+        if comp in ("clip", "clip_text"):
             sd = _clip_state_dict(sub)
         else:
             key_of = _vae_key if comp == "vae" else _unet_key
@@ -171,7 +179,7 @@ def state_dict_from_jax(flat: Dict[str, np.ndarray],
                 leaf, arr = _leaf(leaf, arr)
                 sd[f"{key_of(body)}.{leaf}"] = arr
         for k, v in sd.items():
-            out[PREFIXES[comp] + k] = torch.from_numpy(
+            out[_COMPONENTS[comp] + k] = torch.from_numpy(
                 np.ascontiguousarray(v))
     return out
 
@@ -354,8 +362,9 @@ def _jax_layout(arr: np.ndarray) -> np.ndarray:
 
 
 def _clip_to_jax(sd: Dict[str, np.ndarray], heads: int):
-    """OpenCLIP visual tower (prefix stripped) -> flax leaves, split per
-    head as the JAX ``CLIPVisionTower`` holds them."""
+    """OpenCLIP visual or text tower (prefix stripped) -> flax leaves,
+    split per head as the JAX ``CLIPVisionTower`` and ``CLIPTextTower``
+    hold them."""
     out = {}
     for k, v in sd.items():
         parts = k.split(".")
@@ -386,11 +395,14 @@ def _clip_to_jax(sd: Dict[str, np.ndarray], heads: int):
                 out[f"{block}/mlp_{rest[1]}/"
                     f"{'kernel' if leaf == 'weight' else 'bias'}"] = (
                     v.T if leaf == "weight" else v)
-        elif k in ("class_embedding", "positional_embedding", "proj"):
+        elif k in ("class_embedding", "positional_embedding", "proj",
+                   "text_projection"):
             out[k] = v
+        elif k == "token_embedding.weight":
+            out["token_embedding/embedding"] = v
         elif k == "conv1.weight":
             out["conv1/kernel"] = v.transpose(2, 3, 1, 0)
-        elif parts[0] in ("ln_pre", "ln_post"):
+        elif parts[0] in ("ln_pre", "ln_post", "ln_final"):
             out[f"{parts[0]}/{'scale' if parts[-1] == 'weight' else 'bias'}"
                 ] = v
     return out
@@ -412,14 +424,15 @@ def state_dict_to_jax(sd: Dict[str, torch.Tensor],
     flat params, the inverse of ``state_dict_from_jax``: keys
     ``"<component>/a/b/c"``, or ``"a/b/c"`` when ``component`` names the
     one component to take (the layout of a ControlNet checkpoint). bf16
-    tensors come out as f32 (exact)."""
+    tensors come out as f32 (exact). ``clip_heads`` is the head count of
+    the CLIP tower at hand (the text tower's with ``clip_text``)."""
     out: Dict[str, np.ndarray] = {}
-    for comp, prefix in PREFIXES.items():
+    for comp, prefix in _COMPONENTS.items():
         if component is not None and comp != component:
             continue
         sub = {k[len(prefix):]: _numpy(v) for k, v in sd.items()
                if k.startswith(prefix)}
-        if comp == "clip":
+        if comp in ("clip", "clip_text"):
             flat = _clip_to_jax(sub, clip_heads)
         else:
             key_map = {"unet": _map_unet_key, "vae": _map_vae_key,

@@ -7,15 +7,19 @@ transformer (width 1280, 32 layers, 16 heads), post-LN and a linear
 projection to 1024, returning the pooled class-token embedding. Inputs
 are in [-1, 1]; the tower maps them to [0, 1], resizes to 224 with JAX's
 antialiased Keys bicubic (``resize_bicubic``) and CLIP-normalises.
+``resize_bilinear`` is ``jax.image.resize(..., "bilinear")``, as the
+grounder resizes its window crops.
 
 Parameter names are OpenCLIP's (``conv1``, ``class_embedding``,
 ``positional_embedding``, ``ln_pre``, ``transformer.resblocks.N.{ln_1,
 attn.in_proj_weight, attn.in_proj_bias, attn.out_proj, ln_2, mlp.c_fc,
 mlp.c_proj}``, ``ln_post``, ``proj``). The attention is plain matmul +
-softmax. As in the JAX package, the tower computes in the type of its
-input whatever type its weights are stored in (the engine stores them in
-bf16 and feeds f32 frames, so it runs in f32 on bf16-rounded weights),
-with LayerNorm eps 1e-6 and the exact GELU.
+softmax (logits in f32, or in f64 for f64 inputs; an optional mask as
+flax applies it, for the causal text tower). As in the JAX package, the
+tower computes in the type of its input whatever type its weights are
+stored in (the engine stores them in bf16 and feeds f32 frames, so it
+runs in f32 on bf16-rounded weights), with LayerNorm eps 1e-6 and the
+exact GELU.
 """
 
 from __future__ import annotations
@@ -52,16 +56,22 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
-def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
-    """[n_in, n_out] weights of ``jax.image.resize(..., "bicubic")`` along
-    one axis (``scale_and_translate``: half-pixel centres, the kernel
-    widened by the downscale factor, columns normalised)."""
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - x.abs(), min=0.0)
+
+
+def _resize_weights(n_in: int, n_out: int, device,
+                    kernel=_keys_cubic) -> torch.Tensor:
+    """[n_in, n_out] weights of ``jax.image.resize`` along one axis
+    (``scale_and_translate``: half-pixel centres, ``kernel`` widened by the
+    downscale factor, columns normalised): ``_keys_cubic`` for "bicubic",
+    ``_triangle`` for "bilinear"."""
     inv_scale = 1.0 / (n_out / n_in)   # as JAX rounds it
     kernel_scale = max(inv_scale, 1.0)
     sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5
               ) * inv_scale - 0.5
     pos = torch.arange(n_in, dtype=torch.float32, device=device)
-    w = _keys_cubic((sample[None, :] - pos[:, None]).abs() / kernel_scale)
+    w = kernel((sample[None, :] - pos[:, None]).abs() / kernel_scale)
     total = w.sum(dim=0, keepdim=True)
     w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
                     w / torch.where(total != 0, total, torch.ones_like(total)),
@@ -70,12 +80,27 @@ def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
     return torch.where(inside[None, :], w, torch.zeros_like(w))
 
 
+def _resize(x: torch.Tensor, size, kernel) -> torch.Tensor:
+    """[B, H, W, C] -> [B, h, w, C]; an axis whose size does not change is
+    left as it is, as ``jax.image.resize`` leaves it."""
+    for axis, n_out in ((1, size[0]), (2, size[1])):
+        n_in = x.shape[axis]
+        if n_in != n_out:
+            w = _resize_weights(n_in, n_out, x.device, kernel).to(x.dtype)
+            x = torch.tensordot(x.movedim(axis, -1), w, dims=1).movedim(
+                -1, axis)
+    return x
+
+
 def resize_bicubic(x: torch.Tensor, size) -> torch.Tensor:
     """[B, H, W, C] -> [B, h, w, C], as ``jax.image.resize`` bicubic."""
-    h, w = size
-    wh = _resize_weights(x.shape[1], h, x.device).to(x.dtype)
-    ww = _resize_weights(x.shape[2], w, x.device).to(x.dtype)
-    return torch.einsum("bhwc,hi,wj->bijc", x, wh, ww)
+    return _resize(x, size, _keys_cubic)
+
+
+def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """[B, H, W, C] -> [B, h, w, C], as ``jax.image.resize`` bilinear (a
+    triangle kernel, antialiased when shrinking)."""
+    return _resize(x, size, _triangle)
 
 
 def _linear(mod: nn.Linear, x):
@@ -101,14 +126,19 @@ class MultiheadSelfAttention(nn.Module):
         self.out_proj = nn.Linear(width, width, **factory)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
+        """``mask`` [n, n] bool (True: attend), as flax masks: the logits
+        it drops take the type's lowest value."""
         b, n, w = x.shape
         d = w // self.heads
         qkv = F.linear(x, self.in_proj_weight.to(x.dtype),
                        self.in_proj_bias.to(x.dtype))
         q, k, v = (t.reshape(b, n, self.heads, d).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
-        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * d ** -0.5
+        acc = torch.promote_types(x.dtype, torch.float32)
+        s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * d ** -0.5
+        if mask is not None:
+            s = s.masked_fill(~mask, torch.finfo(s.dtype).min)
         p = torch.softmax(s, dim=-1).to(x.dtype)
         out = torch.matmul(p, v).transpose(1, 2).reshape(b, n, w)
         return _linear(self.out_proj, out)
@@ -124,8 +154,8 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp.c_fc = nn.Linear(width, width * 4, **factory)
         self.mlp.c_proj = nn.Linear(width * 4, width, **factory)
 
-    def forward(self, x):
-        x = x + self.attn(_layer_norm(self.ln_1, x))
+    def forward(self, x, mask=None):
+        x = x + self.attn(_layer_norm(self.ln_1, x), mask)
         h = F.gelu(_linear(self.mlp.c_fc, _layer_norm(self.ln_2, x)))
         return x + _linear(self.mlp.c_proj, h)
 

@@ -11,8 +11,15 @@ JAX functions:
   (horizontal +-) and y1/y2 (vertical).
 - :func:`sds_cameras` == ``getSDSCameras`` (:258-290): training cameras
   within ``cos(view_range)`` of the front direction with box masks.
-
-The inpaint camera builders and ``load_sd_ply`` come with stage 2.
+- :func:`inpaint_cameras` == ``getInpaintCameras`` (:200-255): orbit frames
+  composited as ``inpainted * sam_mask + render * (1-mask)``.
+- :func:`inpaint_train_cameras` == ``InpaintScene.getInpaintTrainCameras``
+  (:415-453): seq + masked train cams, count-balanced by repetition.
+- :func:`load_sd_ply` == ``InpaintGaussianModel.load_sd_ply``: the
+  background PLY plus fresh gaussians uniform in the insertion box. The
+  JAX function draws the box samples from ``jax.random.key(seed)``, which
+  torch cannot reproduce: the port draws them from a ``torch.Generator``
+  seeded by ``seed``, or takes the uniforms ``u`` as given.
 """
 
 from __future__ import annotations
@@ -25,10 +32,13 @@ from typing import List, Optional
 
 import numpy as np
 
+import torch
+
 from ..config.registries import FRONT_VIEWS, SPIN_NERF_SCENES
-from ..utils.device import DEFAULT_DEVICE
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from . import gaussians as g_mod
-from . import scene_io
+from . import obb as obb_mod
+from . import ply_io, scene_io
 from .cameras import Camera, retarget
 from .gaussians import GaussianParams
 from .obb import OBB
@@ -278,3 +288,140 @@ def sds_cameras(scene: Scene, box: OBB, view_range: float = np.pi / 3,
     if shuffle:
         random.Random(seed).shuffle(out)
     return out
+
+
+def inpaint_cameras(scene: Scene, n_mode: int = 2, ctrl_id: int = -1,
+                    frames: int = 14, iteration: int = 30000
+                    ) -> List[Camera]:
+    """Orbit frames with multi-view-inpainted images composited over the
+    original renders through the SAM masks."""
+    ws = scene.workspace
+    front = scene.front_view()
+    mode_list = ["x2", "x1", "y1", "y2"]
+    used = mode_list[:n_mode]
+
+    def seq_views(mode):
+        seq_root = ws.seq_dir(scene.scene_name, mode, iteration)
+        if ctrl_id >= 0:
+            mask_root = ws.sam_mask_dir(scene.scene_name, ctrl_id, mode)
+            inp_root = ws.inpainted_dir(scene.scene_name, ctrl_id, mode)
+        else:
+            mask_root = os.path.join(os.path.dirname(
+                ws.sam_mask_dir(scene.scene_name, 0, mode)), mode)
+            inp_root = os.path.join(os.path.dirname(
+                ws.inpainted_dir(scene.scene_name, 0, mode)), mode)
+        poses = np.load(os.path.join(seq_root, "poses.npy"))
+        views = []
+        for i in range(frames):
+            v_id = f"{i:02d}"
+            if os.path.isdir(inp_root):
+                # composite at the inpainted (SVD output) resolution;
+                # renders and masks may be at gen_seq's input size
+                inp = scene_io.load_image(os.path.join(inp_root,
+                                                       f"{v_id}.png"))
+                res = (inp.shape[1], inp.shape[0])
+                mask = scene_io.load_image(
+                    os.path.join(mask_root, f"{v_id}.png"),
+                    resolution=res, grayscale=True)
+                raw = scene_io.load_image(
+                    os.path.join(seq_root, "renders", f"{v_id}.png"),
+                    resolution=res)
+                img = inp * mask[..., None] + raw * (1 - mask[..., None])
+            else:
+                mask = scene_io.load_image(os.path.join(mask_root,
+                                                        f"{v_id}.png"),
+                                           grayscale=True)
+                img = scene_io.load_image(os.path.join(
+                    seq_root, "renders", f"{v_id}.png"))
+            h, w = img.shape[:2]
+            views.append(retarget(front, poses[i].astype(np.float32),
+                                  image_name=v_id, width=w, height=h,
+                                  image=img, mask=mask, inpainted=True))
+        return views
+
+    out = seq_views(used[0])
+    for m in used[1:]:
+        out += seq_views(m)[1:]
+    return out
+
+
+def inpaint_train_cameras(scene: Scene, n_mode: int = 2, ctrl_id: int = -1,
+                          frames: int = 14, iteration: int = 30000,
+                          shuffle: bool = True, seed: int = 0
+                          ) -> List[Camera]:
+    """Seq (inpainted) + train (bg-masked) cameras, count-balanced."""
+    ws = scene.workspace
+    train_mask_dir = ws.seq_dir(scene.scene_name, "bds_train", iteration)
+    seq_cams = inpaint_cameras(scene, n_mode, ctrl_id, frames, iteration)
+    train_cams = []
+    for cam in scene.train_cameras():
+        img = scene_io.load_image(os.path.join(
+            train_mask_dir, "renders", f"{cam.image_name}.png"))
+        mask = scene_io.load_image(os.path.join(
+            train_mask_dir, "mask", f"{cam.image_name}.png"), grayscale=True)
+        train_cams.append(dataclasses.replace(cam, image=img, mask=mask,
+                                              inpainted=False))
+    n_train, n_seq = len(train_cams), len(seq_cams)
+    if n_seq >= n_train * 2:
+        cams = seq_cams + train_cams * (n_seq // n_train)
+    elif n_train >= n_seq * 2:
+        cams = seq_cams * (n_train // n_seq) + train_cams
+    else:
+        cams = seq_cams + train_cams
+    if shuffle:
+        random.Random(seed).shuffle(cams)
+    return cams
+
+
+def load_sd_ply(path: str, box: OBB, n_samples: int = 30_000,
+                max_sh_degree: int = 0, capacity: Optional[int] = None,
+                seed: int = 0, u: Optional[torch.Tensor] = None,
+                device=DEFAULT_DEVICE) -> GaussianParams:
+    """Background PLY + n_samples fresh gaussians uniform inside the OBB,
+    on ``device``.
+
+    Reference: ``InpaintGaussianModel.load_sd_ply``
+    (``gaussian_model.py:493-559``): new gaussians are gray (zero SH),
+    opacity 0.1, identity rotation and an isotropic log-scale from the
+    mean squared distance to their 3 nearest neighbours among the new
+    points (clipped at 1e-7). The box uniforms ``u`` [n_samples, 3] come
+    from a ``torch.Generator`` seeded by ``seed`` on ``device`` unless
+    given. Capacity is 1.5x the rows unless given.
+    """
+    from ..ops.knn import knn_mean_sq_dist
+    from ..utils.schedules import inverse_sigmoid
+
+    dev = resolve_device(device)
+    bg = ply_io.load_gaussian_ply(path, max_sh_degree)
+    m = bg["features_rest"].shape[1]
+    gen = None
+    if u is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+    else:
+        u = torch.as_tensor(u, dtype=torch.float32, device=dev)
+    new_xyz = obb_mod.sample_uniform(box, gen, n_samples, u=u)
+    d2 = torch.clamp(knn_mean_sq_dist(new_xyz), min=1e-7)
+    new_scales = torch.log(torch.sqrt(d2))[:, None].repeat(1, 3)
+    rots = torch.zeros((n_samples, 4), dtype=torch.float32, device=dev)
+    rots[:, 0] = 1.0
+    opac = torch.full((n_samples, 1),
+                      float(inverse_sigmoid(torch.tensor(0.1))),
+                      dtype=torch.float32, device=dev)
+
+    def cat(old, new):
+        return torch.cat([torch.as_tensor(old, dtype=torch.float32,
+                                          device=dev), new])
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    total = len(bg["xyz"]) + n_samples
+    return g_mod.from_arrays(
+        cat(bg["xyz"], new_xyz),
+        cat(bg["features_dc"], zeros(n_samples, 1, 3)),
+        cat(bg["features_rest"], zeros(n_samples, m, 3)),
+        cat(bg["opacity"], opac),
+        cat(bg["scaling"], new_scales),
+        cat(bg["rotation"], rots),
+        capacity=capacity or int(total * 1.5), device=dev)
