@@ -194,12 +194,51 @@ non-zero:
     written and loaded, the masked PSNR of the seq views inside the SAM
     masks above the initial state's by 1 dB; median step ms per view kind
     and peak memory;
-30. the ``kernels`` JSON line (K1 and K2 at main path 1's big2m frame, K3
+30. main path 7 (slice 7) on main path 5's workspace: a random
+    SD-2-inpainting-width UNet2D and 2D VAE (every all-zero parameter
+    moved) written as a ``.ckpt`` and read into the SDS prior as
+    ``sds_train`` builds it, text embeddings [2, 77, 1024] from the seed;
+    then phase 12's checks and times of K4 at the UNet2D's CFG shapes,
+    [2, 4096, 5*64] (ds1) and [2, 1024, 10*64] (ds2) in f32;
+31. one CFG evaluation of that UNet2D (q and k x3, as phase 15) through
+    K4 against the same UNet with the plain attention (10 K4 launches,
+    relative rms of the eps at phase 15's bar), two planted K4 faults
+    that must exceed the bar, and another input seed;
+32. one SDS step at full width on a 1080p bds_train view of the del PLY +
+    30,000 box samples after a warm-up step (``SdsProbe``): K3 against
+    its plain version under the step's own cotangent (the background
+    loss's plus the SDS gradient through the VAE encoder and the 1080p ->
+    512^2 resize), K1 and K2 with the per-item state against theirs,
+    K1-K3 once and K4 10 times and K5 never, the SDS image gradient
+    finite and non-zero inside the mask, peak memory, and the step's
+    device ms beside its parts run alone (``sds_split``: render forward,
+    VAE encode forward and backward, CFG UNet, Adam; the rest is the
+    render backward, the losses and resizes); the densification
+    threshold (a quantile of this step's gradients);
+33. the ``sds_train`` CLI with the ``.ckpt`` and the embeddings, 60 steps
+    on the 4 bds_train views, densifying at step 50: K1-K3 once and K4 10
+    times per step, K5 never, the background loss of the 20 steps before
+    the densification below the first 20's and finite after it, no
+    non-finite gradient, the PLY written and loaded, median step ms and
+    peak memory;
+34. ``gen_seq --sds`` on that PLY, ``gen_depth --dpt_ckpt`` with a random
+    DPT-large (ms per frame, peak memory) and ``gen_depth`` rendering the
+    disparity, counters zeroed before each (K1 and K2 28 times each); the
+    written disparity against the plain K2 route's on every frame (all
+    but 0.01% of pixels equal, none off by more than 1 level);
+35. the ``ctrl_inpaint`` CLI at full width (``--context_dim 768``,
+    ``--size 512``) from random SD-1.5-size UNet2D + VAE and ControlNet2D
+    ``.ckpt`` files: 2 samples of 10 UniPC steps, then 1 of DPM++(2M):
+    K4 14 times per evaluation and no other kernel, s per sample, peak
+    memory, the PNGs not constant;
+36. the ``kernels`` JSON line (K1 and K2 at main path 1's big2m frame, K3
     at main path 2's first step, K4 at main path 3's ds1 shape, K5 at main
     path 4's ds1 shape; K4 and K5 also carry ``vs_library``, kernel ms over
     SDPA ms; K1-K3 also carry ``main_path_6``: its launches and its
-    orbit-rec times and bounds at both step shapes); the last line is the
-    ``ok`` JSON object.
+    orbit-rec times and bounds at both step shapes; K1-K4 carry
+    ``main_path_7``: its launches over all its CLIs, K1-K3's times and
+    bounds at the SDS step's view, K4's at the UNet2D's ds1 and ds2); the
+    last line is the ``ok`` JSON object.
 
 Build outputs and the scenes go under ``build/`` in the checkout.
 """
@@ -366,6 +405,27 @@ REC_DENSIFY = (50, 160, 50)      # from, until, interval: steps 50, 100, 150
 REC_DENSIFY_QUANTILE = 0.99
 REC_PSNR_MARGIN = 1.0
 REC_CAMERAS = 27 + 6 * len(YAWS)   # 27 seq views + 6 x 4 training views
+
+
+# Main path 7 (slice 7) on main path 5's workspace after main path 6. The
+# SDS prior is SD-2-inpainting's width (UNet2DConfig(), VAEConfig()) with
+# random weights, every all-zero parameter moved, in f32 as sds_train runs
+# it: the render of a 1080p bds_train view shrunk to SDS_SIZE^2 (latents
+# SDS_LATENT^2), CFG batch 2, so K4 runs the UNet2D's ds1 and ds2
+# self-attention at K4_2D_SHAPES (packed [B, T, H*D], f32 in), 2 + 3 times
+# each per evaluation (the ControlNet2D's trunk adds 2 + 2 in
+# ctrl_inpaint). sds_train runs SDS_ITERS steps from the del PLY plus
+# REC_SAMPLES box samples with the stage-2 preset (densify at step 50, at
+# the REC_DENSIFY_QUANTILE quantile of the first step's gradients);
+# ctrl_inpaint runs the SD-1.5 width (context CTRL_CONTEXT, heads of 64)
+# for CTRL_STEPS steps per sample.
+SDS_SIZE, SDS_LATENT, SDS_ITERS = 512, 64, 60
+SDS_DENSIFY = 50        # the stage-2 preset's densification interval
+SDS_WEIGHT, SDS_GUIDANCE = 1e-6, 100.0
+K4_2D_SHAPES = ((2, 4096, 5, 64, "float32"), (2, 1024, 10, 64, "float32"))
+K4_PER_UNET2D_EVAL, K4_PER_CTRL_EVAL = 10, 14
+CTRL_CONTEXT, CTRL_STEPS = 768, 10
+TEXT_TOKENS = 8
 
 
 # ``cuda_ms`` sleeps the device this long per timed call before starting
@@ -1448,11 +1508,11 @@ def phase_step_time(torch, card):
              state.params.capacity)
 
 
-def phase_k4(torch, card):
-    """K4 against its plain version on packed [B, T, H*D] inputs at the
-    main path's shapes; returns the record of the ds1 shape for the
-    kernels line (launches filled in later). The launches made here are
-    taken off the counters again."""
+def phase_k4(torch, card, shapes=K4_SHAPES, label="12"):
+    """K4 against its plain version on packed [B, T, H*D] inputs at a
+    main path's shapes (main path 3's by default); returns the record of
+    each shape for the kernels line (launches filled in later). The
+    launches made here are taken off the counters again."""
     import torch.nn.functional as F
 
     from multiview_inpaint_tpu_torch import kernels as _kernels
@@ -1460,7 +1520,7 @@ def phase_k4(torch, card):
 
     records = []
     saved = dict(_kernels.LAUNCHES)
-    for b, t, h, d, dtype in K4_SHAPES:
+    for b, t, h, d, dtype in shapes:
         gen = torch.Generator(device=DEVICE).manual_seed(b * h + t)
         q, k, v = (torch.randn((b, t, h * d), generator=gen, device=DEVICE)
                    .to(getattr(torch, dtype)) for _ in range(3))
@@ -1491,7 +1551,8 @@ def phase_k4(torch, card):
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
                    library_ms=lib_ms, vs_library=ms / lib_ms)
         records.append(rec)
-        print(f"[12 K4 {dtype} [{b}, {t}, {h}*{d}], {h} heads] max abs err "
+        print(f"[{label} K4 {dtype} [{b}, {t}, {h}*{d}], {h} heads] max abs "
+              f"err "
               f"{err:.4g} (bar {K4_ABS_TOL}), rel {rel:.4g} (bar "
               f"{K4_REL_TOL}) | bit-equal on a second run: {equal}, equal "
               f"to K4 on the folded [{b * h}, {t}, {d}]: {same_folded} | "
@@ -1505,7 +1566,7 @@ def phase_k4(torch, card):
             fail(f"K4 disagrees with its plain version at [{b}, {t}, "
                  f"{h}*{d}] {dtype}")
     _kernels.LAUNCHES.update(saved)
-    return records[0]
+    return records
 
 
 def _tiny_svd_config():
@@ -3221,6 +3282,711 @@ def phase_inpaint_rec(torch, card, s, threshold):
     return launches
 
 
+def _write_ckpt(torch, path, modules):
+    """``torch.save`` of ``{"state_dict": ...}`` with each module's state
+    under its prefix (``modules``: (prefix, module) pairs), the tensors
+    copied to the host; returns the seconds taken."""
+    t0 = time.perf_counter()
+    sd = {pre + k: v.detach().cpu() for pre, m in modules
+          for k, v in m.state_dict().items()}
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({"state_dict": sd}, path)
+    return time.perf_counter() - t0
+
+
+def _random_prior(torch, cfg, seed, controlnet=False):
+    """A random full-width UNet2D (or ControlNet2D) on the card, every
+    all-zero parameter moved."""
+    from multiview_inpaint_tpu_torch.diffusion.controlnet2d import (
+        ControlNet2D)
+    from multiview_inpaint_tpu_torch.diffusion.unet2d import UNet2D
+
+    torch.manual_seed(seed)
+    net = (ControlNet2D if controlnet else UNet2D)(cfg, device=DEVICE)
+    perturb_zero_params(torch, net, seed)
+    return net
+
+
+def _random_vae(torch, seed):
+    from multiview_inpaint_tpu_torch.diffusion.vae import (AutoencoderKL,
+                                                           VAEConfig)
+    torch.manual_seed(seed)
+    vae = AutoencoderKL(VAEConfig(), video_decoder=False, device=DEVICE)
+    perturb_zero_params(torch, vae, seed)
+    return vae
+
+
+def _text_embs(dim, seed):
+    """[2, 77, dim] f32 (unconditional, prompt) from the seed, shaped as a
+    text tower's outputs for the empty prompt and a short one are: the
+    same start and padding tokens, the prompt's TEXT_TOKENS tokens after
+    the start token drawn anew. (Two independent draws differ at every
+    token, far more than a prompt and the empty prompt do: at CFG 100
+    that made the random prior's SDS term 20 times the background loss.)
+    """
+    rng = np.random.default_rng(seed)
+    uc = rng.normal(size=(77, dim)).astype(np.float32)
+    c = uc.copy()
+    c[1:1 + TEXT_TOKENS] = rng.normal(size=(TEXT_TOKENS, dim))
+    return np.stack([uc, c])
+
+
+def phase_slice7_setup(torch, card, s):
+    """Main path 7's weights: a random SD-2-inpainting-width UNet2D and 2D
+    VAE written as one ``.ckpt`` (``torch.save``; the card's machine has
+    no ``safetensors``), the text embeddings [2, 77, 1024] from the seed,
+    and the SDS prior built from that file as ``sds_train`` builds it;
+    returns them with the write and load seconds."""
+    import argparse
+
+    from multiview_inpaint_tpu_torch.diffusion import checkpoint
+    from multiview_inpaint_tpu_torch.diffusion.unet2d import UNet2DConfig
+    from multiview_inpaint_tpu_torch.pipelines import sds_train
+
+    work = os.path.join(s["work"], "slice7")
+    os.makedirs(work, exist_ok=True)
+    sw = dict(work=work, sd=os.path.join(work, "sd2_inpaint.ckpt"),
+              embs=os.path.join(work, "embs_1024.npy"))
+    unet = _random_prior(torch, UNet2DConfig(), 70)
+    vae = _random_vae(torch, 71)
+    n_params = sum(p.numel() for m in (unet, vae) for p in m.parameters())
+    write_s = _write_ckpt(torch, sw["sd"], (
+        (checkpoint.PREFIXES["unet"], unet), (checkpoint.PREFIXES["vae"],
+                                              vae)))
+    del unet, vae
+    torch.cuda.empty_cache()
+    np.save(sw["embs"], _text_embs(1024, 72))
+    t0 = time.perf_counter()
+    sw["guidance"] = sds_train.build_guidance(argparse.Namespace(
+        sd_ckpt=sw["sd"], guidance_scale=SDS_GUIDANCE), DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    sw["text"] = torch.as_tensor(np.load(sw["embs"]), device=DEVICE)
+    print(f"[30 slice-7 setup] SD-2-inpainting-width UNet2D (UNet2DConfig()) "
+          f"+ 2D VAE: {n_params} random f32 parameters, all-zero ones moved,"
+          f" written as {os.path.getsize(sw['sd']) / 2**30:.2f} GiB .ckpt in "
+          f"{write_s:.2f} s, read into the SDS prior (build_guidance) in "
+          f"{load_s:.2f} s | text embeddings [2, 77, 1024] from the seed "
+          f"(the prompt's {TEXT_TOKENS} tokens apart) | "
+          f"{card}", flush=True)
+    return sw
+
+
+def phase_unet2d_eval(torch, card, sw):
+    """One CFG evaluation of the full-width UNet2D (batch 2 at a 64x64
+    latent, t = 500), q and k projections scaled by SVD_QK_GAIN, through
+    K4; with ``attention_op``'s K4 call patched to the plain version; to
+    two planted faults (the first key tile dropped; an exp2 softmax
+    without log2 e); through K4 from another input seed. The UNet is a
+    second copy of the prior's weights (the scaling stays off the SDS
+    prior)."""
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.diffusion import (attention_op,
+                                                       checkpoint,
+                                                       flash_attention)
+    from multiview_inpaint_tpu_torch.diffusion.transformer import (
+        CrossAttention)
+    from multiview_inpaint_tpu_torch.diffusion.unet2d import (UNet2D,
+                                                              UNet2DConfig)
+
+    unet = UNet2D(UNet2DConfig(), device=DEVICE)
+    sd = checkpoint.read_state_dict(sw["sd"])
+    missing, _ = checkpoint.import_state_dict(unet, sd,
+                                              checkpoint.PREFIXES["unet"])
+    del sd
+    unet.eval().requires_grad_(False)
+    with torch.no_grad():
+        for m in unet.modules():
+            if isinstance(m, CrossAttention):
+                m.to_q.weight.mul_(SVD_QK_GAIN)
+                m.to_k.weight.mul_(SVD_QK_GAIN)
+    real = attention_op.flash_attention
+    ref = flash_attention.flash_attention_ref
+    t = torch.full((2,), 500.0, device=DEVICE)
+
+    def evaluate(seed, attend):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        x = torch.randn((2, SDS_LATENT, SDS_LATENT, 9), generator=gen,
+                        device=DEVICE)
+        attention_op.flash_attention = attend
+        try:
+            _kernels.reset_launches()
+            with torch.no_grad():
+                out = unet(x, t, sw["text"])
+            torch.cuda.synchronize()
+        finally:
+            attention_op.flash_attention = real
+        return out, _kernels.LAUNCHES["flash_attn_fwd"]
+
+    out_k4, n_k4 = evaluate(31, real)
+    out_plain, n_plain = evaluate(31, ref)
+    out_drop, _ = evaluate(31, lambda q, k, v, h, sm: ref(
+        q, k[:, FAULT_KEYS:], v[:, FAULT_KEYS:], h, sm))
+    out_base, _ = evaluate(31, lambda q, k, v, h, sm: real(
+        q, k, v, h, sm * math.log(2)))
+    out_seed, _ = evaluate(32, real)
+    err, drop, base = (_rms(o, out_plain) for o in (out_k4, out_drop,
+                                                   out_base))
+    seed_diff = _rms(out_seed, out_k4)
+    bar = SVD_EVAL_RMS_TOL
+    print(f"[31 unet2d eval] one CFG evaluation of the full-width UNet2D "
+          f"(batch 2, {SDS_LATENT}x{SDS_LATENT} latent, t 500, q and k x"
+          f"{SVD_QK_GAIN}, missing {len(missing)}): K4 launches {n_k4}, with "
+          f"attention_op's K4 call patched to the plain version {n_plain} | "
+          f"relative rms diff from the plain-attention eps: K4 {err:.4g} "
+          f"(max abs {float((out_k4 - out_plain).abs().max()):.4g} of "
+          f"max|plain| {float(out_plain.abs().max()):.4g}), bar {bar}; "
+          f"planted faults: first key tile dropped {drop:.4g}, softmax base 2"
+          f" {base:.4g} | another input seed moves it by {seed_diff:.4g} | "
+          f"all finite: {bool(torch.isfinite(out_k4).all())} | {card}",
+          flush=True)
+    del unet
+    torch.cuda.empty_cache()
+    if not (n_k4 == K4_PER_UNET2D_EVAL and n_plain == 0 and not missing
+            and err <= bar and bar < min(drop, base)
+            and bar <= seed_diff / 10 and torch.isfinite(out_k4).all()):
+        fail("the full-width UNet2D through K4 disagrees with the plain "
+             "attention, or the bar does not separate the planted faults")
+
+
+class SdsProbe:
+    """Runs the real ``sds_trainer.sds_train_step`` and keeps what its
+    checks need: the pair binning's gaussian ids, K1's and K3's inputs
+    (as ``StepProbe`` keeps them), and the gradient the SDS term sends
+    into the prior's input image (a hook on the image the prior's
+    ``vae_encode`` takes with a gradient)."""
+
+    def __init__(self, torch, guidance):
+        from multiview_inpaint_tpu_torch.ops.rasterizer import (
+            binning, composite_cuda)
+        self.torch, self.k3_args, self.gid = torch, None, None
+        self.k1_args, self.img_grad = None, None
+
+        def bins(*a, **kw):
+            b = bin_gaussians(*a, **kw)
+            self.gid = b.order[b.gid_sorted]
+            return b
+
+        def k3(*a):
+            self.k3_args = a
+            return composite_bwd(*a)
+
+        def k1(*a):
+            self.k1_args = a
+            return expand_keys(*a)
+
+        def keep(g):
+            self.img_grad = g.detach()
+
+        def encode(img):
+            if img.requires_grad:
+                img.register_hook(keep)
+            return vae_encode(img)
+
+        bin_gaussians, expand_keys = binning.bin_gaussians, binning.expand_keys
+        composite_bwd = composite_cuda.composite_bwd
+        vae_encode = guidance.vae_encode
+        self.patches = [(binning, "bin_gaussians", bins),
+                        (binning, "expand_keys", k1),
+                        (composite_cuda, "composite_bwd", k3),
+                        (guidance, "vae_encode", encode)]
+
+    def step(self, *args, **kw):
+        """``sds_trainer.sds_train_step(*args, **kw)`` with the wrappers
+        in place."""
+        from multiview_inpaint_tpu_torch.models import sds_trainer
+        saved = [(m, n, getattr(m, n)) for m, n, _ in self.patches]
+        for m, n, f in self.patches:
+            setattr(m, n, f)
+        try:
+            out = sds_trainer.sds_train_step(*args, **kw)
+            self.torch.cuda.synchronize()
+        finally:
+            for m, n, f in saved:
+                setattr(m, n, f)
+        return out
+
+
+def sds_split(torch, state, args, kw):
+    """Device ms (``cuda_ms``, mean of 3 after a warm-up) of one SDS step
+    and of its parts run alone on the step's inputs: the render forward
+    with the step's leaves, the VAE encode of a 512^2 image forward and
+    forward + backward, the CFG UNet evaluation, Adam; ``rest`` is the
+    step less those (the render backward, the background loss, the
+    resizes, the masked encode)."""
+    from multiview_inpaint_tpu_torch.diffusion.clip_vit import (
+        resize_bilinear)
+    from multiview_inpaint_tpu_torch.models import gs_trainer, sds_trainer
+    from multiview_inpaint_tpu_torch.ops.rasterizer import render
+
+    cam, _, _, bg, cfg, guidance, text = args
+    p = state.params
+    fields, offset = gs_trainer.leaves(p)
+    live = dataclasses.replace(p, **fields)
+
+    def render_fwd():
+        return render(live, cam, bg, means2d_offset=offset, device=DEVICE)
+
+    out = render_fwd()
+    x = resize_bilinear(out.rgb.detach().clamp(0, 1)[None],
+                        (SDS_SIZE, SDS_SIZE)).requires_grad_(True)
+    cot = torch.randn((1, SDS_LATENT, SDS_LATENT, 4), device=DEVICE)
+    x9 = torch.randn((1, SDS_LATENT, SDS_LATENT, 9), device=DEVICE)
+    t = torch.full((1,), 500.0, device=DEVICE)
+    grads = {f: torch.randn_like(v) for f, v in fields.items()}
+
+    def encode_fwd_bwd():
+        torch.autograd.grad(guidance.vae_encode(x), x, cot)
+
+    def cfg_unet():
+        with torch.no_grad():
+            return guidance._eps_cfg(x9, t, text)
+
+    parts = {
+        "step": cuda_ms(torch, lambda: sds_trainer.sds_train_step(
+            state, *args, **kw), 3),
+        "render_fwd": cuda_ms(torch, render_fwd, 3),
+        "vae_encode_fwd": cuda_ms(torch, lambda: guidance.vae_encode(x), 3),
+        "vae_encode_fwd_bwd": cuda_ms(torch, encode_fwd_bwd, 3),
+        "cfg_unet": cuda_ms(torch, cfg_unet, 3),
+        "adam": cuda_ms(torch, lambda: gs_trainer.apply_adam(
+            state, grads, offset.detach(), out.radii, out.visibility, cfg,
+            kw["spatial_lr_scale"]), 3),
+    }
+    parts["rest"] = parts["step"] - sum(
+        v for k, v in parts.items() if k not in ("step", "vae_encode_fwd"))
+    return parts
+
+
+def _sds_scene(s):
+    """Main path 7's SDS cameras (the bds_train views with their box
+    masks) and the training rows (the del PLY + box samples)."""
+    from multiview_inpaint_tpu_torch.gs import obb
+    from multiview_inpaint_tpu_torch.gs import scene as scene_mod
+
+    sc = _rec_scene(s)
+    box = obb.load_obb(s["box"])
+    cams = scene_mod.sds_cameras(sc, box, iteration=1)
+    params = scene_mod.load_sd_ply(
+        os.path.join(s["model"], "point_cloud", "del", "point_cloud.ply"),
+        box, n_samples=REC_SAMPLES, device=DEVICE)
+    return sc, cams, params
+
+
+def phase_sds_step(torch, card, s, sw):
+    """Main path 7: one SDS step at full width on a 1080p bds_train view
+    after a warm-up step on it (``SdsProbe``): K3 against its plain
+    version under the step's own cotangent (``check_k3``), K1 and K2
+    against theirs with the per-item state (``k2_with_state``), the SDS
+    image gradient finite and non-zero inside the mask, the launches of
+    the step, its split and peak memory; returns the densification
+    threshold and the kernels' records."""
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.guidance.sds import resize_nearest
+    from multiview_inpaint_tpu_torch.models import gs_trainer, sds_trainer
+    from multiview_inpaint_tpu_torch.ops.rasterizer import RenderCamera
+
+    sc, cams, params = _sds_scene(s)
+    cam = cams[0]
+    state = gs_trainer.init_state(params)
+    gt = torch.as_tensor(np.asarray(cam.image, np.float32), device=DEVICE)
+    mask = torch.as_tensor(np.asarray(cam.mask, np.float32), device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(33)
+    args = (RenderCamera.from_camera(cam, DEVICE), gt, mask,
+            torch.zeros(3, device=DEVICE), gs_trainer.INPAINT_OPT,
+            sw["guidance"], sw["text"])
+    kw = dict(spatial_lr_scale=sc.cameras_extent, sds_weight=SDS_WEIGHT,
+              sds_size=SDS_SIZE, generator=gen)
+    state, _ = sds_trainer.sds_train_step(state, *args, **kw)   # warm-up
+    _kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    probe = SdsProbe(torch, sw["guidance"])
+    state, m = probe.step(state, *args, **kw)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(_kernels.LAUNCHES)
+    g = probe.img_grad[0]
+    inside = resize_nearest(mask, (SDS_SIZE, SDS_SIZE)) > 0.5
+    g_in = g.abs().amax(dim=-1)[inside]
+    label = f"32 sds step {cam.width}x{cam.height}"
+    k3 = check_k3(torch, card, f"{label} K3", probe.k3_args, probe.gid,
+                  state.params.capacity)
+    k1, k2 = k2_with_state(torch, card, probe, "32", "orbit-sds 1080p")
+    seen = state.stats.denom > 0
+    threshold = float(torch.quantile(state.stats.grad_accum[seen][:2**24],
+                                     REC_DENSIFY_QUANTILE))
+    split = sds_split(torch, state, args, kw)
+    checks = {
+        f"{len(YAWS)} SDS cameras (bds_train views with box masks)":
+        len(cams) == len(YAWS),
+        "K1, K2, K3 once, K4 10 times, K5 never":
+        launches == {"pair_expand": 1, "composite": 1, "composite_bwd": 1,
+                     "flash_attn_fwd": K4_PER_UNET2D_EVAL,
+                     "flash_attn_bwd": 0},
+        "loss finite, no non-finite gradient": bool(
+            torch.isfinite(m.loss)) and int(m.nonfinite_grads) == 0,
+        "SDS image gradient finite": bool(torch.isfinite(g).all()),
+        "SDS image gradient non-zero inside the mask": bool(
+            (g_in > 0).float().mean() > 0.5),
+    }
+    print(f"[{label}] {int(params.num_live())} rows, pairs {m.pairs}, loss "
+          f"{float(m.loss):.6g} (background {float(m.bg_loss):.6g}, SDS "
+          f"{float(m.sds_loss):.6g} x {SDS_WEIGHT}) | launches {launches} | "
+          f"SDS image gradient at {SDS_SIZE}^2: max|g| "
+          f"{float(g.abs().max()):.4g}, share of mask pixels with g != 0 "
+          f"{float((g_in > 0).float().mean()):.4f} | device ms (cuda_ms, "
+          f"the parts run alone) "
+          f"{json.dumps({k: round(v, 3) for k, v in split.items()})} | peak "
+          f"device memory {peak_gb:.2f} GB "
+          f"| densify threshold {threshold:.4g} (the {REC_DENSIFY_QUANTILE} "
+          f"quantile) | {json.dumps(checks)} | {card}", flush=True)
+    if not all(checks.values()):
+        fail(f"main path 7 (SDS step) checks failed: {checks}")
+    del state, probe, params
+    torch.cuda.empty_cache()
+    return threshold, dict(K1=k1, K2=k2, K3=k3)
+
+
+def phase_sds_train(torch, card, s, sw, threshold):
+    """Main path 7: the sds_train CLI (SDS_ITERS steps on the SDS
+    cameras, the prior from the .ckpt), counters zeroed before and read
+    after: K1-K3 once and K4 10 times per step, K5 never; the background
+    loss of the 20 steps before the densification at step 50 below the
+    first 20's (the split right after it repaints the background for
+    the next steps), finite after it; densify ran at step 50 and wrote
+    rows; no non-finite gradient; the PLY written and loaded; median step
+    ms and peak memory. Returns the launches and the model dir."""
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.gs import gaussians
+    from multiview_inpaint_tpu_torch.models import sds_trainer
+    from multiview_inpaint_tpu_torch.pipelines import sds_train
+
+    out = os.path.join(s["work"], "output_sds", s["sid"])
+    shutil.rmtree(out, ignore_errors=True)
+    real, times = sds_trainer.sds_train_step, []
+
+    def step(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = real(*a, **kw)
+        end.record()
+        times.append((start, end))
+        return res
+
+    _kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    sds_trainer.sds_train_step = step
+    t0 = time.perf_counter()
+    try:
+        sds_train.main([
+            "-s", s["src"], "-m", out, "--scene_id", s["sid"],
+            "--bg_model", s["model"], "--bg_iteration", "1", "--workspace",
+            s["ws"], "--registry", s["registry"], "--resolution", "1",
+            "--n_samples", str(REC_SAMPLES), "--iterations", str(SDS_ITERS),
+            "--save_iterations", str(SDS_ITERS), "--sd_ckpt", sw["sd"],
+            "--text_embs", sw["embs"], "--densify_grad_threshold",
+            repr(threshold), "--log_interval", "1", "--device", DEVICE])
+        torch.cuda.synchronize()
+    finally:
+        sds_trainer.sds_train_step = real
+    cli_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(_kernels.LAUNCHES)
+    ms = [a.elapsed_time(b) for a, b in times]
+    with open(os.path.join(out, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    steps = [r for r in log if "bg" in r]
+    densified = [r for r in log if "wanted" in r]
+    ply = os.path.join(out, "point_cloud", f"iteration_{SDS_ITERS}",
+                       "point_cloud.ply")
+    final = gaussians.load_ply(ply, 0, device=DEVICE)
+    bg = [r["bg"] for r in steps]
+    n = 20
+    checks = {
+        "K1-K3 once, K4 10 times per step, K5 never": launches == {
+            "pair_expand": SDS_ITERS, "composite": SDS_ITERS,
+            "composite_bwd": SDS_ITERS,
+            "flash_attn_fwd": K4_PER_UNET2D_EVAL * SDS_ITERS,
+            "flash_attn_bwd": 0},
+        "every step logged": len(steps) == SDS_ITERS == len(ms),
+        f"background loss falls (steps 1-{n} vs the {n} before the "
+        f"densification at {SDS_DENSIFY})": statistics.mean(
+            bg[SDS_DENSIFY - n:SDS_DENSIFY]) < statistics.mean(bg[:n]),
+        "background loss finite after it": all(
+            math.isfinite(v) for v in bg[SDS_DENSIFY:]),
+        f"densify ran at step {SDS_DENSIFY} and wrote rows": [
+            r["step"] for r in densified] == [SDS_DENSIFY] and sum(
+            r["cloned"] + r["split"] for r in densified) > 0,
+        "no non-finite gradient": all(r["nonfinite_grads"] == 0
+                                      for r in steps),
+        "SDS loss finite": all(math.isfinite(r["sds"]) for r in steps),
+        "PLY written and loaded": int(final.num_live()) > 0,
+    }
+    densify = [{k: r[k] for k in ("step", "cloned", "split", "pruned",
+                                  "wanted", "granted", "capacity")}
+               for r in densified]
+    windows = [round(statistics.mean(bg[i:i + 10]), 6)
+               for i in range(0, len(bg), 10)]
+    print(f"[33 main sds_train] sds_train CLI, {SDS_ITERS} steps on the "
+          f"{len(YAWS)} bds_train views at 1920x1080, SD-2-inpainting-width "
+          f"prior from the .ckpt, in {cli_s:.2f} s | launches {launches} | "
+          f"background loss steps 1-{n} {statistics.mean(bg[:n]):.6f}, "
+          f"{SDS_DENSIFY - n + 1}-{SDS_DENSIFY} "
+          f"{statistics.mean(bg[SDS_DENSIFY - n:SDS_DENSIFY]):.6f}, after "
+          f"the densification {statistics.mean(bg[SDS_DENSIFY:]):.6f} (by "
+          f"10 steps {windows}), SDS term median "
+          f"{statistics.median(r['sds'] for r in steps) * SDS_WEIGHT:.5g} "
+          f"(SDS loss x {SDS_WEIGHT}) | step ms (CUDA "
+          f"events) median {statistics.median(ms):.3f}, first {ms[0]:.3f} | "
+          f"densify {densify} | points {steps[-1]['points']} | peak device "
+          f"memory {peak_gb:.2f} GB | {json.dumps(checks)} | {card}",
+          flush=True)
+    if not all(checks.values()):
+        fail(f"main path 7 (sds_train CLI) checks failed: {checks}")
+    return launches, out
+
+
+def _png_stats(paths):
+    arrs = [_png_array(p) for p in paths]
+    return arrs, all(a.max() > a.min() for a in arrs)
+
+
+def phase_sds_depth(torch, card, s, sds_out):
+    """Main path 7: ``gen_seq --sds`` on the sds_train PLY; ``gen_depth
+    --dpt_ckpt`` with a random DPT-large; ``gen_depth`` rendering the
+    disparity, each PNG held against the plain K2 route's disparity on
+    the card. Counters zeroed before each CLI; returns their launches."""
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.config import registries
+    from multiview_inpaint_tpu_torch.gs import gaussians, obb
+    from multiview_inpaint_tpu_torch.gs import scene as scene_mod
+    from multiview_inpaint_tpu_torch.models import dpt
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (RenderCamera,
+                                                            composite)
+    from multiview_inpaint_tpu_torch.pipelines import gen_depth, gen_seq
+
+    common = ["-s", s["src"], "--scene_id", s["sid"], "--workspace",
+              s["ws"], "--registry", s["registry"], "--resolution", "1",
+              "--device", DEVICE]
+    n = len(SEQ_MODES) * SEQ_FRAMES
+    launches, secs = {}, {}
+
+    def run(name, main, argv):
+        _kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        main(argv)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        launches[name] = dict(_kernels.LAUNCHES)
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    run("gen_seq --sds", gen_seq.main, common + [
+        "-m", sds_out, "--iteration", str(SDS_ITERS), "--sds"])
+    seq = os.path.join(s["ws"], "inpaint_sds", "seq", s["sid"])
+    renders = [os.path.join(seq, m, f"ours_{SDS_ITERS}", "renders", f)
+               for m in SEQ_MODES for f in sorted(os.listdir(os.path.join(
+                   seq, m, f"ours_{SDS_ITERS}", "renders")))]
+    _, seq_varied = _png_stats(renders)
+
+    torch.manual_seed(73)
+    model = dpt.DPTDepth(dpt.DPTConfig(), device=DEVICE)
+    perturb_zero_params(torch, model, 73)
+    dpt_path = os.path.join(s["work"], "slice7", "dpt_large.pth")
+    t0 = time.perf_counter()
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               dpt_path)
+    dpt_write_s = time.perf_counter() - t0
+    del model
+    depth_argv = common + ["-m", s["model"], "--sds_model", sds_out,
+                           "--sds_iteration", str(SDS_ITERS)]
+    real_estimate, dpt_ms = dpt.estimate_depth, []
+
+    def estimate(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = real_estimate(*a, **kw)
+        end.record()
+        dpt_ms.append((start, end))
+        return res
+
+    dpt.estimate_depth = estimate
+    try:
+        dpt_peak = run("gen_depth --dpt_ckpt", gen_depth.main, depth_argv
+                       + ["--dpt_ckpt", dpt_path])
+    finally:
+        dpt.estimate_depth = real_estimate
+    dpt_ms = [a.elapsed_time(b) for a, b in dpt_ms]
+    depth_dir = os.path.join(s["ws"], "inpaint", "depth", s["sid"])
+    names = [(m, f) for m in SEQ_MODES
+             for f in sorted(os.listdir(os.path.join(depth_dir, m)))]
+    _, dpt_varied = _png_stats(os.path.join(depth_dir, m, f)
+                               for m, f in names)
+    run("gen_depth", gen_depth.main, depth_argv)
+
+    # The written disparity against the plain K2 route's, frame by frame.
+    registries.load_registry_overrides(s["registry"])
+    sc = scene_mod.Scene(s["src"], s["model"], resolution=1, shuffle=False,
+                         load_gaussians=False)
+    sc.scene_name = s["sid"]
+    o = registries.get_orbit_params(STAGE1_SCENE)
+    params = gaussians.load_ply(os.path.join(
+        sds_out, "point_cloud", f"iteration_{SDS_ITERS}", "point_cloud.ply"),
+        0, device=DEVICE)
+    box = obb.load_obb(s["box"])
+    differ, worst, frames = 0, 0, 0
+    for mode in SEQ_MODES:
+        for view in scene_mod.orbit_cameras(
+                sc.front_view(), box, mode=mode, frames=SEQ_FRAMES,
+                view_range=o.view_range, r_scale=o.r_scale, k_lift=o.k_lift,
+                k_bias=o.k_bias):
+            out = _render_route(torch, params, RenderCamera.from_camera(
+                view, DEVICE), lambda *a: composite.composite_segments(*a))
+            disp = gen_depth.disparity(out.depth.cpu().numpy())
+            want = (np.clip(disp, 0, 1) * 255).astype(np.uint8)
+            got = _png_array(os.path.join(depth_dir, mode,
+                                          f"{view.image_name}.png"))
+            d = np.abs(got[..., 0].astype(int) - want.astype(int))
+            differ += int((d > 0).sum())
+            worst = max(worst, int(d.max()))
+            frames += 1
+    pixels = frames * ORBIT_H * ORBIT_W
+    checks = {
+        "DPT run on every frame": len(dpt_ms) == n,
+        f"gen_seq --sds: K1, K2 {n} times": launches["gen_seq --sds"]
+        == _forward_launches(n),
+        "gen_seq --sds renders not constant": seq_varied,
+        f"gen_depth --dpt_ckpt: K1, K2 {n} times": launches[
+            "gen_depth --dpt_ckpt"] == _forward_launches(n),
+        "DPT depth PNGs not constant": dpt_varied,
+        f"gen_depth: K1, K2 {n} times": launches["gen_depth"]
+        == _forward_launches(n),
+        f"disparity equal to the plain K2 route's on all but "
+        f"{BAD_FRACTION} of pixels, by at most 1 level": frames == n and (
+            differ <= BAD_FRACTION * pixels and worst <= 1),
+    }
+    print(f"[34 main gen_seq --sds, gen_depth] gen_seq --sds on the "
+          f"sds_train PLY ({int(params.num_live())} rows) "
+          f"{secs['gen_seq --sds']:.2f} s; "
+          f"gen_depth --dpt_ckpt (random DPT-large, DPTConfig(), "
+          f"{os.path.getsize(dpt_path) / 2**30:.2f} GiB written in "
+          f"{dpt_write_s:.2f} s) {secs['gen_depth --dpt_ckpt']:.2f} s for "
+          f"{n} frames with the load, DPT ms per frame (CUDA events, "
+          f"estimate_depth) median {statistics.median(dpt_ms or [0]):.2f}, "
+          f"peak {dpt_peak:.2f} GB; gen_depth "
+          f"(rendered disparity) {secs['gen_depth']:.2f} s | disparity vs "
+          f"the plain K2 route: {differ} of {pixels} pixels differ, by at "
+          f"most {worst} | launches {json.dumps(launches)} | "
+          f"{json.dumps(checks)} | {card}", flush=True)
+    os.remove(dpt_path)
+    if not all(checks.values()):
+        fail(f"main path 7 (gen_seq --sds, gen_depth) checks failed: "
+             f"{checks}")
+    return launches
+
+
+def phase_ctrl_inpaint(torch, card, s, sw):
+    """Main path 7: ``ctrl_inpaint`` at full width (``--context_dim 768``,
+    ``--size 512``) from random SD-1.5-size UNet2D + VAE and ControlNet2D
+    checkpoints: 2 samples of 10 UniPC steps, then 1 of DPM++(2M), the
+    counters zeroed before each run: K4 14 times per evaluation, no other
+    kernel; seconds per sample (CUDA events around the sampler), peak
+    memory; the PNGs written and not constant."""
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.diffusion import checkpoint, samplers
+    from multiview_inpaint_tpu_torch.diffusion.unet2d import UNet2DConfig
+    from multiview_inpaint_tpu_torch.pipelines import ctrl_inpaint
+
+    cfg = UNet2DConfig(context_dim=CTRL_CONTEXT)
+    paths = dict(sd=os.path.join(sw["work"], "sd15_inpaint.ckpt"),
+                 ctrl=os.path.join(sw["work"], "control_depth.ckpt"),
+                 embs=os.path.join(sw["work"], "embs_768.npy"))
+    unet = _random_prior(torch, cfg, 74)
+    vae = _random_vae(torch, 75)
+    write_s = _write_ckpt(torch, paths["sd"], (
+        (checkpoint.PREFIXES["unet"], unet), (checkpoint.PREFIXES["vae"],
+                                              vae)))
+    del unet, vae
+    cnet = _random_prior(torch, cfg, 76, controlnet=True)
+    write_s += _write_ckpt(torch, paths["ctrl"], (
+        (checkpoint.PREFIXES["controlnet"], cnet),))
+    del cnet
+    torch.cuda.empty_cache()
+    np.save(paths["embs"], _text_embs(CTRL_CONTEXT, 77))
+    out_dir = os.path.join(s["ws"], "inpaint", "ctrl", s["sid"])
+    runs = {}
+    for sampler, n_samples in (("unipc", 2), ("dpmpp2m", 1)):
+        shutil.rmtree(out_dir, ignore_errors=True)
+        real = getattr(samplers, f"{sampler}_sample")
+        times = []
+
+        def timed(*a, real=real, times=times, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = real(*a, **kw)
+            end.record()
+            times.append((start, end))
+            return res
+
+        _kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        setattr(samplers, f"{sampler}_sample", timed)
+        t0 = time.perf_counter()
+        try:
+            ctrl_inpaint.main([
+                "--scene_id", s["sid"], "--workspace", s["ws"],
+                "--sd_ckpt", paths["sd"], "--ctrl_ckpt", paths["ctrl"],
+                "--text_embs", paths["embs"], "--context_dim",
+                str(CTRL_CONTEXT), "--size", str(SDS_SIZE), "--iteration",
+                "1", "--n_samples", str(n_samples), "--num_steps",
+                str(CTRL_STEPS), "--sampler", sampler, "--device", DEVICE])
+            torch.cuda.synchronize()
+        finally:
+            setattr(samplers, f"{sampler}_sample", real)
+        cli_s = time.perf_counter() - t0
+        pngs = [os.path.join(out_dir, f"ctrl_{i}.png")
+                for i in range(n_samples)]
+        arrs, varied = _png_stats(pngs)
+        runs[sampler] = dict(
+            launches=dict(_kernels.LAUNCHES), cli_s=cli_s,
+            sample_s=[a.elapsed_time(b) / 1e3 for a, b in times],
+            peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+            ok=(sorted(os.listdir(out_dir)) == [os.path.basename(p)
+                                                for p in pngs]
+                and varied and all(a.shape == (SDS_SIZE, SDS_SIZE, 3)
+                                   for a in arrs)),
+            n=n_samples)
+    for p in paths.values():
+        os.remove(p)
+    checks = {}
+    for sampler, r in runs.items():
+        k4 = K4_PER_CTRL_EVAL * CTRL_STEPS * r["n"]
+        checks[f"{sampler}: K4 {k4} times ({K4_PER_CTRL_EVAL} per "
+               f"evaluation), no other kernel"] = r["launches"] == {
+            "pair_expand": 0, "composite": 0, "composite_bwd": 0,
+            "flash_attn_fwd": k4, "flash_attn_bwd": 0}
+        checks[f"{sampler}: {r['n']} PNGs at {SDS_SIZE}^2, not constant"] = \
+            r["ok"]
+    print(f"[35 main ctrl_inpaint] ctrl_inpaint CLI at full width "
+          f"(UNet2DConfig(context_dim={CTRL_CONTEXT}) + ControlNet2D + 2D "
+          f"VAE, "
+          f"random, all-zero parameters moved; checkpoints written in "
+          f"{write_s:.2f} s), --size {SDS_SIZE}, {CTRL_STEPS} steps, CFG "
+          f"batch 2 | "
+          + " | ".join(
+              f"{k}: {r['n']} samples in {r['cli_s']:.2f} s with the loads, "
+              f"s per sample (sampler, CUDA events) "
+              f"{[round(t, 3) for t in r['sample_s']]}, peak "
+              f"{r['peak_gb']:.2f} GB, launches {r['launches']}"
+              for k, r in runs.items())
+          + f" | {json.dumps(checks)} | {card}", flush=True)
+    if not all(checks.values()):
+        fail(f"main path 7 (ctrl_inpaint CLI) checks failed: {checks}")
+    return {k: r["launches"] for k, r in runs.items()}
+
+
 def main():
     import torch
 
@@ -3245,7 +4011,7 @@ def main():
     launches = phase_main(torch, card)
     launches_train, k3 = phase_train(torch, card)
     phase_step_time(torch, card)
-    k4 = phase_k4(torch, card)
+    k4 = phase_k4(torch, card)[0]
     phase_svd_engine(torch)
     launches_svd, probe = phase_svd_main(torch, card)
     phase_svd_eval(torch, card, probe)
@@ -3265,11 +4031,32 @@ def main():
     phase_seg_ground(torch, card, stage1)
     threshold, rec = phase_stage2_step(torch, card, stage1)
     launches_rec = phase_inpaint_rec(torch, card, stage1, threshold)
+    sw = phase_slice7_setup(torch, card, stage1)
+    k4_2d = phase_k4(torch, card, K4_2D_SHAPES, "30")
+    phase_unet2d_eval(torch, card, sw)
+    threshold7, sds = phase_sds_step(torch, card, stage1, sw)
+    del sw["guidance"]
+    torch.cuda.empty_cache()
+    launches_sds, sds_out = phase_sds_train(torch, card, stage1, sw,
+                                            threshold7)
+    launches7 = [launches_sds, *phase_sds_depth(
+        torch, card, stage1, sds_out).values(), *phase_ctrl_inpaint(
+        torch, card, stage1, sw).values()]
+    os.remove(sw["sd"])
 
     def path6(name, key):
         """Main path 6's launches and its orbit-rec times of one kernel."""
         return dict(launches=launches_rec[name],
                     orbit_rec={kind: r[key] for kind, r in rec.items()})
+
+    def path7(name, key=None):
+        """Main path 7's launches (every CLI's) and its times of one
+        kernel: K1-K3 at the SDS step's 1080p view, K4 at the UNet2D's
+        ds1 and ds2 shapes."""
+        out = dict(launches=sum(n[name] for n in launches7))
+        if key is None:
+            return dict(out, unet2d_ds1=k4_2d[0], unet2d_ds2=k4_2d[1])
+        return dict(out, orbit_sds=sds[key])
 
     k1, k2 = frames["big2m"]   # the render main path's scene and shapes
     kernels = [
@@ -3278,26 +4065,30 @@ def main():
              replaces="multiview_inpaint_tpu/ops/rasterizer/"
                       "pair_expand.py:92",
              launches=launches["pair_expand"], **k1,
-             main_path_6=path6("pair_expand", "K1")),
+             main_path_6=path6("pair_expand", "K1"),
+             main_path_7=path7("pair_expand", "K1")),
         dict(name="composite", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/composite.cu",
              replaces="multiview_inpaint_tpu/ops/rasterizer/"
                       "pallas_composite.py:75",
              launches=launches["composite"], **k2,
-             main_path_6=path6("composite", "K2")),
+             main_path_6=path6("composite", "K2"),
+             main_path_7=path7("composite", "K2")),
         # K3 at the first step of main path 2, the path that runs it.
         dict(name="composite_bwd", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/composite_bwd.cu",
              replaces="multiview_inpaint_tpu/ops/rasterizer/"
                       "pallas_backward.py:54",
              launches=launches_train["composite_bwd"], **k3,
-             main_path_6=path6("composite_bwd", "K3")),
+             main_path_6=path6("composite_bwd", "K3"),
+             main_path_7=path7("composite_bwd", "K3")),
         # K4 at the ds1 shape of main path 3, the path that runs it.
         dict(name="flash_attn_fwd", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="multiview_inpaint_tpu/diffusion/"
                       "flash_attention.py:55",
-             launches=launches_svd["flash_attn_fwd"], **k4),
+             launches=launches_svd["flash_attn_fwd"], **k4,
+             main_path_7=path7("flash_attn_fwd")),
         # K5 at the ds1 shape of main path 4, the path that runs it; one
         # launch is the dk/dv kernel and the dq kernel back to back.
         dict(name="flash_attn_bwd", route="cuda",
@@ -3306,7 +4097,7 @@ def main():
                       "flash_attention.py:117",
              launches=launches_svd_train["flash_attn_bwd"], **k5),
     ]
-    print(f"[30 done] all phases passed in "
+    print(f"[36 done] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,19 @@ Each component's keys carry its reference prefix (``PREFIXES``), as in
 the SVD checkpoint and the ControlNet checkpoints; ``SVDEngine
 .load_reference_state_dict`` reads them. The OpenCLIP text tower
 (``clip_text.CLIPTextTower``) is the component ``clip_text``, under the
-SD2 text conditioner's prefix (``TEXT_PREFIX``); no engine holds it.
+SD2 text conditioner's prefix (``TEXT_PREFIX``); no engine holds it. The
+2D networks of SDS and ``ctrl_inpaint`` are the components ``unet2d``
+(``unet2d.UNet2D``), ``controlnet2d`` (``controlnet2d.ControlNet2D``) and
+``vae2d`` (``vae.AutoencoderKL(video_decoder=False)``), under the UNet's,
+the ControlNet's and the VAE's prefixes; they differ from ``unet``,
+``controlnet`` and ``vae`` only on the way back to JAX, where the video
+networks' ResBlocks and decoder blocks gain a ``spatial`` level and the
+2D ones do not. (``models/dpt.state_dict_from_jax`` carries the DPT depth
+network, in the HF key space.)
+
+``import_state_dict`` loads a torch state dict into a module, tolerantly,
+and returns the missing and unexpected keys: the counterpart of the JAX
+``weights_io.import_unet``/``import_vae``/``import_controlnet``.
 
 ``state_dict_to_jax`` goes the other way, with the JAX package's own key
 maps (``weights_io._map_unet_key``, ``_map_vae_key``, ``_map_clip_tower``,
@@ -52,6 +64,11 @@ PREFIXES = {
 }
 TEXT_PREFIX = "cond_stage_model.model."
 _COMPONENTS = dict(PREFIXES, clip_text=TEXT_PREFIX)
+# The 2D networks share the video networks' prefixes; ``state_dict_to_jax``
+# takes them only when named.
+_COMPONENTS_2D = {"unet2d": PREFIXES["unet"],
+                  "controlnet2d": PREFIXES["controlnet"],
+                  "vae2d": PREFIXES["vae"]}
 
 _VAE_RULES = [
     (re.compile(r"^down_(\d+)_block_(\d+)$"), r"down.\1.block.\2"),
@@ -155,16 +172,17 @@ def state_dict_from_jax(flat: Dict[str, np.ndarray],
 
     ``flat`` keys start with the engine component (``unet/``,
     ``controlnet/``, ``vae/``, ``clip/``: the layout of a saved engine
-    state; or ``clip_text/``) unless ``component`` names the one component
-    they all belong to (a ControlNet checkpoint is
-    ``component="controlnet"``)."""
+    state; or ``clip_text/``, ``unet2d/``, ``controlnet2d/``, ``vae2d/``)
+    unless ``component`` names the one component they all belong to (a
+    ControlNet checkpoint is ``component="controlnet"``)."""
+    names = dict(_COMPONENTS, **_COMPONENTS_2D)
     groups: Dict[str, Dict[str, np.ndarray]] = {}
     for path, arr in flat.items():
         if component is None:
             comp, _, rest = path.partition("/")
         else:
             comp, rest = component, path
-        if comp not in _COMPONENTS:
+        if comp not in names:
             raise KeyError(f"{path}: unknown engine component {comp!r}")
         groups.setdefault(comp, {})[rest] = np.asarray(arr)
     out: Dict[str, torch.Tensor] = {}
@@ -172,16 +190,41 @@ def state_dict_from_jax(flat: Dict[str, np.ndarray],
         if comp in ("clip", "clip_text"):
             sd = _clip_state_dict(sub)
         else:
-            key_of = _vae_key if comp == "vae" else _unet_key
+            key_of = _vae_key if comp in ("vae", "vae2d") else _unet_key
             sd = {}
             for path, arr in sub.items():
                 *body, leaf = path.split("/")
                 leaf, arr = _leaf(leaf, arr)
                 sd[f"{key_of(body)}.{leaf}"] = arr
         for k, v in sd.items():
-            out[_COMPONENTS[comp] + k] = torch.from_numpy(
+            out[names[comp] + k] = torch.from_numpy(
                 np.ascontiguousarray(v))
     return out
+
+
+def import_state_dict(module: torch.nn.Module, state_dict: Dict,
+                      prefix: str = "") -> Tuple[list, list]:
+    """Load the entries of ``state_dict`` under ``prefix`` (stripped) into
+    ``module`` in place, tolerantly: returns (missing, unexpected), the
+    module keys nothing filled and the entries with no module key of
+    their shape, as the JAX ``weights_io`` importers report them. Values
+    are copied into the module's own device and type."""
+    own = module.state_dict()
+    missing = set(own)
+    unexpected = []
+    with torch.no_grad():
+        for k, v in state_dict.items():
+            if not k.startswith(prefix):
+                continue
+            name = k[len(prefix):]
+            if name in own and tuple(own[name].shape) == tuple(v.shape):
+                own[name].copy_(torch.as_tensor(v))
+                missing.discard(name)
+            else:
+                unexpected.append(name if name not in own else
+                                  f"{name} shape {tuple(v.shape)} vs "
+                                  f"{tuple(own[name].shape)}")
+    return sorted(missing), unexpected
 
 
 def read_state_dict(path: str, component: Optional[str] = None
@@ -236,8 +279,10 @@ def _in_transformer(out) -> bool:
                for p in out)
 
 
-def _map_unet_key(key: str):
-    """torch VideoUNet key (no prefix) -> flax path components."""
+def _map_unet_key(key: str, video: bool = True):
+    """torch UNet key (no prefix) -> flax path components; ``video=False``
+    maps the 2D UNet, whose ResBlock parameters sit at block level
+    instead of under ``spatial``."""
     for pat, repl in _UNET_RULES:
         key = pat.sub(repl, key)
     parts = key.split(".")
@@ -248,7 +293,8 @@ def _map_unet_key(key: str):
         tok = name[i]
         if tok in ("in_layers", "emb_layers", "out_layers"):
             idx = name[i + 1]
-            if "time_stack" not in out and not _in_transformer(out):
+            if video and "time_stack" not in out and \
+                    not _in_transformer(out):
                 if not out or out[-1] != "spatial":
                     out.append("spatial")
             out.append(f"{tok}_{idx}")
@@ -258,7 +304,7 @@ def _map_unet_key(key: str):
             i += 2
             continue
         if tok == "skip_connection":
-            if "time_stack" not in out:
+            if video and "time_stack" not in out:
                 out.append("spatial")
             out.append(tok)
             i += 1
@@ -302,12 +348,12 @@ def _map_unet_key(key: str):
     return out + [leaf]
 
 
-def _map_controlnet_key(key: str):
+def _map_controlnet_key(key: str, video: bool = True):
     for head in ("input_hint_block.", "zero_convs.", "middle_block_out."):
         if key.startswith(head):
             *body, leaf = key.split(".")
             return ["_".join(body), "kernel" if leaf == "weight" else leaf]
-    return ["trunk"] + _map_unet_key(key)
+    return ["trunk"] + _map_unet_key(key, video)
 
 
 _TO_JAX_VAE_RULES = [
@@ -329,14 +375,15 @@ _TO_JAX_VAE_TIME_STACK = [
 ]
 
 
-def _map_vae_key(key: str):
-    """torch KL-VAE key (video decoder) -> flax path components."""
+def _map_vae_key(key: str, video_decoder: bool = True):
+    """torch KL-VAE key -> flax path components (the video decoder's
+    spatial block parameters under ``spatial``)."""
     for pat, repl in _TO_JAX_VAE_RULES:
         key = pat.sub(repl, key)
     for old, new in _TO_JAX_VAE_TIME_STACK:
         key = key.replace(old, new)
     *body, leaf = key.split(".")
-    if body and body[0] == "decoder":
+    if video_decoder and body and body[0] == "decoder":
         blockish = len(body) > 1 and (
             body[1].startswith("mid_block") or "_block_" in body[1])
         if blockish and len(body) > 2 and body[2] in (
@@ -425,18 +472,25 @@ def state_dict_to_jax(sd: Dict[str, torch.Tensor],
     ``"<component>/a/b/c"``, or ``"a/b/c"`` when ``component`` names the
     one component to take (the layout of a ControlNet checkpoint). bf16
     tensors come out as f32 (exact). ``clip_heads`` is the head count of
-    the CLIP tower at hand (the text tower's with ``clip_text``)."""
+    the CLIP tower at hand (the text tower's with ``clip_text``). The 2D
+    components (``unet2d``, ``controlnet2d``, ``vae2d``) are taken only
+    when ``component`` names one."""
     out: Dict[str, np.ndarray] = {}
-    for comp, prefix in _COMPONENTS.items():
-        if component is not None and comp != component:
-            continue
+    comps = (_COMPONENTS if component is None else
+             {component: dict(_COMPONENTS, **_COMPONENTS_2D)[component]})
+    for comp, prefix in comps.items():
         sub = {k[len(prefix):]: _numpy(v) for k, v in sd.items()
                if k.startswith(prefix)}
         if comp in ("clip", "clip_text"):
             flat = _clip_to_jax(sub, clip_heads)
         else:
-            key_map = {"unet": _map_unet_key, "vae": _map_vae_key,
-                       "controlnet": _map_controlnet_key}[comp]
+            key_map = {
+                "unet": _map_unet_key, "vae": _map_vae_key,
+                "controlnet": _map_controlnet_key,
+                "unet2d": lambda k: _map_unet_key(k, video=False),
+                "vae2d": lambda k: _map_vae_key(k, video_decoder=False),
+                "controlnet2d": lambda k: _map_controlnet_key(
+                    k, video=False)}[comp]
             flat = {"/".join(key_map(k)): _jax_layout(v)
                     for k, v in sub.items()}
         lead = "" if component is not None else comp + "/"

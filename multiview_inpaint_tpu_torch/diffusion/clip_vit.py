@@ -61,13 +61,14 @@ def _triangle(x: torch.Tensor) -> torch.Tensor:
 
 
 def _resize_weights(n_in: int, n_out: int, device,
-                    kernel=_keys_cubic) -> torch.Tensor:
+                    kernel=_keys_cubic, antialias: bool = True
+                    ) -> torch.Tensor:
     """[n_in, n_out] weights of ``jax.image.resize`` along one axis
     (``scale_and_translate``: half-pixel centres, ``kernel`` widened by the
-    downscale factor, columns normalised): ``_keys_cubic`` for "bicubic",
-    ``_triangle`` for "bilinear"."""
+    downscale factor unless ``antialias`` is off, columns normalised):
+    ``_keys_cubic`` for "bicubic", ``_triangle`` for "bilinear"."""
     inv_scale = 1.0 / (n_out / n_in)   # as JAX rounds it
-    kernel_scale = max(inv_scale, 1.0)
+    kernel_scale = max(inv_scale, 1.0) if antialias else 1.0
     sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5
               ) * inv_scale - 0.5
     pos = torch.arange(n_in, dtype=torch.float32, device=device)
@@ -80,13 +81,16 @@ def _resize_weights(n_in: int, n_out: int, device,
     return torch.where(inside[None, :], w, torch.zeros_like(w))
 
 
-def _resize(x: torch.Tensor, size, kernel) -> torch.Tensor:
+def _resize(x: torch.Tensor, size, kernel,
+            antialias: bool = True) -> torch.Tensor:
     """[B, H, W, C] -> [B, h, w, C]; an axis whose size does not change is
-    left as it is, as ``jax.image.resize`` leaves it."""
+    left as it is, as ``jax.image.resize`` leaves it. Differentiable: the
+    backward applies the same weights transposed."""
     for axis, n_out in ((1, size[0]), (2, size[1])):
         n_in = x.shape[axis]
         if n_in != n_out:
-            w = _resize_weights(n_in, n_out, x.device, kernel).to(x.dtype)
+            w = _resize_weights(n_in, n_out, x.device, kernel,
+                                antialias).to(x.dtype)
             x = torch.tensordot(x.movedim(axis, -1), w, dims=1).movedim(
                 -1, axis)
     return x

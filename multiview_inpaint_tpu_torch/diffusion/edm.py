@@ -1,5 +1,5 @@
-"""EDM math: the Karras sigma ladder, the denoiser scalings, ``denoise``,
-sigma sampling and loss weighting.
+"""EDM math: the Karras sigma ladder, the legacy DDPM ladder, the denoiser
+scalings, ``denoise``, sigma sampling and loss weighting.
 
 Counterpart of ``multiview_inpaint_tpu/diffusion/edm.py`` (the
 reference's ``discretizer.py`` EDMDiscretization(0.002, 700, rho 7),
@@ -21,6 +21,35 @@ def edm_sigmas(n: int, sigma_min: float = 0.002, sigma_max: float = 700.0,
     min_r = sigma_min ** (1 / rho)
     max_r = sigma_max ** (1 / rho)
     return (max_r + ramp * (min_r - max_r)) ** rho
+
+
+def ddpm_alphas_cumprod(num_timesteps: int = 1000,
+                        linear_start: float = 0.00085,
+                        linear_end: float = 0.012, device=None
+                        ) -> torch.Tensor:
+    """The scaled-linear DDPM schedule's cumulative alphas
+    [num_timesteps]: betas on a linear ramp of their square roots, the
+    running product of 1 - beta, computed in f64 and rounded once to f32
+    (an f32 running product drifts by ~1e-6 relative over 1000
+    factors)."""
+    betas = torch.linspace(linear_start ** 0.5, linear_end ** 0.5,
+                           num_timesteps, dtype=torch.float64) ** 2
+    return torch.cumprod(1.0 - betas, 0).float().to(device)
+
+
+def legacy_ddpm_sigmas(n: int, num_timesteps: int = 1000,
+                       linear_start: float = 0.00085,
+                       linear_end: float = 0.012, device=None
+                       ) -> torch.Tensor:
+    """n f32 sigmas sqrt((1 - acp) / acp), descending, sampled at n evenly
+    rounded indices of the DDPM schedule (the reference's
+    LegacyDDPMDiscretization)."""
+    acp = ddpm_alphas_cumprod(num_timesteps, linear_start, linear_end,
+                              device)
+    all_sigmas = torch.sqrt((1 - acp) / acp)
+    idx = torch.round(torch.linspace(0, num_timesteps - 1, n,
+                                     dtype=torch.float64)).long()
+    return torch.flip(all_sigmas[idx.to(all_sigmas.device)], (0,))
 
 
 # --- denoiser scalings: return (c_skip, c_out, c_in, c_noise) -----------

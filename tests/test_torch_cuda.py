@@ -581,3 +581,65 @@ def test_cuda_foreach_adam_and_ema_equal_per_tensor_ops():
             assert torch.equal(params[k], ref[k]), k
             assert torch.equal(state["mu"][k], mu[k]), k
             assert torch.equal(ema[k], ema_ref[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_unet2d_and_controlnet2d_match_cpu():
+    """The tiny UNet2D and ControlNet2D of ``ctrl_inpaint --tiny`` at a
+    64x64 latent (ds1 self-attention at T = 4096, 2 heads of 16: K4 on
+    the card) on CUDA against the same weights on the CPU (plain
+    attention), f32 with TF32 off, every leaf moved off its init: K4
+    launched 6 times on the card (the ds1 encoder block and the middle
+    block at T = 1024 in the trunk and in the UNet, and the UNet's two
+    ds1 decoder blocks), none on the CPU; eps within chip_smoke.py's
+    denoiser bar, 0.018 relative rms."""
+    _require_cuda()
+    import argparse
+
+    from multiview_inpaint_tpu_torch import kernels
+    from multiview_inpaint_tpu_torch.pipelines import ctrl_inpaint
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg, _ = ctrl_inpaint.configs(argparse.Namespace(tiny=True,
+                                                         context_dim=16))
+        from multiview_inpaint_tpu_torch.diffusion.controlnet2d import (
+            ControlNet2D)
+        from multiview_inpaint_tpu_torch.diffusion.unet2d import UNet2D
+        torch.manual_seed(0)
+        nets = {"cpu": (UNet2D(cfg), ControlNet2D(cfg))}
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for net in nets["cpu"]:
+                for p in net.parameters():
+                    p.add_(0.05 * torch.randn(p.shape, generator=gen))
+        nets["cuda"] = tuple(UNet2D(cfg, device="cuda") if i == 0 else
+                             ControlNet2D(cfg, device="cuda")
+                             for i in range(2))
+        for a, b in zip(nets["cpu"], nets["cuda"]):
+            b.load_state_dict(a.state_dict())
+        rng = np.random.default_rng(2)
+        x = torch.from_numpy(rng.normal(size=(2, 64, 64, 9)).astype(
+            np.float32))
+        hint = torch.from_numpy(rng.uniform(0, 1, (2, 512, 512, 3)).astype(
+            np.float32))
+        ctx = torch.from_numpy(rng.normal(size=(2, 4, 16)).astype(
+            np.float32))
+        t = torch.tensor([17.0, 503.0])
+        outs = {}
+        for dev, (unet, cnet) in nets.items():
+            kernels.reset_launches()
+            with torch.no_grad():
+                args = [v.to(dev) for v in (x, t, ctx)]
+                ctrl = cnet(args[0], hint.to(dev), args[1], args[2])
+                outs[dev] = (unet(*args, control=ctrl).cpu(),
+                             kernels.LAUNCHES["flash_attn_fwd"])
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    (a, n_cpu), (b, n_gpu) = outs["cpu"], outs["cuda"]
+    assert (n_cpu, n_gpu) == (0, 6)
+    rms = float((b - a).pow(2).mean().sqrt() / a.pow(2).mean().sqrt())
+    assert rms <= 0.018, rms
