@@ -81,7 +81,9 @@ non-zero:
     max|plain| (0.02), bit-equal on a second run and equal to K4 on the
     folded [B*H, T, D] layout, kernel, plain and bound ms, achieved
     TFLOP/s, and PyTorch's ``scaled_dot_product_attention`` timed as a
-    yardstick (the port never calls it) with the kernel/SDPA factor;
+    yardstick (the port never calls it) with the kernel/SDPA factor, on
+    the inputs and on the operands rounded to bf16 (as K4 stages f32
+    operands);
 13. the tiny SVD engine (``svd_test --tiny_model``, 3 frames at 64x48)
     on CUDA against the CPU with the same weights (every all-zero
     parameter moved) and noise, f32 with TF32 off: conditioning, one
@@ -231,14 +233,42 @@ non-zero:
     ``.ckpt`` files: 2 samples of 10 UniPC steps, then 1 of DPM++(2M):
     K4 14 times per evaluation and no other kernel, s per sample, peak
     memory, the PNGs not constant;
-36. the ``kernels`` JSON line (K1 and K2 at main path 1's big2m frame, K3
+36. main path 8 (slice 8, evaluation) on main paths 5 and 6's workspace:
+    the ``render`` CLI on main path 6's recomposed PLY and on main path
+    5's source PLY at 10 bench views (1920x1080), counters zeroed before
+    each run (K1 and K2 once per view, K3-K5 never), the frames moved into
+    ``vis/cmp/<exp>/{inpainted,src}/<scene>/ours_<iter>/renders``; the
+    median ms per view of the recomposed PLY and phases 3-5's checks and
+    times of K1-K3 at its first view;
+37. the ``cmp`` CLI (``--n_frame 10``) on that tree with random full-width
+    MUSIQ (2,153 tokens per frame) and WaDIQaM-NR npz files, counters
+    zeroed before (no launches): sharpness, musiq, wadiqam and
+    psnr_vs_src finite for the scene and in ``mean``; MUSIQ and WaDIQaM on
+    one 1080p frame and LPIPS at full VGG16 on a [4, 512, 512, 3] pair on
+    the card within 1e-4 relative of the CPU; ms per frame and peak
+    memory;
+38. one ``vae_finetune --tiny`` step (every term on, LPIPS included) on
+    CUDA against the CPU from the same weights and noise: logs within
+    1e-5 relative, gradients at the gradient bar (plus 2e-7 of the
+    network's largest), parameters within 2e-6 + 1e-4 max|update| or
+    Adam's sign-flip allowance;
+39. main path 9 (slice 9b): the ``vae_finetune`` CLI at full width
+    (``VAEConfig()``, the ndf-64 3-layer discriminator, a random full VGG16
+    LPIPS npz) on main path 5's 28 gen_seq frames at 256^2, batch 4, 20
+    steps, ``--disc_start 5``, counters zeroed before (no launches): every
+    log finite, ``loss/disc`` 0 before step 5 and not after, both npz files
+    read back equal; median ms per step and peak memory;
+40. the ``kernels`` JSON line (K1 and K2 at main path 1's big2m frame, K3
     at main path 2's first step, K4 at main path 3's ds1 shape, K5 at main
     path 4's ds1 shape; K4 and K5 also carry ``vs_library``, kernel ms over
-    SDPA ms; K1-K3 also carry ``main_path_6``: its launches and its
-    orbit-rec times and bounds at both step shapes; K1-K4 carry
+    SDPA ms, and K4 ``library_bf16_ms``/``vs_library_bf16``, SDPA on the
+    bf16-rounded operands; K1-K3 also carry ``main_path_6``: its launches
+    and its orbit-rec times and bounds at both step shapes; K1-K4 carry
     ``main_path_7``: its launches over all its CLIs, K1-K3's times and
-    bounds at the SDS step's view, K4's at the UNet2D's ds1 and ds2); the
-    last line is the ``ok`` JSON object.
+    bounds at the SDS step's view, K4's at the UNet2D's ds1 and ds2; K1
+    and K2 carry ``main_path_8``: its launches and their times and bounds
+    at the recomposed PLY's first view); the last line is the ``ok`` JSON
+    object.
 
 Build outputs and the scenes go under ``build/`` in the checkout.
 """
@@ -426,6 +456,27 @@ K4_2D_SHAPES = ((2, 4096, 5, 64, "float32"), (2, 1024, 10, 64, "float32"))
 K4_PER_UNET2D_EVAL, K4_PER_CTRL_EVAL = 10, 14
 CTRL_CONTEXT, CTRL_STEPS = 768, 10
 TEXT_TOKENS = 8
+
+
+# Main path 8 (slice 8, evaluation) on main paths 5 and 6's workspace: the
+# render CLI writes main path 6's recomposed PLY and main path 5's source
+# PLY at the 10 bench views of CMP_YAWS (1920x1080) into the layout cmp
+# reads, vis/cmp/<CMP_EXP>/{inpainted,src}/<scene>/ours_<REC_ITERS>/renders,
+# and cmp scores every frame with random full-width MUSIQ (MUSIQConfig():
+# 2,153 tokens per 1080p frame) and WaDIQaM-NR. Bars: MUSIQ and WaDIQaM on
+# one 1080p frame, and LPIPS at full VGG16 on an LPIPS_SHAPE pair, on the
+# card within METRIC_REL_TOL relative of the same weights on the CPU (f32
+# sums in another order, TF32 off).
+CMP_YAWS = tuple(round(-0.12 + 0.03 * i, 2) for i in range(10))
+CMP_EXP, METRIC_REL_TOL, LPIPS_SHAPE = "smoke", 1e-4, (4, 512, 512, 3)
+# Main path 9 (slice 9b): vae_finetune at full width (VAEConfig(), the
+# ndf-64 3-layer PatchDiscriminator) on main path 5's 28 gen_seq frames at
+# VAE_RES^2, batch VAE_BATCH, the perceptual term through a random full
+# VGG16 LPIPS, VAE_STEPS steps, the adversarial terms gated on from step
+# VAE_DISC_START. Before it, one --tiny step on the card against the CPU:
+# the logs within VAE_STEP_REL_TOL relative.
+VAE_RES, VAE_BATCH, VAE_STEPS, VAE_DISC_START = 256, 4, 20, 5
+VAE_STEP_REL_TOL = 1e-5
 
 
 # ``cuda_ms`` sleeps the device this long per timed call before starting
@@ -1543,13 +1594,21 @@ def phase_k4(torch, card, shapes=K4_SHAPES, label="12"):
                           for x in (q, k, v))
             lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, scale=scale), 20)
+            # K4 rounds f32 operands to bf16 as it stages them: SDPA on the
+            # bf16-rounded operands is the like-for-like yardstick
+            qb, kb, vb = (x.to(torch.bfloat16) for x in (qh, kh, vh))
+            lib_bf16_ms = cuda_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qb, kb, vb, scale=scale), 20)
         flop = 4 * b * h * t * t * d
         t_ops = max(flop / BF16_FLOP_PER_S, b * h * t * t / SFU_OP_PER_S)
         t_bytes = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S
         rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=max(t_ops, t_bytes) * 1e3,
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   library_ms=lib_ms, vs_library=ms / lib_ms)
+                   library_ms=lib_ms, vs_library=ms / lib_ms,
+                   library_bf16_ms=lib_bf16_ms,
+                   vs_library_bf16=ms / lib_bf16_ms)
         records.append(rec)
         print(f"[{label} K4 {dtype} [{b}, {t}, {h}*{d}], {h} heads] max abs "
               f"err "
@@ -1560,7 +1619,9 @@ def phase_k4(torch, card, shapes=K4_SHAPES, label="12"):
               f"{plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}, {rec['bound_ms'] / ms:.3f} of it), SDPA "
               f"{lib_ms:.4f} ms (yardstick only), kernel/SDPA "
-              f"{ms / lib_ms:.3f}x | {card}", flush=True)
+              f"{ms / lib_ms:.3f}x, SDPA on the bf16-rounded operands "
+              f"{lib_bf16_ms:.4f} ms, kernel/that {ms / lib_bf16_ms:.3f}x "
+              f"| {card}", flush=True)
         if not (torch.isfinite(out).all() and equal and same_folded
                 and err <= K4_ABS_TOL and rel <= K4_REL_TOL):
             fail(f"K4 disagrees with its plain version at [{b}, {t}, "
@@ -3987,6 +4048,417 @@ def phase_ctrl_inpaint(torch, card, s, sw):
     return {k: r["launches"] for k, r in runs.items()}
 
 
+def _rec_ply(s):
+    """Main path 6's recomposed PLY (the ``inpaint_rec`` CLI's output)."""
+    return os.path.join(s["work"], "output_rec", s["sid"], "ctrl_0",
+                        "point_cloud", f"iteration_{REC_ITERS}",
+                        "point_cloud.ply")
+
+
+def phase_cmp_render(torch, card, s, rec_ply=None):
+    """Main path 8, its renders: the ``render`` CLI on main path 6's
+    recomposed PLY and on main path 5's source PLY at the CMP_YAWS views
+    of the bench COLMAP scene (1920x1080), counters zeroed before each
+    run: K1 and K2 once per view, K3-K5 never; the frames moved into the
+    layout ``cmp`` reads, ``vis/cmp/<exp>/{inpainted,src}/<scene>/
+    ours_<iter>/renders`` (the inpainted scene is ``<scene>_<case>``,
+    whose source ``cmp`` finds as ``<scene>``). Then the median device ms
+    per view of the recomposed PLY (CUDA events, after one warm-up view)
+    and phases 3-5's checks and times of K1-K3 at its first view. Returns
+    the tree's root, the launches of both runs and K1's and K2's records
+    there."""
+    from PIL import Image
+
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.gs import gaussians
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (RenderCamera,
+                                                            render)
+    from multiview_inpaint_tpu_torch.pipelines import render as render_cli
+    from multiview_inpaint_tpu_torch.utils import synthetic
+
+    rec_ply = rec_ply or _rec_ply(s)
+    work = os.path.join(s["work"], "cmp")
+    shutil.rmtree(work, ignore_errors=True)
+    src = os.path.join(work, "scene")
+    names = synthetic.write_bench_colmap_scene(src, CMP_YAWS)
+    root = os.path.join(work, "vis", "cmp", CMP_EXP)
+    runs = {}
+    for kind, scene, ply in (("inpainted", s["sid"], rec_ply),
+                             ("src", STAGE1_SCENE, s["ply"])):
+        model = os.path.join(work, "models", kind)
+        dst = os.path.join(model, "point_cloud", f"iteration_{REC_ITERS}",
+                           "point_cloud.ply")
+        os.makedirs(os.path.dirname(dst))
+        shutil.copy(ply, dst)
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        render_cli.main(["-s", src, "-m", model, "--iteration",
+                         str(REC_ITERS), "--resolution", "1", "--skip_test",
+                         "--device", DEVICE])
+        torch.cuda.synchronize()
+        out = os.path.join(root, kind, scene, f"ours_{REC_ITERS}")
+        os.makedirs(os.path.dirname(out))
+        shutil.move(os.path.join(model, "train", f"ours_{REC_ITERS}"), out)
+        pngs = sorted(os.listdir(os.path.join(out, "renders")))
+        shapes_ok = True
+        for p in pngs:
+            with Image.open(os.path.join(out, "renders", p)) as im:
+                arr = np.asarray(im)
+            shapes_ok &= bool(arr.shape == (synthetic.BENCH_HEIGHT,
+                                            synthetic.BENCH_WIDTH, 3)
+                              and arr.std() > 0)
+        runs[kind] = dict(s=time.perf_counter() - t0,
+                          launches=dict(_kernels.LAUNCHES), pngs=len(pngs),
+                          ok=shapes_ok)
+    params = gaussians.load_ply(rec_ply, 0, device=DEVICE)
+    cams = [RenderCamera.from_camera(synthetic.bench_camera(y), DEVICE)
+            for y in CMP_YAWS]
+    bg = torch.zeros(3, device=DEVICE)
+    times = []
+    with torch.no_grad():
+        render(params, cams[0], bg, device=DEVICE)          # warm-up view
+        for c in cams:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            render(params, c, bg, device=DEVICE)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+    checks = {}
+    for kind, r in runs.items():
+        checks[f"{kind}: K1 and K2 once per view ({len(names)}), K3-K5 "
+               f"0"] = r["launches"] == _forward_launches(len(names))
+        checks[f"{kind}: {len(names)} PNGs at the views' size, not "
+               f"constant"] = (
+            r["pngs"] == len(names) and r["ok"])
+    print(f"[36 main cmp render] render CLI on main path 6's recomposed PLY "
+          f"({params.capacity} rows) and main path 5's source PLY at "
+          f"{len(names)} bench views ({synthetic.BENCH_WIDTH}x"
+          f"{synthetic.BENCH_HEIGHT}) into {root} | "
+          + " | ".join(f"{k}: {r['s']:.2f} s, launches {r['launches']}"
+                       for k, r in runs.items())
+          + f" | recomposed PLY: median {statistics.median(times):.3f} "
+          f"ms/view (CUDA events, after one warm-up view; all "
+          f"{[round(t, 3) for t in times]}) | {json.dumps(checks)} | "
+          f"{card}", flush=True)
+    if not all(checks.values()):
+        fail(f"main path 8 (render CLI) checks failed: {checks}")
+    k1, k2 = phase_kernels(torch, card, "cmp-rec", params,
+                           synthetic.bench_camera(CMP_YAWS[0]))
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in runs["src"]["launches"]}
+    return dict(work=work, root=root, launches=launches, K1=k1, K2=k2)
+
+
+def _rel(a, b):
+    return float(np.max(np.abs(np.asarray(a) - np.asarray(b))
+                        / np.maximum(np.abs(np.asarray(b)), 1e-30)))
+
+
+def phase_cmp(torch, card, s, cmp):
+    """Main path 8, its scores: random full-width MUSIQ (``MUSIQConfig()``)
+    and WaDIQaM-NR weights (every all-zero parameter moved) written as
+    npz files in the JAX ``save_params`` layout, then the ``cmp`` CLI
+    (``--n_frame 10``) on phase 36's tree, counters zeroed before: no
+    kernel launches, the report's sharpness, musiq, wadiqam and
+    psnr_vs_src finite for the scene and in ``mean``; on one 1080p frame
+    MUSIQ and WaDIQaM on CUDA within METRIC_REL_TOL relative of the same
+    weights on the CPU, and LPIPS at full VGG16 on an LPIPS_SHAPE pair
+    likewise; ms per frame of MUSIQ and WaDIQaM and ms per LPIPS call
+    (``cuda_ms``), MUSIQ's token count, the CLI's peak memory."""
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.diffusion import checkpoint
+    from multiview_inpaint_tpu_torch.gs import scene_io
+    from multiview_inpaint_tpu_torch.metrics import lpips, musiq, wadiqam
+    from multiview_inpaint_tpu_torch.pipelines import cmp as cmp_cli
+
+    paths = dict(musiq=os.path.join(cmp["work"], "musiq.npz"),
+                 wadiqam=os.path.join(cmp["work"], "wadiqam.npz"),
+                 out=os.path.join(cmp["work"], "report.json"))
+    torch.manual_seed(80)
+    mq, wq = musiq.MUSIQ(), wadiqam.WaDIQaMNR()
+    perturb_zero_params(torch, mq, 81)
+    perturb_zero_params(torch, wq, 82)
+    checkpoint.save_params(paths["musiq"], musiq.state_dict_to_jax(
+        mq.state_dict(), mq.cfg.heads))
+    checkpoint.save_params(paths["wadiqam"], checkpoint.torch_to_flax(
+        wq.state_dict()))
+    _kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cmp_cli.main(["--root", cmp["root"], "--iteration", str(REC_ITERS),
+                  "--n_frame", "10", "--out", paths["out"], "--musiq_ckpt",
+                  paths["musiq"], "--wadiqam_ckpt", paths["wadiqam"],
+                  "--device", DEVICE])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(_kernels.LAUNCHES)
+    with open(paths["out"]) as f:
+        report = json.load(f)
+    keys = {"sharpness", "musiq", "wadiqam", "psnr_vs_src"}
+
+    frame = scene_io.load_image(os.path.join(
+        cmp["root"], "inpainted", s["sid"], f"ours_{REC_ITERS}", "renders",
+        "00000.png"))
+    x = torch.from_numpy(frame)[None].to(DEVICE)
+    scores, ms = {}, {}
+    for name, cls in (("musiq", musiq.MUSIQScorer),
+                      ("wadiqam", wadiqam.WaDIQaMScorer)):
+        flat = checkpoint.load_params(paths[name])
+        on = {dev: cls(flat, device=dev) for dev in ("cpu", DEVICE)}
+        scores[name] = {dev: sc(frame) for dev, sc in on.items()}
+        with torch.no_grad():
+            ms[name] = cuda_ms(torch, lambda m=on[DEVICE].model: m(x), 5)
+        if name == "musiq":
+            tokens = on[DEVICE].model.tokens(x)
+    rng = np.random.default_rng(83)
+    a = rng.uniform(-1, 1, LPIPS_SHAPE).astype(np.float32)
+    b = np.clip(a + 0.3 * rng.normal(size=a.shape), -1, 1).astype(
+        np.float32)
+    lp = lpips.LPIPS()
+    perturb_zero_params(torch, lp, 84)
+    lp.requires_grad_(False)
+    with torch.no_grad():
+        d_cpu = lp(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+        lp = lp.to(DEVICE)
+        ta, tb = torch.from_numpy(a).to(DEVICE), torch.from_numpy(b).to(DEVICE)
+        d_gpu = lp(ta, tb).cpu().numpy()
+        lpips_ms = cuda_ms(torch, lambda: lp(ta, tb), 3)
+    errs = {name: _rel(v[DEVICE], v["cpu"]) for name, v in scores.items()}
+    errs["lpips"] = _rel(d_gpu, d_cpu)
+    checks = {
+        "no kernel launches": sum(launches.values()) == 0,
+        f"report: {s['sid']} and mean": set(report) == {s["sid"], "mean"},
+        f"{sorted(keys)} finite per scene and in mean": all(
+            set(report.get(k, {})) == keys and all(
+                math.isfinite(v) for v in report[k].values())
+            for k in (s["sid"], "mean")),
+    }
+    for name, e in errs.items():
+        checks[f"{name} CUDA vs CPU within {METRIC_REL_TOL} relative"] = (
+            e <= METRIC_REL_TOL)
+    print(f"[37 main cmp] cmp CLI (--n_frame 10) on {cmp['root']} with "
+          f"random full-width MUSIQ ({tokens} tokens per 1080p frame) and "
+          f"WaDIQaM-NR npz in {cli_s:.2f} s, peak {peak_gb:.2f} GB, "
+          f"launches {launches} | report {json.dumps(report)} | 1080p "
+          f"frame CUDA vs CPU: MUSIQ {scores['musiq'][DEVICE]:.6g} vs "
+          f"{scores['musiq']['cpu']:.6g}, WaDIQaM "
+          f"{scores['wadiqam'][DEVICE]:.6g} vs "
+          f"{scores['wadiqam']['cpu']:.6g}, LPIPS {d_gpu.tolist()} vs "
+          f"{d_cpu.tolist()} on {list(LPIPS_SHAPE)}; relative errors "
+          f"{json.dumps(errs)} | ms per frame (cuda_ms) MUSIQ "
+          f"{ms['musiq']:.3f}, WaDIQaM {ms['wadiqam']:.3f}; LPIPS "
+          f"{lpips_ms:.3f} ms per {list(LPIPS_SHAPE)} pair | "
+          f"{json.dumps(checks)} | {card}", flush=True)
+    if not all(checks.values()):
+        fail(f"main path 8 (cmp CLI) checks failed: {checks}")
+
+
+def phase_vae_step(torch):
+    """One ``vae_finetune --tiny`` step (the generator update, then the
+    discriminator's; every term on, the perceptual one through a random
+    full VGG16 LPIPS) on DEVICE against the CPU from the same weights,
+    batch and posterior noise (every all-zero parameter moved), f32 with
+    TF32 off: every logged value
+    within VAE_STEP_REL_TOL relative; the generator's gradients (Adam's
+    first moment over 0.5) within GRAD_ATOL + GRAD_RTOL max|g| of their
+    leaf plus 2e-7 max|g| of the network (the f32 rounding of backward
+    sums whose terms run up to the network's largest gradient: the
+    biases ahead of a per-channel GroupNorm and the attention's k, v and
+    proj_out biases have gradients of 0 up to it); every parameter after
+    the step within 2e-6 + 1e-4 max|update| of its leaf, or, where the
+    CPU gradient entry is under its bar, within 2 lr (Adam's first update
+    lr g / (|g| + eps) is sign-like: phase 8's sign-flip allowance)."""
+    from multiview_inpaint_tpu_torch.diffusion.autoencoder_loss import (
+        GANLossConfig)
+    from multiview_inpaint_tpu_torch.metrics import lpips
+    from multiview_inpaint_tpu_torch.pipelines import vae_finetune as vf
+
+    lr = 2e-3
+    cfg = GANLossConfig(disc_start=0, disc_weight=0.5, perceptual_weight=1.0,
+                        learn_logvar=True,
+                        regularization_weights=(("kl_loss", 1e-6),))
+    torch.manual_seed(90)
+    nets = {"cpu": [*vf.build_models(True, "cpu"), lpips.LPIPS()]}
+    for i, m in enumerate(nets["cpu"]):
+        perturb_zero_params(torch, m, 91 + i)
+    nets[DEVICE] = [*vf.build_models(True, DEVICE), lpips.LPIPS(
+        device=DEVICE)]
+    for a, b in zip(nets["cpu"], nets[DEVICE]):
+        b.load_state_dict(a.state_dict())
+    rng = np.random.default_rng(94)
+    x = np.tanh(rng.normal(size=(2, 32, 32, 3))).astype(np.float32)
+    noise = rng.normal(size=(2, 32, 32, 4)).astype(np.float32)
+    logs, params, grads, start = {}, {}, {}, None
+    for dev, (vae, disc, lp) in nets.items():
+        tuner = vf.Finetuner(vae, disc, cfg, lr,
+                             lpips_fn=lp.requires_grad_(False))
+        if start is None:
+            start = {k: p.detach().clone() for k, p in
+                     tuner.gen_params.items()}
+        logs[dev] = {k: float(v) for k, v in tuner.step(
+            torch.from_numpy(x).to(dev), 0,
+            torch.from_numpy(noise).to(dev)).items()}
+        params[dev] = {k: p.detach().cpu() for k, p in
+                       tuner.gen_params.items()}
+        grads[dev] = {k: m.cpu() / 0.5 for k, m in
+                      tuner.gen_state["mu"].items()}
+    loss_err = max(abs(logs[DEVICE][k] - w) / abs(w)
+                   for k, w in logs["cpu"].items() if w != 0)
+    top = max(float(g.abs().max()) for g in grads["cpu"].values())
+    g_worst, flips, bad = 0.0, 0, 0
+    for k, w in params["cpu"].items():
+        g = grads["cpu"][k]
+        bar = GRAD_ATOL + 2e-7 * top + GRAD_RTOL * float(g.abs().max())
+        g_worst = max(g_worst, float((grads[DEVICE][k] - g).abs().max())
+                      / bar)
+        upd = (w - start[k]).abs()
+        err = (params[DEVICE][k] - w).abs()
+        beyond = err > 2e-6 + 1e-4 * float(upd.max())
+        flip = (g.abs() <= bar) & (err <= 2 * lr + 1e-6)
+        flips += int(beyond.sum())
+        bad += int((beyond & ~flip).sum())
+    n = sum(p.numel() for p in params["cpu"].values())
+    checks = {f"logs within {VAE_STEP_REL_TOL} relative":
+              loss_err <= VAE_STEP_REL_TOL,
+              "gradients within their bar": g_worst <= 1.0,
+              "parameters within the bar or the sign-flip allowance":
+              bad == 0}
+    print(f"[38 vae step] one vae_finetune --tiny step (LPIPS VGG16 "
+          f"perceptual term, disc_start 0) {DEVICE} vs cpu (f32, TF32 off): "
+          f"loss/total {logs['cpu']['loss/total']:.6g} vs "
+          f"{logs[DEVICE]['loss/total']:.6g}, worst log rel err "
+          f"{loss_err:.3g} | gradients: worst err / bar {g_worst:.3g} "
+          f"(network max|g| {top:.4g}) | parameters after Adam (lr {lr}): "
+          f"{flips} of {n} entries beyond 2e-6 + 1e-4 max|update|, "
+          f"{bad} of them outside the sign-flip allowance | "
+          f"{json.dumps(checks)}", flush=True)
+    if not all(checks.values()):
+        fail(f"the tiny vae_finetune step on {DEVICE} disagrees with the "
+             f"cpu: {checks}")
+
+
+def phase_vae_finetune(torch, card, s):
+    """Main path 9: the ``vae_finetune`` CLI at full width
+    (``VAEConfig()``, the ndf-64 3-layer PatchDiscriminator) on main path
+    5's 28 gen_seq frames (512x384, resized to VAE_RES^2), batch
+    VAE_BATCH, the perceptual term through a random full VGG16 LPIPS npz
+    in the ``{"params": tree}`` layout, VAE_STEPS steps with the
+    adversarial terms gated on from VAE_DISC_START, counters zeroed
+    before: no kernel launches; every step's log finite; ``loss/disc``
+    exactly 0 at steps below VAE_DISC_START and not 0 from it on;
+    ``train_log.jsonl`` at the logged steps; both npz files written and
+    read back by the port equal to the trained parameters; median device
+    ms per step (CUDA events around each ``Finetuner.step``) and the peak
+    memory."""
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.diffusion import checkpoint
+    from multiview_inpaint_tpu_torch.metrics import lpips
+    from multiview_inpaint_tpu_torch.pipelines import vae_finetune as vf
+
+    work = os.path.join(s["work"], "vae_finetune")
+    shutil.rmtree(work, ignore_errors=True)
+    data = os.path.join(work, "frames")
+    os.makedirs(data)
+    for mode in SEQ_MODES:
+        rdir = os.path.join(s["ws"], "inpaint", "seq", s["sid"], mode,
+                            "ours_1", "renders")
+        for f in sorted(os.listdir(rdir)):
+            shutil.copy(os.path.join(rdir, f),
+                        os.path.join(data, f"{mode}_{f}"))
+    n_frames = len(os.listdir(data))
+    lp = lpips.LPIPS()
+    perturb_zero_params(torch, lp, 95)
+    lpips_npz = os.path.join(work, "lpips_vgg16.npz")
+    tree = {}
+    for k, v in checkpoint.torch_to_flax(lp.state_dict()).items():
+        node = tree
+        *body, leaf = k.split("/")
+        for c in body:
+            node = node.setdefault(c, {})
+        node[leaf] = v
+    np.savez(lpips_npz, params=tree)
+    del lp
+    out = os.path.join(work, "out")
+    steps, tuners = [], []
+    real_step = vf.Finetuner.step
+
+    def timed(self, x, step, noise=None):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        log = real_step(self, x, step, noise)
+        end.record()
+        torch.cuda.synchronize()
+        steps.append((start.elapsed_time(end), {k: float(v) for k, v in
+                                                 log.items()}))
+        if not tuners:
+            tuners.append(self)
+        return log
+
+    _kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    vf.Finetuner.step = timed
+    t0 = time.perf_counter()
+    try:
+        vf.main(["--data_dir", data, "--out_dir", out, "--resolution",
+                 str(VAE_RES), "--batch_size", str(VAE_BATCH),
+                 "--perceptual_weight", "1.0", "--lpips_ckpt", lpips_npz,
+                 "--disc_start", str(VAE_DISC_START), "--steps",
+                 str(VAE_STEPS), "--log_interval", "5", "--device", DEVICE])
+        torch.cuda.synchronize()
+    finally:
+        vf.Finetuner.step = real_step
+    cli_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(_kernels.LAUNCHES)
+    with open(os.path.join(out, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    tuner = tuners[0]
+    saved = {name: checkpoint.load_params(os.path.join(out, name))
+             for name in ("vae_params.npz", "disc_params.npz")}
+    want = dict({f"params/{k}": v
+                 for k, v in tuner.vae_params_jax().items()},
+                logvar=tuner.logvar.detach().cpu().numpy())
+    want_d = {f"params/{k}": v for k, v in tuner.disc_params_jax().items()}
+    n_params = sum(p.numel() for p in tuner.gen_params.values())
+    disc = [r["loss/disc"] for _, r in steps]
+    ms = [t for t, _ in steps]
+    checks = {
+        "no kernel launches": sum(launches.values()) == 0,
+        f"{VAE_STEPS} steps, every log finite": len(steps) == VAE_STEPS
+        and all(math.isfinite(v) for _, r in steps for v in r.values()),
+        f"loss/disc 0 at steps 0-{VAE_DISC_START - 1}, not 0 after":
+        all(d == 0.0 for d in disc[:VAE_DISC_START])
+        and all(d != 0.0 for d in disc[VAE_DISC_START:]),
+        "train_log.jsonl every 5 steps and at the last":
+        [r["step"] for r in log] == sorted({*range(0, VAE_STEPS, 5),
+                                            VAE_STEPS - 1}),
+        "vae_params.npz read back equal": set(saved["vae_params.npz"])
+        == set(want) and all(np.array_equal(saved["vae_params.npz"][k],
+                                            want[k]) for k in want),
+        "disc_params.npz read back equal": set(saved["disc_params.npz"])
+        == set(want_d) and all(np.array_equal(saved["disc_params.npz"][k],
+                                              want_d[k]) for k in want_d),
+    }
+    print(f"[39 main vae_finetune] vae_finetune CLI at full width "
+          f"(VAEConfig(), {n_params} generator parameters with logvar; "
+          f"PatchDiscriminator(ndf=64, n_layers=3); random full VGG16 LPIPS "
+          f"npz) on {n_frames} gen_seq frames at {VAE_RES}^2, batch "
+          f"{VAE_BATCH}, {VAE_STEPS} steps, disc_start {VAE_DISC_START} in "
+          f"{cli_s:.2f} s | launches {launches} | median step "
+          f"{statistics.median(ms[1:]):.2f} ms (CUDA events, steps 1-"
+          f"{VAE_STEPS - 1}; step 0 {ms[0]:.2f} ms), peak {peak_gb:.2f} GB "
+          f"| loss/rec {[round(r['loss/rec'], 4) for r in log]}, loss/disc "
+          f"{[round(d, 4) for d in disc]}, d_weight "
+          f"{[round(r['scalars/d_weight'], 3) for r in log]} | "
+          f"{json.dumps(checks)} | {card}", flush=True)
+    if not all(checks.values()):
+        fail(f"main path 9 (vae_finetune CLI) checks failed: {checks}")
+
+
 def main():
     import torch
 
@@ -4043,6 +4515,12 @@ def main():
         torch, card, stage1, sds_out).values(), *phase_ctrl_inpaint(
         torch, card, stage1, sw).values()]
     os.remove(sw["sd"])
+    del sw
+    torch.cuda.empty_cache()
+    cmp = phase_cmp_render(torch, card, stage1)
+    phase_cmp(torch, card, stage1, cmp)
+    phase_vae_step(torch)
+    phase_vae_finetune(torch, card, stage1)
 
     def path6(name, key):
         """Main path 6's launches and its orbit-rec times of one kernel."""
@@ -4058,6 +4536,11 @@ def main():
             return dict(out, unet2d_ds1=k4_2d[0], unet2d_ds2=k4_2d[1])
         return dict(out, orbit_sds=sds[key])
 
+    def path8(name, key):
+        """Main path 8's launches (both render CLI runs) and its time of
+        one kernel at the recomposed PLY's first 1080p view."""
+        return dict(launches=cmp["launches"][name], cmp_view=cmp[key])
+
     k1, k2 = frames["big2m"]   # the render main path's scene and shapes
     kernels = [
         dict(name="pair_expand", route="cuda",
@@ -4066,14 +4549,16 @@ def main():
                       "pair_expand.py:92",
              launches=launches["pair_expand"], **k1,
              main_path_6=path6("pair_expand", "K1"),
-             main_path_7=path7("pair_expand", "K1")),
+             main_path_7=path7("pair_expand", "K1"),
+             main_path_8=path8("pair_expand", "K1")),
         dict(name="composite", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/composite.cu",
              replaces="multiview_inpaint_tpu/ops/rasterizer/"
                       "pallas_composite.py:75",
              launches=launches["composite"], **k2,
              main_path_6=path6("composite", "K2"),
-             main_path_7=path7("composite", "K2")),
+             main_path_7=path7("composite", "K2"),
+             main_path_8=path8("composite", "K2")),
         # K3 at the first step of main path 2, the path that runs it.
         dict(name="composite_bwd", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/composite_bwd.cu",
@@ -4097,7 +4582,7 @@ def main():
                       "flash_attention.py:117",
              launches=launches_svd_train["flash_attn_bwd"], **k5),
     ]
-    print(f"[36 done] all phases passed in "
+    print(f"[40 done] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -116,6 +116,9 @@ def _unet_key(body) -> str:
 
 
 def _vae_key(body) -> str:
+    """VAE components -> the dotted torch path; a component no rule
+    names (the ``VideoAttnBlock``'s ``video_time_embed_0``,
+    ``ff_in/net_0_proj``, ``to_out_0`` ...) goes through ``_dotted``."""
     out = []
     for c in body:
         if c == "spatial":
@@ -124,6 +127,8 @@ def _vae_key(body) -> str:
             if pat.match(c):
                 c = pat.sub(repl, c)
                 break
+        else:
+            c = _dotted(c)
         out.append(c)
     return ".".join(out)
 
@@ -365,6 +370,11 @@ _TO_JAX_VAE_RULES = [
     (re.compile(r"mid\.block_(\d+)\."), r"mid_block_\1."),
     (re.compile(r"mid\.attn_1\."), r"mid_attn_1."),
     (re.compile(r"conv_out\.time_mix_conv\."), r"conv_out_time_mix."),
+    # the VideoAttnBlock (time modes "all" and "attn-only")
+    (re.compile(r"\.video_time_embed\.(\d+)\."), r".video_time_embed_\1."),
+    (re.compile(r"\.(ff|ff_in)\.net\.0\.proj\."), r".\1.net_0_proj."),
+    (re.compile(r"\.(ff|ff_in)\.net\.2\."), r".\1.net_2."),
+    (re.compile(r"\.to_out\.0\."), r".to_out_0."),
 ]
 _TO_JAX_VAE_TIME_STACK = [
     ("time_stack.in_layers.0", "time_stack_in_norm"),
@@ -377,7 +387,9 @@ _TO_JAX_VAE_TIME_STACK = [
 
 def _map_vae_key(key: str, video_decoder: bool = True):
     """torch KL-VAE key -> flax path components (the video decoder's
-    spatial block parameters under ``spatial``)."""
+    spatial block parameters under ``spatial``; the ``VideoAttnBlock``'s
+    temporal transformer and frame embedding in the JAX block's names,
+    which the JAX ``weights_io`` map does not produce)."""
     for pat, repl in _TO_JAX_VAE_RULES:
         key = pat.sub(repl, key)
     for old, new in _TO_JAX_VAE_TIME_STACK:
@@ -499,13 +511,44 @@ def state_dict_to_jax(sd: Dict[str, torch.Tensor],
     return out
 
 
+# --- modules whose torch names are the flax names ------------------------
+
+def flax_to_torch(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flax params, flat ``{"a/b/kernel": ndarray}``, of a network whose
+    port module carries the same names (the metrics networks, the
+    discriminator) -> that module's state dict: ``a.b.weight`` in torch
+    layout (``_leaf``), ``scale`` -> ``weight``, other leaves by name."""
+    out = {}
+    for path, arr in flat.items():
+        *body, leaf = path.split("/")
+        leaf, arr = _leaf(leaf, np.asarray(arr))
+        out[".".join(body + [leaf])] = torch.from_numpy(
+            np.ascontiguousarray(arr))
+    return out
+
+
+def torch_to_flax(sd: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of ``flax_to_torch``: a 1-D ``weight`` (a norm's) is
+    ``scale``, any other ``weight`` a ``kernel`` in flax layout."""
+    out = {}
+    for k, v in sd.items():
+        *body, leaf = k.split(".")
+        arr = _numpy(v)
+        if leaf == "weight":
+            leaf = "scale" if arr.ndim == 1 else "kernel"
+            arr = _jax_layout(arr)
+        out["/".join(body + [leaf])] = np.ascontiguousarray(arr)
+    return out
+
+
 # --- npz parameter files (the JAX diffusion/checkpoint.py) --------------
 
-def _flatten(tree, prefix="") -> Dict:
+def flatten_tree(tree, prefix="") -> Dict:
+    """A nested params dict (a JAX params tree) as flat ``{"a/b": leaf}``."""
     flat = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            flat.update(_flatten(v, f"{prefix}{k}/"))
+            flat.update(flatten_tree(v, f"{prefix}{k}/"))
         else:
             flat[prefix + k] = v
     return flat
@@ -518,7 +561,7 @@ def save_params(path: str, params: Dict) -> None:
     0.68B-parameter ControlNet took minutes against a train step's
     second; the JAX ``load_params`` reads both."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    flat = {k: _numpy(v) for k, v in _flatten(params).items()}
+    flat = {k: _numpy(v) for k, v in flatten_tree(params).items()}
     np.savez(path, **flat)
 
 

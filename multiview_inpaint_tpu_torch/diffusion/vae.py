@@ -8,14 +8,20 @@ ResnetBlock with GroupNorm eps 1e-6, single-head AttnBlock) and
 mixed by a learned scalar initialised to 0, and ``conv_out`` gains a
 temporal ``time_mix_conv``). Config: ch 128, ch_mult (1, 2, 4, 4), 2 res
 blocks, z 4 (the encoder writes mean and log-variance, 8 channels), mid
-attention only. ``VideoAttnBlock`` (time modes "all" and "attn-only") is
-not instantiated at the shipped configuration and is not ported yet.
+attention only. The VideoDecoder's other time modes are the JAX
+decoder's: "all" adds the ``VideoAttnBlock`` (``temporal_ae.py``
+VideoBlock) as mid attention, "attn-only" keeps only it, and
+"only-last-conv" only the temporal ``conv_out``; the shipped SVD
+configuration is "conv-only".
 
 Public functions take and return the JAX package's NHWC layout; the
-blocks run NCHW inside. The attention is plain matmul + softmax.
-Parameter names are the reference's (``encoder.down.N.block.M``,
-``decoder.up.N.upsample.conv``, ``decoder.mid.block_1.time_stack``,
-``decoder.conv_out.time_mix_conv`` ...).
+blocks run NCHW inside. The spatial attention is plain matmul + softmax;
+the VideoAttnBlock's temporal transformer rides ``VideoTransformerBlock``
+and ``attention_op.attention``. Parameter names are the reference's
+(``encoder.down.N.block.M``, ``decoder.up.N.upsample.conv``,
+``decoder.mid.block_1.time_stack``, ``decoder.conv_out.time_mix_conv``,
+``decoder.mid.attn_1.time_mix_block``, ``...attn_1.video_time_embed.0``
+...).
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import zero_
+from .layers import timestep_embedding, zero_
+from .transformer import VideoTransformerBlock
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +127,9 @@ class AttnBlock(nn.Module):
         self.v = nn.Conv2d(c, c, 1, **factory)
         self.proj_out = nn.Conv2d(c, c, 1, **factory)
 
-    def forward(self, x, timesteps: int = 1):
+    def attention(self, x):
+        """[b, c, h, w] -> the attention output [b, h*w, c], without
+        proj_out or the residual (the reference's ``AttnBlock.attention``)."""
         b, c, h, w = x.shape
         hn = self.norm(x)
 
@@ -130,8 +139,44 @@ class AttnBlock(nn.Module):
         q, k, v = flat(self.q(hn)), flat(self.k(hn)), flat(self.v(hn))
         attn = torch.softmax(torch.matmul(q, k.transpose(1, 2))
                              * (c ** -0.5), dim=-1)
-        out = torch.matmul(attn, v).reshape(b, h, w, c).permute(0, 3, 1, 2)
+        return torch.matmul(attn, v)
+
+    def forward(self, x, timesteps: int = 1):
+        b, c, h, w = x.shape
+        out = self.attention(x).reshape(b, h, w, c).permute(0, 3, 1, 2)
         return x + self.proj_out(out)
+
+
+class VideoAttnBlock(AttnBlock):
+    """Spatio-temporal attention (``temporal_ae.py`` VideoBlock, learned
+    merge): the spatial single-head attention, then a temporal
+    ``VideoTransformerBlock`` (1 head of C, ff_in, no context) over the
+    frames of ``attention + video_time_embed(frame embedding)``, mixed
+    with the spatial branch by sigmoid(``mix_factor``) (initialised 0),
+    then proj_out and the residual."""
+
+    def __init__(self, c: int, **factory):
+        super().__init__(c, **factory)
+        self.time_mix_block = VideoTransformerBlock(c, 1, c, None,
+                                                    ff_in=True, **factory)
+        self.video_time_embed = nn.Sequential(
+            nn.Linear(c, c * 4, **factory), nn.SiLU(),
+            nn.Linear(c * 4, c, **factory))
+        self.mix_factor = nn.Parameter(torch.zeros(
+            1, device=factory.get("device"),
+            dtype=factory.get("dtype") or torch.float32))
+
+    def forward(self, x, timesteps: int = 1):
+        b_t, c, hh, ww = x.shape
+        h = self.attention(x)
+        frames = torch.arange(timesteps, device=x.device).repeat(
+            b_t // timesteps)
+        emb = self.video_time_embed(timestep_embedding(frames, c).to(x.dtype))
+        x_mix = self.time_mix_block(h + emb[:, None, :], None, timesteps)
+        a = torch.sigmoid(self.mix_factor)[0]
+        h = a * h + (1.0 - a) * x_mix
+        h = h.reshape(b_t, hh, ww, c).permute(0, 3, 1, 2)
+        return x + self.proj_out(h)
 
 
 class _Level(nn.Module):
@@ -212,16 +257,24 @@ class AE3DConv(nn.Conv2d):
 
 
 class Decoder(nn.Module):
-    """Decoder; ``video=True`` is the VideoDecoder in "conv-only" mode."""
+    """Decoder; ``video=True`` is the VideoDecoder in ``time_mode``
+    "conv-only" (temporal ResnetBlocks and ``conv_out``, spatial mid
+    attention; the shipped configuration), "all" (and the VideoAttnBlock
+    as mid attention), "attn-only" (the VideoAttnBlock only) or
+    "only-last-conv" (the temporal ``conv_out`` only)."""
 
     def __init__(self, cfg: VAEConfig = VAEConfig(), video: bool = False,
-                 **factory):
+                 time_mode: str = "conv-only", **factory):
         super().__init__()
         self.cfg = cfg
         self.video = video
+        temporal_res = video and time_mode not in ("attn-only",
+                                                   "only-last-conv")
+        temporal_attn = video and time_mode in ("all", "attn-only")
+        self.temporal_out = video and time_mode != "attn-only"
 
         def res(cin, cout):
-            if video:
+            if temporal_res:
                 return VideoResnetBlock(cin, cout, cfg.video_kernel_size,
                                         **factory)
             return ResnetBlock(cin, cout, **factory)
@@ -230,7 +283,8 @@ class Decoder(nn.Module):
         self.conv_in = nn.Conv2d(cfg.z_channels, ch, 3, padding=1, **factory)
         self.mid = nn.Module()
         self.mid.block_1 = res(ch, ch)
-        self.mid.attn_1 = AttnBlock(ch, **factory)
+        self.mid.attn_1 = (VideoAttnBlock if temporal_attn else AttnBlock)(
+            ch, **factory)
         self.mid.block_2 = res(ch, ch)
         levels = {}
         for level in reversed(range(len(cfg.ch_mult))):
@@ -245,13 +299,13 @@ class Decoder(nn.Module):
         self.up = nn.ModuleList(levels[i] for i in range(len(cfg.ch_mult)))
         self.norm_out = _gn(ch, **factory)
         self.conv_out = (AE3DConv(ch, cfg.out_ch, cfg.video_kernel_size,
-                                  **factory) if video else
+                                  **factory) if self.temporal_out else
                          nn.Conv2d(ch, cfg.out_ch, 3, padding=1, **factory))
 
     def forward(self, z, timesteps: int = 1):
         h = self.conv_in(z)
         h = self.mid.block_1(h, timesteps)
-        h = self.mid.attn_1(h)
+        h = self.mid.attn_1(h, timesteps)
         h = self.mid.block_2(h, timesteps)
         for level in reversed(self.up):
             for blk in level.block:
@@ -260,7 +314,7 @@ class Decoder(nn.Module):
                 h = level.upsample.conv(F.interpolate(h, scale_factor=2.0,
                                                       mode="nearest"))
         h = F.silu(self.norm_out(h))
-        if self.video:
+        if self.temporal_out:
             return self.conv_out(h, timesteps)
         return self.conv_out(h)
 

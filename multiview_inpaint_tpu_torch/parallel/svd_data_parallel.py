@@ -119,13 +119,15 @@ def _schedule(lr: float, schedule: str, warmup_steps: int, total_steps: int):
 
 
 class Optimizer:
-    """``optax.adam(schedule)``, wrapped in ``optax.MultiSteps`` when
-    ``accumulate > 1``, over a dict of parameters updated in place."""
+    """``optax.adam(schedule, b1, b2)``, wrapped in
+    ``optax.MultiSteps`` when ``accumulate > 1``, over a dict of
+    parameters updated in place."""
 
     def __init__(self, lr: float = 1e-4, schedule: str = "constant",
                  warmup_steps: int = 0, total_steps: int = 100_000,
-                 accumulate: int = 1):
+                 accumulate: int = 1, b1: float = B1, b2: float = B2):
         self.lr = lr
+        self.b1, self.b2 = b1, b2
         self.schedule = _schedule(lr, schedule, warmup_steps, total_steps)
         self.accumulate = accumulate
 
@@ -165,13 +167,14 @@ class Optimizer:
 
     def _adam(self, params, grads, state):
         count = state["count"] + 1
-        bc1 = _f32(1) - _f32(B1) ** _f32(count)
-        bc2 = _f32(1) - _f32(B2) ** _f32(count)
+        bc1 = _f32(1) - _f32(self.b1) ** _f32(count)
+        bc2 = _f32(1) - _f32(self.b2) ** _f32(count)
         lr = (_f32(self.lr) if self.schedule is None
               else self.schedule(state["count"]))
         for dt, keys in _by_dtype(params).items():
             a1, b1, a2, b2, c1, c2, er, eps, nlr = _consts(
-                dt, 1 - B1, B1, 1 - B2, B2, bc1, bc2, EPS_ROOT, EPS, -lr)
+                dt, 1 - self.b1, self.b1, 1 - self.b2, self.b2, bc1, bc2,
+                EPS_ROOT, EPS, -lr)
             p = [params[k] for k in keys]
             g = [grads[k] for k in keys]
             mu = [state["mu"][k] for k in keys]

@@ -643,3 +643,138 @@ def test_cuda_tiny_unet2d_and_controlnet2d_match_cpu():
     assert (n_cpu, n_gpu) == (0, 6)
     rms = float((b - a).pow(2).mean().sqrt() / a.pow(2).mean().sqrt())
     assert rms <= 0.018, rms
+
+
+def _no_tf32():
+    """Both TF32 switches off (as chip_smoke.py sets them); returns the
+    previous settings."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return saved
+
+
+def _restore_tf32(saved):
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _moved(module, seed):
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    return module
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["musiq", "wadiqam", "lpips"])
+def test_cuda_quality_metrics_match_cpu(metric):
+    """MUSIQ (full width, 1 + 34*60 + 7*12 + 4*7 = 2,153 tokens at 1080p),
+    WaDIQaM-NR (1,980 patches at 1080p) and LPIPS (full VGG16 on a
+    [2, 256, 256, 3] pair) on CUDA against the same weights on the CPU,
+    f32 with TF32 off: within 1e-4 relative; no kernel launches."""
+    _require_cuda()
+    from multiview_inpaint_tpu_torch import kernels
+    from multiview_inpaint_tpu_torch.metrics import lpips, musiq, wadiqam
+    saved = _no_tf32()
+    try:
+        torch.manual_seed(0)
+        rng = np.random.default_rng(3)
+        kernels.reset_launches()
+        if metric == "lpips":
+            net = _moved(lpips.LPIPS(), 1)
+            a = rng.uniform(-1, 1, (2, 256, 256, 3)).astype(np.float32)
+            b = np.clip(a + 0.2 * rng.normal(size=a.shape), -1, 1).astype(
+                np.float32)
+            outs = []
+            for dev in ("cpu", "cuda"):
+                with torch.no_grad():
+                    outs.append(net.to(dev)(torch.from_numpy(a).to(dev),
+                                            torch.from_numpy(b).to(dev))
+                                .cpu().numpy())
+            want, got = outs
+        else:
+            img = rng.random((1080, 1920, 3)).astype(np.float32)
+            if metric == "musiq":
+                net = _moved(musiq.MUSIQ(), 1)
+                assert net.tokens(img[None]) == 2153
+                flat = musiq.state_dict_to_jax(net.state_dict(),
+                                               net.cfg.heads)
+                scorers = [musiq.MUSIQScorer(flat, device=d)
+                           for d in ("cpu", "cuda")]
+            else:
+                from multiview_inpaint_tpu_torch.diffusion import checkpoint
+                flat = checkpoint.torch_to_flax(_moved(
+                    wadiqam.WaDIQaMNR(), 1).state_dict())
+                scorers = [wadiqam.WaDIQaMScorer(flat, device=d)
+                           for d in ("cpu", "cuda")]
+            want, got = (np.array([s(img)]) for s in scorers)
+        assert np.all(np.isfinite(got))
+        assert np.all(np.abs(got - want) <= 1e-4 * np.abs(want)), (got,
+                                                                    want)
+        assert sum(kernels.LAUNCHES.values()) == 0
+    finally:
+        _restore_tf32(saved)
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_vae_finetune_step_matches_cpu():
+    """One ``vae_finetune --tiny`` step (generator then discriminator
+    update, disc_start 0) on CUDA against the CPU from the same weights,
+    batch and posterior noise, f32 with TF32 off: every logged value
+    within 1e-5 relative; the generator's gradients (read from Adam's
+    first moment, 0.5 g) within 2e-6 + 1e-4 max|g| of their leaf plus
+    2e-7 max|g| of the network (the bar of
+    ``tests/test_torch_vae_finetune.py``); the parameters after Adam
+    within 2e-6 + 1e-4 max|update| of their leaf, or within 2 lr where
+    the CPU gradient entry is under that bar (a sign-like first update of
+    a gradient that is 0 up to rounding)."""
+    _require_cuda()
+    from multiview_inpaint_tpu_torch.diffusion.autoencoder_loss import (
+        GANLossConfig)
+    from multiview_inpaint_tpu_torch.pipelines import vae_finetune as vf
+    saved = _no_tf32()
+    try:
+        lr = 2e-3
+        cfg = GANLossConfig(disc_start=0, disc_weight=0.5,
+                            perceptual_weight=0.0, learn_logvar=True,
+                            regularization_weights=(("kl_loss", 1e-6),))
+        torch.manual_seed(0)
+        models = {"cpu": vf.build_models(True, "cpu")}
+        for m in models["cpu"]:
+            _moved(m, 1)
+        models["cuda"] = vf.build_models(True, "cuda")
+        for a, b in zip(models["cpu"], models["cuda"]):
+            b.load_state_dict(a.state_dict())
+        rng = np.random.default_rng(2)
+        x = np.tanh(rng.normal(size=(2, 32, 32, 3))).astype(np.float32)
+        noise = rng.normal(size=(2, 32, 32, 4)).astype(np.float32)
+        logs, params, grads, start = {}, {}, {}, None
+        for dev, (vae, disc) in models.items():
+            tuner = vf.Finetuner(vae, disc, cfg, lr)
+            if start is None:
+                start = {k: p.detach().clone() for k, p in
+                         tuner.gen_params.items()}
+            logs[dev] = {k: float(v) for k, v in tuner.step(
+                torch.from_numpy(x).to(dev), 0,
+                torch.from_numpy(noise).to(dev)).items()}
+            params[dev] = {k: p.detach().cpu() for k, p in
+                           tuner.gen_params.items()}
+            grads[dev] = {k: m.cpu() / 0.5 for k, m in
+                          tuner.gen_state["mu"].items()}
+        for k, w in logs["cpu"].items():
+            assert abs(logs["cuda"][k] - w) <= 1e-5 * abs(w), (k, w)
+        top = max(float(g.abs().max()) for g in grads["cpu"].values())
+        for k, w in params["cpu"].items():
+            g = grads["cpu"][k]
+            bar = 2e-6 + 2e-7 * top + 1e-4 * float(g.abs().max())
+            assert float((grads["cuda"][k] - g).abs().max()) <= bar, k
+            upd = (w - start[k]).abs()
+            err = (params["cuda"][k] - w).abs()
+            beyond = err > 2e-6 + 1e-4 * float(upd.max())
+            assert bool(torch.all(g.abs()[beyond] <= bar)) and bool(
+                torch.all(err[beyond] <= 2 * lr + 1e-6)), k
+    finally:
+        _restore_tf32(saved)

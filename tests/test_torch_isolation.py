@@ -37,7 +37,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "diffusion.flash_attention", "diffusion.engine",
             "data.svd_dataset", "pipelines.svd_test", "diffusion.losses",
             "data.warp", "parallel.svd_data_parallel",
-            "pipelines.svd_train")}
+            "pipelines.svd_train", "metrics.metrics", "metrics.lpips",
+            "metrics.musiq", "metrics.wadiqam", "pipelines.cmp",
+            "diffusion.regularizers", "diffusion.autoencoder_loss",
+            "pipelines.vae_finetune")}
         print(len(mods), bad, sorted(slices - set(mods)))
         sys.exit(1 if bad or len(mods) < 35 or not slices <= set(mods)
                  else 0)
@@ -55,9 +58,10 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
             RenderCamera, render)
         from multiview_inpaint_tpu_torch.gs import checkpoint
         from multiview_inpaint_tpu_torch.pipelines import render as cli
-        from multiview_inpaint_tpu_torch.pipelines import (svd_test,
+        from multiview_inpaint_tpu_torch.pipelines import (cmp, svd_test,
                                                            svd_train,
-                                                           train_gs)
+                                                           train_gs,
+                                                           vae_finetune)
         from multiview_inpaint_tpu_torch.diffusion import engine
         from multiview_inpaint_tpu_torch.utils import synthetic
         params = synthetic.make_gt_gaussians(8, device="cpu")
@@ -73,7 +77,10 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
                                             "--tiny_model"]),
                      lambda: svd_train.main(["--data_root", "est",
                                              "--tiny_model"]),
-                     lambda: engine.init_engine()):
+                     lambda: engine.init_engine(),
+                     lambda: cmp.main(["--root", "vis/cmp/exp"]),
+                     lambda: vae_finetune.main(["--data_dir", "imgs",
+                                                "--out_dir", "out"])):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call()
         print("all raised")
