@@ -104,6 +104,43 @@ non-zero:
     faults (a dropped key tile, a softmax in the wrong exponent base)
     move (relative rms of the difference) and at most a tenth of what a
     change of noise seed moves;
+15a. main path 10 (slice 9a) begins once main path 3's engine is freed:
+    the tiny SVD engine on CUDA against the CPU with phase 13's weights,
+    noise and bars, the same draws injected on both: ``sample_blended``
+    and ``sample_inversion`` (2 steps; the inversion's bar at the top
+    inverted latent's magnitude), the ``SamplingPipeline`` with Heun,
+    Euler ancestral, DPM++(2S) ancestral and LMS (3 steps), and the latent
+    dump of a blended sample (files, sigma ladder, last latent = result);
+15b. the ``svd_test`` CLI with ``--sampling blended --dump_latents`` at
+    main path 3's width and shapes, counters zeroed before: 14 finite
+    frames, K4 launched exactly 350 times, 25 dumps whose sigmas are the
+    run's sigma_hat ladder, the last dump the sampled latents; the
+    background check (outside the latent mask the last dumped latent
+    within ``background_bar`` of the encoded background, a bar derived
+    from the last step's arithmetic at sigma 0.002 and printed beside the
+    reading; inside, a mean change 10 times the bar) and two planted
+    faults that must fail it (the blend skipped, its mask inverted);
+    seconds per clip, the median step, the peak memory (``BlendProbe``);
+15c. the same CLI with ``--sampling inversion``: 14 finite frames, K4
+    launched exactly 700 times (25 inversion and 25 resampling
+    evaluations at batch 14), the background check with its bar for the
+    inverted latents and the same planted faults, the seconds of the
+    inversion pass, the resampling pass and the decode;
+15d. phase 12's checks and times of K4 at main path 10's new shapes:
+    [14, 3072, 5*64] and [14, 768, 10*64] in bf16 (the inversion's
+    batch) and [28, 3072, 5*64] in f32 (the demo's uncontrolled UNet);
+15e. the ``divide_test`` CLI on the grids of 15b and 15c: its frames equal
+    the CLI's per-frame PNGs byte for byte, GIF previews of 13 frames;
+15f. the ``demo_app`` server (``make_server`` on port 0 in a thread,
+    ``--device cuda``, the full-width engine initialised at the first
+    request, its UNet in f32 on bf16-rounded weights): /health, the page,
+    two POST /generate requests with a seeded 512x384 PNG (the defaults:
+    25 steps, 14 frames; another seed at 10 steps) answered with 200 and
+    14-frame GIFs that differ, the engine initialised once, K4 launched
+    10 x steps times per request and no other kernel, a num_frames=3
+    request answered with 500; seconds per request and peak memory; then
+    one f32 uncontrolled denoiser evaluation through K4 against the plain
+    attention under phase 15's discipline (``DEMO_EVAL_RMS_TOL``);
 16. K5 (flash-attention backward) against its plain version as main path
     4 calls it, on the packed projections of one video, [14, 3072, 5*64]
     (ds1) and [14, 768, 10*64] (ds2) bf16, and [2, 768, 64] f32, with o and
@@ -267,8 +304,9 @@ non-zero:
     ``main_path_7``: its launches over all its CLIs, K1-K3's times and
     bounds at the SDS step's view, K4's at the UNet2D's ds1 and ds2; K1
     and K2 carry ``main_path_8``: its launches and their times and bounds
-    at the recomposed PLY's first view); the last line is the ``ok`` JSON
-    object.
+    at the recomposed PLY's first view; K4 carries ``main_path_10``: its
+    launches in 15b, 15c and per demo request, and its records at 15d's
+    shapes); the last line is the ``ok`` JSON object.
 
 Build outputs and the scenes go under ``build/`` in the checkout.
 """
@@ -360,6 +398,33 @@ SVD_QK_GAIN = 3.0
 # those roundings: each latent may differ between the two devices by 4
 # spacings of f32 at its own |x0| besides 1e-4 of max|latents|.
 SVD_F32_REL_TOL, SVD_X0_ULPS = 1e-4, 4
+# Main path 10 (slice 9a), after main path 3's engine is freed: the
+# blended and inversion samplers through the svd_test CLI at main path 3's
+# width and shapes (K4 350 and 700 times: 25 evaluations at CFG batch 28,
+# and 25 inversion plus 25 resampling evaluations at batch 14), then the
+# demo_app server at simple_video_sample's (the UNet alone, no ControlNet,
+# in f32 on bf16-rounded weights: K4 K4_PER_UNET_EVAL times per
+# evaluation, on f32 operands). The background check (``background_bar``)
+# bounds the final latent outside the latent mask from the last step's
+# arithmetic; BG_NORMAL_MAX bounds |a standard normal| over the step's
+# 172,032 renoise draws (P(exceeded) ~ 3e-4), BG_ULPS the f32 roundings
+# of the step at the background's magnitude. Inside the mask the mean
+# change must be BG_INSIDE_FACTOR times that bar, and the planted faults
+# (the blend skipped, its mask inverted; BG_FAULT_STEPS steps) must fail
+# it. The tiny engine runs the SamplingPipeline samplers at SAMPLING_STEPS.
+BG_NORMAL_MAX, BG_ULPS, BG_INSIDE_FACTOR, BG_FAULT_STEPS = 6.0, 16, 10.0, 3
+SAMPLING_STEPS = 3
+K4_10_SHAPES = ((14, 3072, 5, 64, "bfloat16"), (14, 768, 10, 64, "bfloat16"),
+                (28, 3072, 5, 64, "float32"))
+K4_PER_UNET_EVAL = 10   # the UNet's ds1 and ds2 blocks: 2 + 3 each
+DEMO_STEPS = 10         # the second request's num_steps
+# One f32 uncontrolled denoiser evaluation through K4 against the plain
+# attention (phase 15's discipline). With f32 activations only K4's bf16
+# operands and p differ from the plain f32 attention: the sound reading is
+# 0.00044 on an H100 (phase 15's bf16 network reads 0.014), the planted
+# faults 0.0238 (first key tile dropped) and 0.0467 (exp2 softmax). The
+# bar is near the geometric mean of 0.00044 and 0.0238 (0.0032).
+DEMO_EVAL_RMS_TOL = 0.0032
 # K5 as main path 4 calls it: the packed projections of one video (the
 # training batch of 14 frames) at ds1 and ds2, and once in f32. Bars: 0.02
 # of max|plain| (K4's) and 0.01 relative rms (bf16 rounding of p and ds,
@@ -1958,6 +2023,587 @@ def phase_svd_eval(torch, card, probe):
             and torch.isfinite(out_k4).all()):
         fail("the full-width denoiser through K4 disagrees with the plain "
              "attention, or the bar does not separate the planted faults")
+
+
+def phase_sampling_engine(torch, card):
+    """The tiny SVD engine on DEVICE against the CPU with phase 13's
+    weights and bars, main path 10's samplers from the same noise and
+    draws: ``sample_blended`` and ``sample_inversion`` (2 steps), the
+    ``SamplingPipeline`` with Heun, Euler ancestral, DPM++(2S) ancestral
+    and LMS (SAMPLING_STEPS steps), and the latent dump of a blended
+    sample (file names, sigma ladder, the last latent equal to the
+    result)."""
+    from multiview_inpaint_tpu_torch.diffusion import api, engine, samplers
+
+    cfg = _tiny_svd_config()
+    cpu = engine.init_engine(cfg, seed=0, device="cpu")
+    moved = perturb_zero_params(torch, cpu, 1)
+    gpu = engine.init_engine(cfg, seed=1, device=DEVICE)
+    gpu.load_reference_state_dict(cpu.reference_state_dict())
+    rng = np.random.default_rng(5)
+    shape = (3, 8, 6, 4)
+
+    def normal():
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    noise, z = normal(), normal()
+    draws = [normal() for _ in range(SAMPLING_STEPS)]
+    mask = torch.zeros(shape)
+    mask[:, 2:6, 1:4] = 1.0
+    pipes = ("HEUN_EDM", "EULER_ANCESTRAL", "DPMPP2S_ANCESTRAL",
+             "LINEAR_MULTISTEP")
+    outs, tops, dumps = [], [], {}
+    for eng, dev in ((cpu, "cpu"), (gpu, DEVICE)):
+        b = _svd_batch(torch, 3, 64, 48, dev, 2)
+        c = eng.prepare_cond(b)
+        uc = eng.prepare_cond(b, unconditional=True)
+        uc["control_hint"] = c["control_hint"]
+        zm = (z.to(dev), mask.to(dev))
+        out = {"blended": eng.sample_blended(
+            c, uc, *zm, noise=noise, num_steps=2, renoise=draws[:2])}
+        inverted = []
+        prev = samplers.set_latent_debug_hook(
+            lambda tag, s, x: inverted.append(x) if tag == "invert" else 0)
+        try:
+            out["inversion"] = eng.sample_inversion(c, uc, *zm, noise=noise,
+                                                    num_steps=2)
+        finally:
+            samplers.set_latent_debug_hook(prev)
+        tops.append(torch.from_numpy(inverted[-1]))
+        for name in pipes:
+            pipe = api.SamplingPipeline(eng.denoise_fn(), api.SamplingParams(
+                sampler=api.Sampler[name], steps=SAMPLING_STEPS,
+                num_frames=3))
+            kw = dict(ancestral=draws) if name.endswith("ANCESTRAL") else {}
+            with torch.no_grad():
+                out[name] = pipe.sample(shape, c, uc, noise=noise,
+                                        device=dev, **kw)
+        d = os.path.join(REPO, "build", "smoke_dump", dev)
+        shutil.rmtree(d, ignore_errors=True)
+        with samplers.latent_dump(d):
+            last = eng.sample_blended(c, uc, *zm, noise=noise, num_steps=2,
+                                      renoise=draws[:2])
+        files = sorted(os.listdir(d))
+        dumps[dev] = dict(
+            files=files == ["latent_000_blended.npy",
+                            "latent_001_blended.npy", "latent_sigmas.npy"],
+            sigmas=np.array_equal(np.load(os.path.join(d, files[-1])),
+                                  engine.edm.edm_sigmas(2).numpy()),
+            last=np.array_equal(np.load(os.path.join(d, files[1])),
+                                last.cpu().numpy()))
+        outs.append({k: v.cpu() for k, v in out.items()})
+    x0 = samplers.prepare_x(noise, torch.tensor([cfg.sigma_max])).abs()
+    ratio = {}
+    for k, want in outs[0].items():
+        start = (mask * x0 + (1 - mask) * tops[0].abs() if k == "inversion"
+                 else x0)
+        bar = (SVD_F32_REL_TOL * float(want.abs().max())
+               + SVD_X0_ULPS * f32_spacing(torch, start))
+        ratio[k] = float(((outs[1][k] - want).abs() / bar).max())
+    ok = (all(v <= 1 for v in ratio.values())
+          and all(all(d.values()) for d in dumps.values()))
+    print(f"[15a sampling engine] tiny engine {DEVICE} vs cpu (f32, TF32 "
+          f"off, {moved} all-zero parameters moved, noise and draws "
+          f"injected): max |err| / bar "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in ratio.items()})} "
+          f"(bar {SVD_F32_REL_TOL} of max|latents| + {SVD_X0_ULPS} f32 "
+          f"spacings at the entry's magnitude entering the first step: "
+          f"|x0|, the top inverted latent outside the inversion's mask) | "
+          f"blended latent dump (files, sigma ladder, last latent = "
+          f"result) {json.dumps(dumps)} | {card}", flush=True)
+    if not ok:
+        fail(f"main path 10's samplers on {DEVICE} disagree with the cpu")
+
+
+class BlendProbe(SvdProbe):
+    """``SvdProbe`` plus what ``svd_test --sampling blended|inversion``
+    calls: an event per inversion evaluation and the first one's raw
+    output, the last denoiser evaluation's input and output, the
+    sampler's arguments and result."""
+
+    def __init__(self, torch):
+        super().__init__(torch)
+        self.ev["inv"] = []
+        self.first_inv = self.last_eval = self.args = self.result = None
+
+    def attach(self, eng):
+        super().attach(eng)
+        denoise_fn, inv_fn = eng.denoise_fn, eng.inv_denoise_fn
+
+        def probed_denoise_fn():
+            dn = denoise_fn()
+
+            def run(x, s, c):
+                out = dn(x, s, c)
+                self.last_eval = (x, s, out)
+                return out
+            return run
+
+        def probed_inv_fn():
+            dn = inv_fn()
+
+            def run(x, s, c):
+                self.event("inv")
+                out = dn(x, s, c)
+                if self.first_inv is None:
+                    self.first_inv = out
+                return out
+            return run
+
+        def probed(fn):
+            def run(cond, uc, z, mask, **kw):
+                self.args = (cond, uc, z, mask)
+                self.torch.cuda.reset_peak_memory_stats()
+                self.result = fn(cond, uc, z, mask, **kw)
+                self.peak_gb["sample"] = max(
+                    self.peak_gb.get("sample", 0.0),
+                    self.torch.cuda.max_memory_allocated() / 1e9)
+                self.event("sample_end")
+                return self.result
+            return run
+
+        eng.denoise_fn = probed_denoise_fn
+        eng.inv_denoise_fn = probed_inv_fn
+        eng.sample_blended = probed(eng.sample_blended)
+        eng.sample_inversion = probed(eng.sample_inversion)
+
+
+def background_bar(torch, probe, mode, mask):
+    """The bar on max |final latent - background| outside the latent
+    mask, from the last step (sigma_hat = sigma_min; a v-scaling denoiser
+    D = c_skip x + c_out F with c_skip = 1 / (sigma^2 + 1), |c_out| <=
+    sigma; the Euler step to 0 returns D):
+    - blended: x enters as z + sigma n (n the renoise), so D - z =
+      (c_skip - 1) z + c_skip sigma n + c_out F_g: at most sigma^2 |z| +
+      sigma (BG_NORMAL_MAX + |F_g|), F_g the guided network output of
+      that evaluation;
+    - inversion: x enters as the first inverted latent, (sigma^2 + 1) z +
+      sigma sqrt(sigma^2 + 1) F_inv (F_inv the first inversion
+      evaluation's raw output), so D - z is at most 2 sigma^2 |z| + sigma
+      (sqrt(sigma^2 + 1) |F_inv| + |F|);
+    plus BG_ULPS f32 spacings at the background's magnitude. F is
+    recovered in f64 from the recorded evaluation, (D - c_skip x) /
+    c_out, and combined by the engine's guider."""
+    x, s, d = (t.double() for t in probe.last_eval)
+    sigma = float(s[0])
+    c_skip, c_out = 1 / (sigma ** 2 + 1), -sigma / math.sqrt(sigma ** 2 + 1)
+    f = (d - c_skip * x) / c_out
+    if mode == "blended":
+        f = probe.engine.guider.combine(f, s)
+    out = mask == 0
+    z_max = float(probe.args[2].double().abs()[out].max())
+    f_max = float(f.abs()[out].max())
+    spacing = float(f32_spacing(torch, torch.tensor(
+        z_max + sigma * BG_NORMAL_MAX)))
+    if mode == "blended":
+        return (sigma ** 2 * z_max + sigma * (BG_NORMAL_MAX + f_max)
+                + BG_ULPS * spacing), sigma, f_max
+    f_inv = float(probe.first_inv.double().abs()[out].max())
+    return (2 * sigma ** 2 * z_max + sigma * (
+        math.sqrt(sigma ** 2 + 1) * f_inv + f_max)
+        + BG_ULPS * spacing), sigma, max(f_max, f_inv)
+
+
+def background_reading(final, z, mask):
+    """(max |final - z| outside the mask, mean |final - z| inside)."""
+    diff = (final.double() - z.double()).abs()
+    return float(diff[mask == 0].max()), float(diff[mask > 0].mean())
+
+
+def phase_svd_sampling(torch, card, mode):
+    """Main path 10's svd_test CLI with ``--sampling blended`` (and
+    ``--dump_latents``) or ``--sampling inversion`` at main path 3's width
+    on a synthetic gs/ tree (1 scene, 1 ctrl, mode x1), counters zeroed
+    before: 14 finite frames, K4's launches, the background check and its
+    two planted faults, the seconds per part and the peak memory; returns
+    the record (and the CLI's output directories)."""
+    from PIL import Image
+
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.diffusion import edm
+    from multiview_inpaint_tpu_torch.pipelines import svd_test
+    from multiview_inpaint_tpu_torch.utils import synthetic
+
+    label = "15b" if mode == "blended" else "15c"
+    work = os.path.join(REPO, "build", f"smoke_svd_{mode}")
+    shutil.rmtree(work, ignore_errors=True)
+    root, out_root = os.path.join(work, "gs"), os.path.join(work, "out")
+    logdir, dump = os.path.join(work, "logs"), os.path.join(work, "latents")
+    synthetic.write_gs_tree(root, scene="scene_case", ctrl="ctrl_0",
+                            modes=("x1",), frames=SVD_FRAMES,
+                            size=(SVD_H, SVD_W), iteration=30000)
+    probe = BlendProbe(torch)
+    init_engine = svd_test.init_engine
+    info = {}
+
+    def init(*a, **kw):
+        t0 = time.perf_counter()
+        eng = init_engine(*a, **kw)
+        info["moved"] = perturb_zero_params(torch, eng, 7)
+        torch.cuda.synchronize()
+        info["init_s"] = time.perf_counter() - t0
+        probe.attach(eng)
+        return eng
+
+    argv = ["--data_root", root, "--logdir", logdir, "--out", out_root,
+            "--modes", "x1", "--num_frames", str(SVD_FRAMES), "--num_steps",
+            str(SVD_STEPS), "--size", str(SVD_H), str(SVD_W), "--sampling",
+            mode, "--device", DEVICE]
+    if mode == "blended":
+        argv += ["--dump_latents", dump]
+    svd_test.init_engine = init
+    try:
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        svd_test.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        svd_test.init_engine = init_engine
+    launches = dict(_kernels.LAUNCHES)
+    cond_ms, steps, decode_ms = probe.split()
+    inv_ms = (probe.ev["inv"][0].elapsed_time(probe.ev["step"][0])
+              if probe.ev["inv"] else 0.0)
+    out_dir = os.path.join(out_root, "scene_case", "ctrl_0", "x1")
+    pngs = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    finite = []
+    for p in pngs:
+        with Image.open(os.path.join(out_dir, p)) as im:
+            arr = np.asarray(im, np.float32)
+        finite.append(arr.shape == (SVD_H, SVD_W, 3)
+                      and bool(np.isfinite(arr).all()))
+    _, _, z, mask = probe.args
+    final = probe.result
+    checks = {}
+    if mode == "blended":
+        files = sorted(os.listdir(dump)) if os.path.isdir(dump) else []
+        want = [f"latent_{i:03d}_blended.npy" for i in range(SVD_STEPS)]
+        ladder = edm.edm_sigmas(SVD_STEPS).numpy()
+        checks[f"{SVD_STEPS} dumps"] = files == want + ["latent_sigmas.npy"]
+        checks["dumped sigmas = the run's sigma_hat ladder"] = (
+            checks[f"{SVD_STEPS} dumps"] and np.array_equal(np.load(
+                os.path.join(dump, "latent_sigmas.npy")), ladder))
+        if checks[f"{SVD_STEPS} dumps"]:
+            final = torch.from_numpy(np.load(os.path.join(dump, want[-1])))
+            checks["last dump = the sampled latents"] = torch.equal(
+                final, probe.result.cpu())
+    evals = SVD_STEPS * (1 if mode == "blended" else 2)
+    want_k4 = K4_PER_EVAL * evals
+    bar, sigma, f_max = background_bar(torch, probe, mode, mask)
+    reading, inside = background_reading(final.to(z.device), z, mask)
+    checks.update({
+        f"{SVD_FRAMES} frames written": len(pngs) == SVD_FRAMES,
+        f"frames finite, {SVD_H}x{SVD_W}": bool(finite) and all(finite),
+        f"K4 launched {want_k4} times": launches["flash_attn_fwd"]
+        == want_k4,
+        "no other kernel": sum(launches.values()) == launches[
+            "flash_attn_fwd"],
+        f"{SVD_STEPS} resampling evaluations": len(steps) == SVD_STEPS,
+        "background within its bar": reading <= bar,
+        f"inside the mask >= {BG_INSIDE_FACTOR:g}x the bar":
+            inside >= BG_INSIDE_FACTOR * bar})
+    # planted faults: the blend skipped (mask all ones), its mask inverted
+    cond, uc = probe.args[:2]
+    sample = (probe.engine.sample_blended if mode == "blended"
+              else probe.engine.sample_inversion)
+    faults = {}
+    for name, fmask in (("blend skipped", torch.ones_like(mask)),
+                        ("mask inverted", 1 - mask)):
+        probe.first_inv = None
+        gen = torch.Generator(device=DEVICE).manual_seed(29)
+        got = sample(cond, uc, z, fmask, generator=gen,
+                     num_steps=BG_FAULT_STEPS)
+        fbar = background_bar(torch, probe, mode, mask)[0]
+        faults[name] = (background_reading(got, z, mask)[0], fbar)
+    checks["planted faults fail the bar"] = all(r > b for r, b in
+                                                 faults.values())
+    clip_s = (cond_ms + inv_ms + sum(steps) + decode_ms) / 1e3
+    record = dict(launches=launches["flash_attn_fwd"], clip_s=clip_s,
+                  cli_s=cli_s, cond_ms=cond_ms, inversion_ms=inv_ms,
+                  sampling_ms=sum(steps), step_ms=statistics.median(steps)
+                  if steps else 0.0, decode_ms=decode_ms,
+                  peak_gb=dict(probe.peak_gb), background=reading,
+                  background_bar=bar, inside_mean=inside,
+                  faults={k: v[0] for k, v in faults.items()},
+                  work=work, out_dir=out_dir, grid_dir=os.path.join(
+                      logdir, "log_img", "test"))
+    fault_text = json.dumps({k: [float(f"{r:.4g}"), float(f"{b:.4g}")]
+                             for k, (r, b) in faults.items()})
+    split = (f"inversion pass {inv_ms:.1f} ms, resampling {sum(steps):.1f}"
+             f" ms" if mode == "inversion" else
+             f"sampling {sum(steps):.1f} ms")
+    print(f"[{label} main svd {mode}] svd_test --sampling {mode}"
+          f"{' --dump_latents' if mode == 'blended' else ''}, engine "
+          f"initialised in {info.get('init_s', 0):.1f} s "
+          f"({info.get('moved')} all-zero tensors moved), {SVD_FRAMES} "
+          f"frames at {SVD_H}x{SVD_W}, {SVD_STEPS} steps, in {cli_s:.1f} s | "
+          f"clip {clip_s:.2f} s: conditioning {cond_ms:.1f} ms, {split} "
+          f"(step median {record['step_ms']:.1f} ms, {evals} evaluations), "
+          f"VAE decode {decode_ms:.1f} ms | peak device memory (GB) "
+          f"{json.dumps({k: round(v, 2) for k, v in probe.peak_gb.items()})}"
+          f" | background outside the latent mask: max |final - z| "
+          f"{reading:.4g}, bar {bar:.4g} (sigma {sigma:.4g}, max|F| "
+          f"{f_max:.4g}); inside: mean {inside:.4g} | planted faults "
+          f"({BG_FAULT_STEPS} steps) reading / bar {fault_text}"
+          f" | launches {launches} | {json.dumps(checks)} | {card}",
+          flush=True)
+    probe.engine = probe.args = probe.last_eval = probe.first_inv = None
+    if not all(checks.values()):
+        fail(f"main path 10 (svd_test --sampling {mode}) checks failed: "
+             f"{checks}")
+    return record
+
+
+def phase_divide_test(card, runs):
+    """The divide_test CLI on the grid each of phases 15b and 15c wrote:
+    its frames equal the CLI's per-frame PNGs byte for byte, and the GIF
+    preview holds x1 reversed without its first frame (13 frames)."""
+    from multiview_inpaint_tpu_torch.pipelines import divide_test
+
+    checks = {}
+    for mode, rec in runs.items():
+        out = os.path.join(rec["work"], "divided")
+        t0 = time.perf_counter()
+        divide_test.main(["--grid_dir", rec["grid_dir"], "--out", out,
+                          "--items", "scene_case:ctrl_0:x1", "--frame_size",
+                          str(SVD_H), str(SVD_W), "--num_frames",
+                          str(SVD_FRAMES)])
+        secs = time.perf_counter() - t0
+        names = [f"{i:02d}.png" for i in range(SVD_FRAMES)]
+        same = []
+        for f in names:
+            a = os.path.join(out, "scene_case", "ctrl_0", "x1", f)
+            b = os.path.join(rec["out_dir"], f)
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                same.append(fa.read() == fb.read())
+        from PIL import Image
+        with Image.open(os.path.join(out, "vis_video", "scene_case",
+                                     "ctrl_0.gif")) as im:
+            n_gif = im.n_frames
+        checks[mode] = dict(frames_equal=all(same),
+                            gif_frames=n_gif == SVD_FRAMES - 1,
+                            seconds=round(secs, 2))
+    print(f"[15e divide_test] the grids of 15b and 15c split into "
+          f"{SVD_FRAMES} frames each, equal byte for byte to the CLI's "
+          f"per-frame PNGs, GIF previews of {SVD_FRAMES - 1} frames: "
+          f"{json.dumps(checks)} | {card}", flush=True)
+    if not all(c["frames_equal"] and c["gif_frames"]
+               for c in checks.values()):
+        fail(f"divide_test checks failed: {checks}")
+
+
+def _http(url, data=None):
+    """(status, content type, body) of one request to the demo server."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=data,
+                                 method="POST" if data else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+def _demo_image(path):
+    """A seeded smooth 512x384 colour field written as a PNG."""
+    from multiview_inpaint_tpu_torch.gs import scene_io
+    rng = np.random.default_rng(31)
+    yy, xx = np.meshgrid(np.linspace(0, 1, SVD_H), np.linspace(0, 1, SVD_W),
+                         indexing="ij")
+    c = rng.uniform(0.5, 3.0, (3, 2))
+    img = np.stack([0.5 + 0.4 * np.sin(2 * np.pi * (c[i, 0] * xx + c[i, 1]
+                                                    * yy) + i)
+                    for i in range(3)], -1)
+    scene_io.save_image(path, img)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def phase_demo_app(torch, card):
+    """Main path 10's server: ``demo_app.make_server`` on port 0 with
+    ``--device cuda`` at full width (2.94B random bf16 parameters made on
+    the card, every all-zero one moved; the UNet held in f32), /health,
+    the page, two POST /generate requests (the defaults, 25 steps and 14
+    frames; another seed at DEMO_STEPS steps) answered with 14-frame GIFs
+    that differ, K4 K4_PER_UNET_EVAL x steps times per request, the
+    engine initialised once, a num_frames=3 request answered with 500;
+    then one uncontrolled f32 denoiser evaluation (q and k x3) through K4
+    against the plain attention and two planted faults."""
+    import threading
+
+    from PIL import Image
+
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.diffusion import (attention_op,
+                                                       flash_attention)
+    from multiview_inpaint_tpu_torch.diffusion.transformer import (
+        CrossAttention)
+    from multiview_inpaint_tpu_torch.pipelines import demo_app
+    from multiview_inpaint_tpu_torch.pipelines import (
+        simple_video_sample as svs)
+
+    work = os.path.join(REPO, "build", "smoke_demo")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    png = _demo_image(os.path.join(work, "input.png"))
+    inits, captured = [], {}
+    init_engine, dn_factory = svs.init_engine, svs.uncontrolled_denoise_fn
+
+    def init(*a, **kw):
+        t0 = time.perf_counter()
+        eng = init_engine(*a, **kw)
+        moved = perturb_zero_params(torch, eng, 9)
+        torch.cuda.synchronize()
+        inits.append(dict(seconds=time.perf_counter() - t0, moved=moved,
+                          params=sum(p.numel() for p in eng.parameters())))
+        return eng
+
+    def capture(eng, cfg):
+        dn = dn_factory(eng, cfg)
+
+        def run(x, s, c):
+            captured.setdefault("cond", c)
+            return dn(x, s, c)
+        return run
+
+    svs.init_engine, svs.uncontrolled_denoise_fn = init, capture
+    demo_app._MODEL.clear()
+    srv = demo_app.make_server(demo_app.build_parser().parse_args(
+        ["--port", "0", "--device", DEVICE]))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    requests, gifs = [], []
+    try:
+        health = _http(base + "/health")
+        page = _http(base + "/")
+        for query, steps in ((("seed=23", SVD_STEPS)),
+                             (f"seed=24&num_steps={DEMO_STEPS}",
+                              DEMO_STEPS)):
+            _kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            code, ctype, body = _http(base + "/generate?" + query,
+                                      png)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            frames = size = None
+            if code == 200:
+                path = os.path.join(work, f"out_{len(gifs)}.gif")
+                with open(path, "wb") as f:
+                    f.write(body)
+                with Image.open(path) as im:
+                    frames, size = im.n_frames, im.size
+            gifs.append(body)
+            requests.append(dict(
+                steps=steps, status=code, type=ctype, frames=frames,
+                size=size, seconds=secs,
+                launches=_kernels.LAUNCHES["flash_attn_fwd"],
+                other_launches=sum(_kernels.LAUNCHES.values())
+                - _kernels.LAUNCHES["flash_attn_fwd"],
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        bad = _http(base + "/generate?num_frames=3", png)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+        svs.init_engine, svs.uncontrolled_denoise_fn = init_engine, dn_factory
+    checks = {
+        "health ok": health[0] == 200 and json.loads(health[2])["model"]
+        == "svd",
+        "page served": page[0] == 200 and b"Generate" in page[2],
+        "200 and a 14-frame 512x384 GIF each": all(
+            r["status"] == 200 and r["type"] == "image/gif"
+            and r["frames"] == SVD_FRAMES and r["size"] == (SVD_W, SVD_H)
+            for r in requests),
+        "the two GIFs differ": len(set(gifs)) == 2,
+        "engine initialised once": len(inits) == 1,
+        f"K4 {K4_PER_UNET_EVAL} x steps per request, no other kernel": all(
+            r["launches"] == K4_PER_UNET_EVAL * r["steps"]
+            and r["other_launches"] == 0 for r in requests),
+        "num_frames=3 answered with 500": bad[0] == 500,
+    }
+    init_s = inits[0]["seconds"] if inits else 0.0
+    print(f"[15f main demo_app] server on port {srv.server_address[1]}, "
+          f"{inits[0]['params'] if inits else 0} parameters initialised on "
+          f"the card in {init_s:.1f} s at the first request "
+          f"({inits[0]['moved'] if inits else 0} all-zero tensors moved) | "
+          f"requests: " + "; ".join(
+              f"{r['steps']} steps: {r['status']} {r['type']} "
+              f"{r['frames']} frames {r['size']}, {r['seconds']:.2f} s "
+              f"(K4 {r['launches']}, peak {r['peak_gb']:.2f} GB)"
+              for r in requests)
+          + f" | first request less the model load "
+          f"{requests[0]['seconds'] - init_s:.2f} s | bad request "
+          f"{bad[0]}: {bad[2][:80]!r} | {json.dumps(checks)} | {card}",
+          flush=True)
+    if not all(checks.values()):
+        fail(f"main path 10 (demo_app) checks failed: {checks}")
+
+    eng, cfg = demo_app._MODEL["model"]
+    cond = captured["cond"]
+    with torch.no_grad():
+        for m in eng.unet.modules():
+            if isinstance(m, CrossAttention):
+                m.to_q.weight.mul_(SVD_QK_GAIN)
+                m.to_k.weight.mul_(SVD_QK_GAIN)
+    dn = svs.uncontrolled_denoise_fn(eng, cfg)
+    shape = (SVD_FRAMES, SVD_H // 8, SVD_W // 8, 4)
+    sigma = torch.full((2 * SVD_FRAMES,), cfg.sigma_max, device=DEVICE)
+    real = attention_op.flash_attention
+    ref = flash_attention.flash_attention_ref
+
+    def evaluate(seed, attend):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        x = torch.randn(shape, generator=gen, device=DEVICE) * float(
+            (1 + cfg.sigma_max ** 2) ** 0.5)
+        attention_op.flash_attention = attend
+        try:
+            _kernels.reset_launches()
+            with torch.no_grad():
+                out = dn(torch.cat([x, x]), sigma, cond)
+            torch.cuda.synchronize()
+        finally:
+            attention_op.flash_attention = real
+        return out, _kernels.LAUNCHES["flash_attn_fwd"]
+
+    t0 = time.perf_counter()
+    out_k4, n_k4 = evaluate(11, real)
+    eval_s = time.perf_counter() - t0
+    out_plain, n_plain = evaluate(11, ref)
+    out_drop, _ = evaluate(11, lambda q, k, v, h, sm: ref(
+        q, k[:, FAULT_KEYS:], v[:, FAULT_KEYS:], h, sm))
+    out_base, _ = evaluate(11, lambda q, k, v, h, sm: real(
+        q, k, v, h, sm * math.log(2)))
+    out_seed, _ = evaluate(12, real)
+    err, drop, base = (_rms(o, out_plain) for o in (out_k4, out_drop,
+                                                     out_base))
+    seed_diff = _rms(out_seed, out_k4)
+    bar = DEMO_EVAL_RMS_TOL
+    print(f"[15f demo eval] one uncontrolled f32 denoiser evaluation at "
+          f"sigma {cfg.sigma_max} (batch {2 * SVD_FRAMES}, UNet weights "
+          f"{next(eng.unet.input_blocks.parameters()).dtype}), q and k x"
+          f"{SVD_QK_GAIN}, {eval_s:.2f} s: K4 launches {n_k4} (on "
+          f"{cond['concat'].dtype} operands), with attention_op's K4 call "
+          f"patched to the plain version {n_plain} | relative rms diff "
+          f"from the plain-attention output: K4 {err:.4g}, bar {bar}; "
+          f"planted faults: first key tile dropped {drop:.4g}, softmax "
+          f"base 2 {base:.4g} | another noise seed moves it by "
+          f"{seed_diff:.4g} (bar at most a tenth: {bar <= seed_diff / 10})"
+          f" | all finite: {bool(torch.isfinite(out_k4).all())} | {card}",
+          flush=True)
+    demo_app._MODEL.clear()
+    del eng, cond, dn
+    if not (n_k4 == K4_PER_UNET_EVAL and n_plain == 0 and err <= bar
+            and bar < min(drop, base) and bar <= seed_diff / 10
+            and torch.isfinite(out_k4).all()):
+        fail("the f32 uncontrolled denoiser through K4 disagrees with the "
+             "plain attention, or the bar does not separate the planted "
+             "faults")
+    return dict(requests=[{k: r[k] for k in ("steps", "seconds",
+                                              "launches", "peak_gb")}
+                          for r in requests], init_s=init_s,
+                eval_rms=err, fault_rms=[drop, base], seed_rms=seed_diff)
 
 
 def _rms(a, b):
@@ -4489,6 +5135,14 @@ def main():
     phase_svd_eval(torch, card, probe)
     del probe   # main path 3's engine
     torch.cuda.empty_cache()
+    phase_sampling_engine(torch, card)
+    mp10 = {mode: phase_svd_sampling(torch, card, mode)
+            for mode in ("blended", "inversion")}
+    torch.cuda.empty_cache()
+    k4_10 = phase_k4(torch, card, K4_10_SHAPES, "15d")
+    phase_divide_test(card, mp10)
+    demo = phase_demo_app(torch, card)
+    torch.cuda.empty_cache()
     k5 = phase_k5(torch, card)
     phase_k5_grad(torch, card)
     phase_svd_train_step(torch)
@@ -4573,7 +5227,14 @@ def main():
              replaces="multiview_inpaint_tpu/diffusion/"
                       "flash_attention.py:55",
              launches=launches_svd["flash_attn_fwd"], **k4,
-             main_path_7=path7("flash_attn_fwd")),
+             main_path_7=path7("flash_attn_fwd"),
+             main_path_10=dict(
+                 launches=dict(blended=mp10["blended"]["launches"],
+                               inversion=mp10["inversion"]["launches"],
+                               demo=[r["launches"]
+                                     for r in demo["requests"]]),
+                 svd_ds1_batch14=k4_10[0], svd_ds2_batch14=k4_10[1],
+                 unet_ds1_f32=k4_10[2])),
         # K5 at the ds1 shape of main path 4, the path that runs it; one
         # launch is the dk/dv kernel and the dq kernel back to back.
         dict(name="flash_attn_bwd", route="cuda",

@@ -1,5 +1,6 @@
 """EDM math: the Karras sigma ladder, the legacy DDPM ladder, the denoiser
-scalings, ``denoise``, sigma sampling and loss weighting.
+scalings, ``denoise`` and its raw form ``raw_net_out``, sigma sampling
+and loss weighting.
 
 Counterpart of ``multiview_inpaint_tpu/diffusion/edm.py`` (the
 reference's ``discretizer.py`` EDMDiscretization(0.002, 700, rho 7),
@@ -89,6 +90,13 @@ def denoise(net_apply, x, sigma, scaling="v_edm_cnoise"):
     shape = (-1,) + (1,) * (x.ndim - 1)
     out = net_apply(x * c_in.reshape(shape), c_noise)
     return out * c_out.reshape(shape) + x * c_skip.reshape(shape)
+
+
+def raw_net_out(net_apply, x, sigma, scaling="v_edm_cnoise"):
+    """The denoiser's ``inv_sample``: the network's raw output
+    net(x c_in, c_noise), which the DDIM-style inversion sampler reads."""
+    _, _, c_in, c_noise = SCALINGS[scaling](sigma)
+    return net_apply(x * c_in.reshape((-1,) + (1,) * (x.ndim - 1)), c_noise)
 
 
 # --- sigma sampling and loss weighting ----------------------------------

@@ -12,7 +12,12 @@ not a parameter pytree beside it.
 - ``denoise_fn``: v-scaling with the EDM c_noise around ``apply_model``.
 - ``sample``: 25-step Euler-EDM over the Karras ladder (sigma_max 700)
   with the per-frame LinearPredictionGuider (the uc|c batch of 2 x 14
-  frames in one evaluation).
+  frames in one evaluation); ``sample_blended`` (the reference's
+  VideoDiffusionEngine2: the background latents renoised and blended in
+  at every step) and ``sample_inversion`` (EulerEDMSampler3: DDIM-style
+  inversion of the background latents through ``inv_denoise_fn``, the raw
+  network output, then blended resampling; both passes through the no-op
+  LinearPredictionGuider2, so each evaluation is one batch of 14 frames).
 - ``init_engine`` builds every network on the requested device and copies
   the UNet's encoder and middle into the ControlNet trunk
   (``init_controlnet_from_unet``).
@@ -31,11 +36,12 @@ Precision: the ControlNet and the UNet's label embedding hold
 ``param_dtype`` weights (the master weights of training) and are cast to
 the compute type per call, as the JAX engine casts all its weights; the
 rest of the UNet holds its weights in the compute type, rounded through
-the parameter type first (the same values the JAX cast gives). The CLIP
+the parameter type first (the same values the JAX cast gives). An f32
+engine keeps the AlphaBlenders' mix factors in the parameter type, as
+JAX computes their sigmoid (``_STORED``). The CLIP
 tower stores ``param_dtype`` weights and computes in f32 on the f32
 frames; the VAE is f32. ``cfg.remat`` recomputes blocks in the backward
-pass (``UNetConfig.remat``). The blended and inversion samplers wait for
-a later slice.
+pass (``UNetConfig.remat``).
 """
 
 from __future__ import annotations
@@ -55,11 +61,18 @@ from .clip_vit import CLIPVisionTower, ViTConfig
 from .conditioners import (Conditioner, ConditionerConfig,
                            repeat_cond_per_frame)
 from .controlnet import ControlNet
-from .guiders import LinearPredictionGuider
+from .guiders import LinearPredictionGuider, LinearPredictionGuider2
+from .layers import AlphaBlender
 from .unet import UNetConfig, VideoUNet
 from .vae import AutoencoderKL, VAEConfig
 
 SCALE_FACTOR = 0.18215
+# In f32 the JAX engine hands the networks their stored parameters
+# (``engine.py:31-36``) and flax promotes per operation, so a layer that
+# computes on a parameter alone computes in its stored type: the
+# AlphaBlender's sigmoid(mix_factor) of bf16-stored weights is a bf16
+# sigmoid. These parameters keep the stored type in an f32 engine.
+_STORED = ("mix_factor",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +126,11 @@ class SVDEngine(nn.Module):
         for name, child in self.unet.named_children():
             if name != "label_emb":
                 child.to(self.compute_dtype)
+        if self.compute_dtype == torch.float32:
+            for m in self.unet.modules():
+                if isinstance(m, AlphaBlender) and hasattr(m, "mix_factor"):
+                    m.mix_factor.data = m.mix_factor.data.to(
+                        _dtype(param_dtype))
         self.requires_grad_(False)   # frozen until trainable_params
         self.guider = LinearPredictionGuider(
             max_scale=cfg.cfg_max, min_scale=cfg.cfg_min,
@@ -188,10 +206,12 @@ class SVDEngine(nn.Module):
     def _cast_call(self, module: nn.Module, *args, **kwargs):
         """``module`` with its weights not in the compute type (the
         ``param_dtype`` masters) cast to it for this call, differentiably;
-        the module itself when none is."""
+        the module itself when none is. In f32 the AlphaBlenders' mix
+        factors stay as stored (``_STORED``)."""
         dt = self.compute_dtype
         cast = {k: p.to(dt) for k, p in module.named_parameters()
-                if p.dtype != dt}
+                if p.dtype != dt and not (dt == torch.float32
+                                          and k.endswith(_STORED))}
         if not cast:
             return module(*args, **kwargs)
         return functional_call(module, cast, args, kwargs)
@@ -202,32 +222,56 @@ class SVDEngine(nn.Module):
         crossattn / vector / concat and the control hint (image size).
         Differentiable in the trainable weights; sampling calls it under
         ``torch.no_grad``."""
-        cfg = self.cfg
-        t = cfg.num_frames
-        bt = x.shape[0]
-        ind = torch.zeros((bt // t, t), device=x.device)
-        dt = self.compute_dtype
-
-        def cast(key):
-            v = cond.get(key)
-            return None if v is None else v.to(dt)
-
-        xc = torch.cat([x, cond["concat"]], dim=-1).to(dt)
-        ctx, vec = cast("crossattn"), cast("vector")
+        xc, ctx, vec, kw = self._inputs(x, cond)
         control = self._cast_call(
-            self.controlnet, xc, cond["control_hint"].to(dt), t_noise, ctx,
-            vec, num_video_frames=t, image_only_indicator=ind)
-        control = [c * cfg.control_scales for c in control]
-        out = self._cast_call(self.unet, xc, t_noise, ctx, vec,
-                              num_video_frames=t, image_only_indicator=ind,
-                              control=control)
-        return out.float()
+            self.controlnet, xc, cond["control_hint"].to(self.compute_dtype),
+            t_noise, ctx, vec, **kw)
+        control = [c * self.cfg.control_scales for c in control]
+        return self._cast_call(self.unet, xc, t_noise, ctx, vec, **kw,
+                               control=control).float()
+
+    def apply_unet(self, x: torch.Tensor, t_noise: torch.Tensor,
+                   cond: Dict) -> torch.Tensor:
+        """The UNet alone, no ControlNet (``simple_video_sample``'s
+        uncontrolled denoiser), inputs as ``apply_model``'s, output f32."""
+        xc, ctx, vec, kw = self._inputs(x, cond)
+        return self._cast_call(self.unet, xc, t_noise, ctx, vec,
+                               **kw).float()
+
+    def _inputs(self, x, cond):
+        """The networks' inputs in the compute type: x ++ concat, the
+        crossattn and vector conditioning, and the frame keywords."""
+        t = self.cfg.num_frames
+        dt = self.compute_dtype
+        ind = torch.zeros((x.shape[0] // t, t), device=x.device)
+        xc = torch.cat([x, cond["concat"]], dim=-1).to(dt)
+        ctx, vec = (None if cond.get(k) is None else cond[k].to(dt)
+                    for k in ("crossattn", "vector"))
+        return xc, ctx, vec, dict(num_video_frames=t,
+                                  image_only_indicator=ind)
 
     def denoise_fn(self):
         def denoise(x, sigmas, cond):
             return edm.denoise(lambda xs, c_noise: self.apply_model(
                 xs, c_noise, cond), x, sigmas, scaling=self.cfg.scaling)
         return denoise
+
+    def inv_denoise_fn(self):
+        def denoise(x, sigmas, cond):
+            return edm.raw_net_out(lambda xs, c_noise: self.apply_model(
+                xs, c_noise, cond), x, sigmas, scaling=self.cfg.scaling)
+        return denoise
+
+    def _ladder(self, num_steps):
+        cfg = self.cfg
+        sigmas = edm.edm_sigmas(num_steps or cfg.num_steps, cfg.sigma_min,
+                                cfg.sigma_max, device=self.device)
+        return torch.cat([sigmas, sigmas.new_zeros(1)])
+
+    def _noise(self, shape, noise, generator):
+        return (noise.to(self.device, torch.float32) if noise is not None
+                else torch.randn(shape, generator=generator,
+                                 device=self.device))
 
     @torch.no_grad()
     def sample(self, cond: Dict, uc: Dict,
@@ -237,16 +281,46 @@ class SVDEngine(nn.Module):
                num_steps: Optional[int] = None) -> torch.Tensor:
         """Euler-EDM from ``noise`` (a standard normal of the latent shape;
         drawn from ``generator`` when not given) to clean latents."""
+        return samplers.euler_edm_sample(
+            self.denoise_fn(), self._noise(latent_shape, noise, generator),
+            cond, uc, self._ladder(num_steps), guider=self.guider,
+            generator=generator)
+
+    @torch.no_grad()
+    def sample_blended(self, cond: Dict, uc: Dict, z: torch.Tensor,
+                       mask: torch.Tensor,
+                       noise: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None,
+                       num_steps: Optional[int] = None,
+                       renoise=None) -> torch.Tensor:
+        """The latent-blending path: Euler-EDM from ``noise`` (or a draw
+        of z's shape) with the background latents ``z``, renoised each
+        step (``renoise``, one standard normal per step, or drawn from
+        ``generator``), kept where ``mask`` is 0."""
+        return samplers.euler_edm_sample_blended(
+            self.denoise_fn(), self._noise(z.shape, noise, generator), cond,
+            uc, self._ladder(num_steps), z, mask, guider=self.guider,
+            generator=generator, renoise=renoise)
+
+    @torch.no_grad()
+    def sample_inversion(self, cond: Dict, uc: Dict, z: torch.Tensor,
+                         mask: torch.Tensor,
+                         noise: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None,
+                         num_steps: Optional[int] = None) -> torch.Tensor:
+        """The DDIM-inversion resampling path: z inverted up the ladder,
+        then Euler-EDM from ``noise`` (or a draw of z's shape) blended
+        with the inverted latents where ``mask`` is 0, both passes
+        through LinearPredictionGuider2 (c only, no CFG batch)."""
         cfg = self.cfg
-        dev = self.device
-        sigmas = edm.edm_sigmas(num_steps or cfg.num_steps, cfg.sigma_min,
-                                cfg.sigma_max, device=dev)
-        sigmas = torch.cat([sigmas, sigmas.new_zeros(1)])
-        x = (noise.to(dev, torch.float32) if noise is not None else
-             torch.randn(latent_shape, generator=generator, device=dev))
-        return samplers.euler_edm_sample(self.denoise_fn(), x, cond, uc,
-                                         sigmas, guider=self.guider,
-                                         generator=generator)
+        guider2 = LinearPredictionGuider2(
+            max_scale=cfg.cfg_max, min_scale=cfg.cfg_min,
+            num_frames=cfg.num_frames, additional_cond_keys=("control_hint",))
+        return samplers.euler_edm_sample_inversion(
+            self.denoise_fn(), self.inv_denoise_fn(),
+            self._noise(z.shape, noise, generator), cond, uc,
+            self._ladder(num_steps), z, mask, guider=guider2,
+            inv_guider=guider2, generator=generator)
 
     # --- training --------------------------------------------------------
     def loss(self, latents: torch.Tensor, cond: Dict,

@@ -80,7 +80,9 @@ class AlphaBlender(nn.Module):
             a = torch.tensor(self.alpha, dtype=torch.float32,
                              device=x_spatial.device)
         else:
-            a = torch.sigmoid(self.mix_factor)[0]
+            # XLA's sigmoid: 1 / (1 + exp(-x)), each step rounded to the
+            # mix factor's type (torch.sigmoid rounds a bf16 one once)
+            a = (1 / (1 + torch.exp(-self.mix_factor)))[0]
             if self.merge_strategy == "learned_with_images":
                 if image_only_indicator is None:
                     raise ValueError("learned_with_images needs the "

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..diffusion import checkpoint
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 # VGG16 conv plan: (out_channels, layers) per stage; relu at each conv,
 # maxpool between stages. LPIPS taps the last relu of each stage.
@@ -109,10 +110,11 @@ def import_torch_weights(vgg_state: Dict, lpips_state: Dict
     return sd
 
 
-def load_lpips_npz(path: str, device="cpu") -> LPIPS:
+def load_lpips_npz(path: str, device=DEFAULT_DEVICE) -> LPIPS:
     """The LPIPS weights file ``vae_finetune --lpips_ckpt`` reads, an npz
     whose ``params`` entry is the pickled JAX params tree, as a frozen
-    ``LPIPS`` on ``device``."""
+    ``LPIPS`` on ``device`` (the card by default; raises without one)."""
+    device = resolve_device(device)
     with np.load(path, allow_pickle=True) as z:
         tree = z["params"].item()
     model = LPIPS(device=device)

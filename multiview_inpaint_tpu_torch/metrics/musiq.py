@@ -40,6 +40,7 @@ from torch import nn
 
 from ..diffusion import checkpoint
 from ..diffusion.clip_vit import resize_bilinear
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 LN_EPS = 1e-6
 
@@ -181,11 +182,12 @@ class MUSIQ(nn.Module):
 class MUSIQScorer:
     """numpy [H, W, 3] in [0, 1] -> float, on ``device``; ``params`` are
     JAX params (a nested tree or flat ``{"a/b": ndarray}``, as
-    ``checkpoint.load_params`` reads the JAX npz)."""
+    ``checkpoint.load_params`` reads the JAX npz); ``device`` defaults to
+    the card and raises without one."""
 
     def __init__(self, params: Dict, cfg: MUSIQConfig = MUSIQConfig(),
-                 device="cpu"):
-        self.device = torch.device(device)
+                 device=DEFAULT_DEVICE):
+        self.device = resolve_device(device)
         self.model = MUSIQ(cfg, device=self.device)
         self.model.load_state_dict(state_dict_from_jax(
             checkpoint.flatten_tree(params)))

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..diffusion import checkpoint
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 _CHANNELS = (32, 64, 128, 256, 512)
 PATCH = 32
@@ -81,10 +82,11 @@ class WaDIQaMNR(nn.Module):
 class WaDIQaMScorer:
     """numpy [H, W, 3] in [0, 1] -> float, on ``device``; ``params`` are
     JAX params (a nested tree or flat ``{"a/b": ndarray}``, as
-    ``checkpoint.load_params`` reads the JAX npz)."""
+    ``checkpoint.load_params`` reads the JAX npz); ``device`` defaults to
+    the card and raises without one."""
 
-    def __init__(self, params: Dict, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, params: Dict, device=DEFAULT_DEVICE):
+        self.device = resolve_device(device)
         self.model = WaDIQaMNR(device=self.device)
         self.model.load_state_dict(checkpoint.flax_to_torch(
             checkpoint.flatten_tree(params)))

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..diffusion.clip_vit import _resize, _triangle, resize_bicubic
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -324,11 +325,13 @@ def infer_config(sd: Dict) -> DPTConfig:
 
 
 def load_dpt_torch(path: str, cfg: Optional[DPTConfig] = None,
-                   device="cpu") -> Tuple[DPTConfig, DPTDepth]:
+                   device=DEFAULT_DEVICE) -> Tuple[DPTConfig, DPTDepth]:
     """A torch ``DPTForDepthEstimation`` checkpoint file (a bare state
     dict or ``{"state_dict": ...}``, optionally with a ``"config"``
-    entry) -> (cfg, model on ``device``); the geometry is read off the
-    tensor shapes when neither ``cfg`` nor the file gives it."""
+    entry) -> (cfg, model on ``device``, the card by default, which
+    raises without one); the geometry is read off the tensor shapes when
+    neither ``cfg`` nor the file gives it."""
+    device = resolve_device(device)
     obj = torch.load(path, map_location="cpu", weights_only=True)
     sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
     if cfg is None and isinstance(obj, dict) and "config" in obj:

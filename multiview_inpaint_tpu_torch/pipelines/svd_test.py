@@ -4,18 +4,26 @@ grids.
     python -m multiview_inpaint_tpu_torch.pipelines.svd_test \\
         --data_root gs [--ctrl_ckpt ctrl.npz|ctrl.pth] \\
         [--base_ckpt svd.npz|svd.safetensors|svd.pth] \\
-        [--out gs/inpainted] \\
-        [--device cuda|cpu] [--tiny_model]
+        [--out gs/inpainted] [--sampling plain|blended|inversion] \\
+        [--dump_latents DIR] [--device cuda|cpu] [--tiny_model]
 
-Port of ``multiview_inpaint_tpu/pipelines/svd_test.py``, plain sampling:
-for every (scene, ctrl, mode) item of the gs/ directory contract, encode
-the conditioning frame (CLIP tokens, VAE latents, the fourier vector) and
-take the 7-channel control hint, run the 25-step Euler-EDM sampler with
-the per-frame CFG 1.0 -> 2.5 (the ControlNet-augmented UNet on the uc|c
-batch of 28 frames, its long self-attention through the flash-attention
-kernel on CUDA), decode with the temporal VideoDecoder, and write the
-reference-compatible 4x4 grid (``<logdir>/log_img/test/samples_...png``)
-and the frames under ``inpainted/<scene>/<ctrl>/<mode>/NN.png``.
+Port of ``multiview_inpaint_tpu/pipelines/svd_test.py``: for every
+(scene, ctrl, mode) item of the gs/ directory contract, encode the
+conditioning frame (CLIP tokens, VAE latents, the fourier vector) and
+take the 7-channel control hint, sample, decode with the temporal
+VideoDecoder, and write the reference-compatible 4x4 grid
+(``<logdir>/log_img/test/samples_...png``) and the frames under
+``inpainted/<scene>/<ctrl>/<mode>/NN.png``. ``--sampling plain`` runs the
+25-step Euler-EDM sampler with the per-frame CFG 1.0 -> 2.5 (the
+ControlNet-augmented UNet on the uc|c batch of 28 frames, its long
+self-attention through the flash-attention kernel on CUDA); ``blended``
+(VideoDiffusionEngine2) blends the item's encoded frames, renoised each
+step, into the latents outside its masks (resized to the latent grid by
+``jax.image.resize``'s nearest rule); ``inversion`` (EulerEDMSampler3)
+inverts those latents up the ladder first and blends the inverted latent
+of each step in, each evaluation one batch of 14 frames (c only).
+``--dump_latents DIR`` writes every sampler step's latent as ``.npy``
+(``samplers.latent_dump``).
 
 Weights: ``--base_ckpt`` (UNet, VAE, CLIP) and ``--ctrl_ckpt`` (the
 ControlNet) read the JAX package's npz layout through
@@ -23,8 +31,10 @@ ControlNet) read the JAX package's npz layout through
 ``.pth`` and ``.ckpt`` files in the reference's torch key space directly;
 without them the weights are random from ``--seed``. Random numbers (the
 initial noise, the conditioning augmentation's noise) come from a
-``torch.Generator`` seeded with ``--seed``. Not offered yet: ``--sampling
-blended|inversion``, ``--shard_frames`` and ``--dump_latents``.
+``torch.Generator`` seeded with ``--seed``, and so do the blended
+sampler's per-step renoise draws. The JAX CLI's ``--shard_frames``
+(frames sharded over devices) is not offered: it waits for the port's
+multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from ..data.svd_dataset import GSVideoForwardDataset
 from ..diffusion import checkpoint as ckpt
 from ..diffusion.engine import EngineConfig, init_engine
 from ..gs import scene_io
+from ..guidance.sds import resize_nearest
 from ..utils.device import resolve_device
 
 
@@ -120,8 +131,17 @@ def run(args):
         cond = eng.prepare_cond(batch, aug_noise=aug)
         uc = eng.prepare_cond(batch, unconditional=True)
         uc["control_hint"] = cond["control_hint"]
-        z = eng.sample(cond, uc, latent_shape=(t, h8, w8, 4),
-                       generator=gen)
+        if args.sampling in ("blended", "inversion"):
+            # background latents and the latent mask (1 = resample)
+            bg_z = eng.encode_first_stage(batch["jpg"])
+            m = resize_nearest(batch["masks"][..., 0], (h8, w8))[..., None]
+            m = m.expand(bg_z.shape)
+            fn = (eng.sample_blended if args.sampling == "blended"
+                  else eng.sample_inversion)
+            z = fn(cond, uc, bg_z, m, generator=gen)
+        else:
+            z = eng.sample(cond, uc, latent_shape=(t, h8, w8, 4),
+                           generator=gen)
         frames = eng.decode_first_stage(z, timesteps=t).cpu().numpy()
         name = f"samples_gs-{index:06d}_e-000000_b-{index:06d}.png"
         scene_io.save_image(os.path.join(grid_dir, name), to_grid(frames))
@@ -148,6 +168,11 @@ def main(argv=None):
     p.add_argument("--size", type=int, nargs=2, default=[512, 384])
     p.add_argument("--modes", nargs="+", default=["x1", "x2"])
     p.add_argument("--iteration", type=int, default=30000)
+    p.add_argument("--sampling", default="plain",
+                   choices=["plain", "blended", "inversion"],
+                   help="plain=SVDEngine, blended=VideoDiffusionEngine2 "
+                        "per-step latent blending, inversion="
+                        "EulerEDMSampler3 DDIM-inversion resampling")
     p.add_argument("--seed", type=int, default=23)
     p.add_argument("--param_dtype", default="bfloat16",
                    choices=["float32", "bfloat16"],
@@ -157,8 +182,18 @@ def main(argv=None):
                    choices=["float32", "bfloat16"])
     p.add_argument("--tiny_model", action="store_true",
                    help="debug-size model for smoke tests")
+    p.add_argument("--dump_latents", default=None, metavar="DIR",
+                   help="debug: write every sampler step's latent as "
+                        ".npy under DIR (the reference EDMSampler3's "
+                        "np.save affordance, sampling.py:271-354)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    run(p.parse_args(argv))
+    args = p.parse_args(argv)
+    if args.dump_latents:
+        from ..diffusion.samplers import latent_dump
+        with latent_dump(args.dump_latents):
+            run(args)
+    else:
+        run(args)
 
 
 if __name__ == "__main__":

@@ -430,6 +430,84 @@ def test_cuda_tiny_svd_engine_matches_cpu():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["blended", "inversion"])
+def test_cuda_tiny_blended_and_inversion_samples_match_cpu(mode):
+    """The tiny SVD engine's ``sample_blended`` / ``sample_inversion`` (2
+    steps) on CUDA against the same weights on the CPU, the same noise
+    and renoise draws, f32 with TF32 off: the latents within 1e-4 of
+    their largest magnitude plus 4 f32 spacings at each entry's magnitude
+    entering the first step (|x0| = sqrt(1 + 700^2) |noise|; for the
+    inversion the top inverted latent outside the mask)."""
+    _require_cuda()
+    import argparse
+
+    from multiview_inpaint_tpu_torch.diffusion import engine, samplers
+    from multiview_inpaint_tpu_torch.pipelines import svd_test
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = svd_test._engine_config(argparse.Namespace(
+            tiny_model=True, num_frames=3, num_steps=2))
+        cpu = engine.init_engine(cfg, seed=0, device="cpu")
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for p in cpu.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=gen))
+        gpu = engine.init_engine(cfg, seed=1, device="cuda")
+        gpu.load_reference_state_dict(cpu.reference_state_dict())
+        rng = np.random.default_rng(6)
+        frame = rng.uniform(-1, 1, (1, 64, 48, 3)).astype(np.float32)
+        batch = {"cond_frames_without_noise": frame, "cond_frames": frame,
+                 "fps_id": np.array([6.0], np.float32),
+                 "motion_bucket_id": np.array([127.0], np.float32),
+                 "cond_aug": np.array([0.0], np.float32),
+                 "control_hint": rng.uniform(0, 1, (3, 64, 48, 7)).astype(
+                     np.float32)}
+        lat = (3, 8, 6, 4)
+        noise, z = (torch.from_numpy(rng.normal(size=lat).astype(
+            np.float32)) for _ in range(2))
+        renoise = [torch.from_numpy(rng.normal(size=lat).astype(np.float32))
+                   for _ in range(2)]
+        mask = torch.zeros(lat)
+        mask[:, 2:6, 1:4] = 1.0
+        outs, tops = [], []
+        for eng, dev in ((cpu, "cpu"), (gpu, "cuda")):
+            b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            c = eng.prepare_cond(b)
+            uc = eng.prepare_cond(b, unconditional=True)
+            uc["control_hint"] = c["control_hint"]
+            args = (c, uc, z.to(dev), mask.to(dev))
+            inverted = []
+            prev = samplers.set_latent_debug_hook(
+                lambda tag, s, x: inverted.append(x)
+                if tag == "invert" else 0)
+            try:
+                if mode == "blended":
+                    out = eng.sample_blended(*args, noise=noise,
+                                             num_steps=2, renoise=renoise)
+                else:
+                    out = eng.sample_inversion(*args, noise=noise,
+                                               num_steps=2)
+            finally:
+                samplers.set_latent_debug_hook(prev)
+            outs.append(out.cpu())
+            tops.append(torch.from_numpy(inverted[-1]) if inverted else None)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    x0 = samplers.prepare_x(noise, torch.tensor([cfg.sigma_max])).abs()
+    start = (x0 if mode == "blended"
+             else mask * x0 + (1 - mask) * tops[0].abs())
+    spacing = torch.ldexp(torch.ones_like(start),
+                          torch.frexp(start).exponent - 24)
+    assert torch.isfinite(outs[1]).all()
+    assert ((outs[1] - outs[0]).abs()
+            <= 1e-4 * float(outs[0].abs().max()) + 4 * spacing).all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [
     ((2, 768, 2, 64), torch.bfloat16), ((1, 256, 1, 128), torch.bfloat16),
     ((2, 256, 3, 32), torch.float32)] + [

@@ -127,7 +127,7 @@ def test_load_dpt_torch_matches_jax(pair, tmp_path, monkeypatch):
     path = str(tmp_path / "dpt.pth")
     torch.save({"state_dict": _hf_state_dict(pair)}, path)
     _abstract_init(monkeypatch)
-    cfg, model = tdpt.load_dpt_torch(path)
+    cfg, model = tdpt.load_dpt_torch(path, device="cpu")
     jcfg, _, jparams = jdpt.load_dpt_torch(path)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     assert cfg.out_indices == (0, 1, 2, 3) and not model.training

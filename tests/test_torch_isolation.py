@@ -9,6 +9,7 @@ import subprocess
 import sys
 import textwrap
 
+import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,7 +41,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "pipelines.svd_train", "metrics.metrics", "metrics.lpips",
             "metrics.musiq", "metrics.wadiqam", "pipelines.cmp",
             "diffusion.regularizers", "diffusion.autoencoder_loss",
-            "pipelines.vae_finetune")}
+            "pipelines.vae_finetune", "diffusion.api", "diffusion.safety",
+            "pipelines.divide_test", "pipelines.simple_video_sample",
+            "pipelines.demo_app")}
         print(len(mods), bad, sorted(slices - set(mods)))
         sys.exit(1 if bad or len(mods) < 35 or not slices <= set(mods)
                  else 0)
@@ -58,10 +61,9 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
             RenderCamera, render)
         from multiview_inpaint_tpu_torch.gs import checkpoint
         from multiview_inpaint_tpu_torch.pipelines import render as cli
-        from multiview_inpaint_tpu_torch.pipelines import (cmp, svd_test,
-                                                           svd_train,
-                                                           train_gs,
-                                                           vae_finetune)
+        from multiview_inpaint_tpu_torch.pipelines import (
+            cmp, demo_app, simple_video_sample, svd_test, svd_train,
+            train_gs, vae_finetune)
         from multiview_inpaint_tpu_torch.diffusion import engine
         from multiview_inpaint_tpu_torch.utils import synthetic
         params = synthetic.make_gt_gaussians(8, device="cpu")
@@ -80,7 +82,11 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
                      lambda: engine.init_engine(),
                      lambda: cmp.main(["--root", "vis/cmp/exp"]),
                      lambda: vae_finetune.main(["--data_dir", "imgs",
-                                                "--out_dir", "out"])):
+                                                "--out_dir", "out"]),
+                     lambda: simple_video_sample.main(["--image", "in.png",
+                                                       "--tiny_model"]),
+                     lambda: demo_app.main(["--tiny_model", "--port",
+                                            "0"])):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call()
         print("all raised")
@@ -97,3 +103,26 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
         p = subprocess.run([sys.executable, script], cwd=cwd, env=env,
                            capture_output=True, text=True, timeout=300)
         assert p.returncode != 0 and '"ok"' not in p.stdout, p.stdout
+
+
+def _loaders():
+    from multiview_inpaint_tpu_torch.diffusion import api
+    from multiview_inpaint_tpu_torch.metrics import lpips, musiq, wadiqam
+    from multiview_inpaint_tpu_torch.models import dpt
+    pipe = api.SamplingPipeline(lambda x, s, c: x)
+    return {"MUSIQScorer": lambda: musiq.MUSIQScorer({}),
+            "WaDIQaMScorer": lambda: wadiqam.WaDIQaMScorer({}),
+            "load_lpips_npz": lambda: lpips.load_lpips_npz("lpips.npz"),
+            "load_dpt_torch": lambda: dpt.load_dpt_torch("dpt.pt"),
+            "SamplingPipeline.sample": lambda: pipe.sample((1, 2, 2, 4),
+                                                           {})}
+
+
+@pytest.mark.parametrize("loader", sorted(_loaders()))
+def test_loaders_default_to_the_card(loader):
+    """The public loaders and the sampling pipeline take the card unless
+    the caller passes ``device="cpu"``: without one they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _loaders()[loader]()

@@ -111,7 +111,7 @@ def test_lpips_matches_jax(tmp_path):
     path = str(tmp_path / "lpips.npz")
     np.savez(path, params=unflatten_dict(
         {tuple(k.split("/")): v for k, v in flat.items()}))
-    model = tlpips.load_lpips_npz(path)
+    model = tlpips.load_lpips_npz(path, device="cpu")
     with torch.no_grad():
         got = model(torch.from_numpy(a), torch.from_numpy(b)).numpy()
         same = model(torch.from_numpy(a), torch.from_numpy(a)).numpy()
@@ -128,7 +128,7 @@ def test_wadiqam_matches_jax(size):
     img = np.random.default_rng(4).random(size + (3,)).astype(np.float32)
     want = jwad.WaDIQaMNR().apply({"params": nested(flat)},
                                   jnp.asarray(img)[None])
-    got = twad.WaDIQaMScorer(flat)(img)
+    got = twad.WaDIQaMScorer(flat, device="cpu")(img)
     assert abs(got - float(want[0])) <= REL * abs(float(want[0]))
 
 

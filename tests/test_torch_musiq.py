@@ -112,7 +112,7 @@ def test_musiq_score_matches_jax(weights, name):
     img = np.random.default_rng(7).random((64, 96, 3)).astype(np.float32)
     want = float(jmusiq.MUSIQ(jcfg).apply({"params": nested(flat)},
                                           jnp.asarray(img)[None])[0])
-    scorer = tmusiq.MUSIQScorer(flat, tcfg)
+    scorer = tmusiq.MUSIQScorer(flat, tcfg, device="cpu")
     got = scorer(img)
     assert abs(got - want) <= REL * abs(want), (got, want)
     if name == "full":

@@ -3,13 +3,16 @@ engine, the weight carrier against the JAX package's own importer, and
 the ``svd_test`` CLI.
 
 The tiny engine is ``svd_test --tiny_model`` at 3 frames, 2 steps and
-64x48 images (f32). The JAX engine's parameters, every leaf moved by a
-seeded N(0, 0.05^2) draw (zero-initialised layers included), are carried
-into the port; the conditioning, one denoiser evaluation, the sampler
-from the same injected noise and the decoded frames are compared at 1e-4
-of the largest magnitude (f32 sums in another order through ~40 layers,
-and the Euler steps multiply the denoiser's error by up to sigma_max /
-sigma_1's ratio of the update).
+64x48 images (f32). The port's parameters, every leaf moved by a seeded
+N(0, 0.05^2) draw (zero-initialised layers included), are carried into
+the JAX layout (``checkpoint.state_dict_to_jax``: exactly the leaves and
+shapes of the JAX init, taken by ``jax.eval_shape``, which the JAX
+engine is never eagerly initialised for) and back into a second port
+engine (nothing missing or left over); the conditioning, one denoiser
+evaluation, the sampler from the same injected noise and the decoded
+frames are compared at 1e-4 of the largest magnitude (f32 sums in
+another order through ~40 layers, and the Euler steps multiply the
+denoiser's error by up to sigma_max / sigma_1's ratio of the update).
 """
 
 import argparse
@@ -33,7 +36,7 @@ from multiview_inpaint_tpu_torch.gs import scene_io
 from multiview_inpaint_tpu_torch.pipelines import svd_test
 from multiview_inpaint_tpu_torch.utils import synthetic
 
-from test_torch_diffusion import check, nested, perturb
+from test_torch_diffusion import check, nested
 
 T, STEPS, SIZE = 3, 2, (64, 48)
 COMPONENTS = ("unet", "controlnet", "vae", "clip")
@@ -46,11 +49,23 @@ def _tiny_args():
 
 @pytest.fixture(scope="module")
 def engines():
-    """(JAX engine, JAX state, port engine, perturbed flat JAX params)."""
+    """(JAX engine, JAX state, port engine, flat JAX params, the JAX
+    init's shapes)."""
     cfg = jsvd_test._engine_config(_tiny_args())
-    state = jengine.init_engine(cfg, jax.random.key(0), latent_hw=(8, 6),
-                                image_hw=SIZE)
-    flat = perturb({c: getattr(state, c) for c in COMPONENTS}, 70)
+    shapes = jax.eval_shape(lambda k: jengine.init_engine(
+        cfg, k, latent_hw=(8, 6), image_hw=SIZE), jax.random.key(0))
+    src = tengine.init_engine(svd_test._engine_config(_tiny_args()),
+                              device="cpu")
+    gen = torch.Generator().manual_seed(70)
+    with torch.no_grad():
+        for p in src.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    flat = checkpoint.state_dict_to_jax(src.reference_state_dict(),
+                                        clip_heads=cfg.vit.heads)
+    want = {f"{c}/{k}": v.shape for c in COMPONENTS
+            for k, v in flatten_dict(getattr(shapes, c), sep="/").items()}
+    assert {k: tuple(v.shape) for k, v in flat.items()} == {
+        k: tuple(v) for k, v in want.items()}
     state = jengine.EngineState(**{
         c: nested({k[len(c) + 1:]: v for k, v in flat.items()
                    if k.startswith(c + "/")}) for c in COMPONENTS})
@@ -60,7 +75,7 @@ def engines():
         checkpoint.state_dict_from_jax(flat))
     assert {c: (len(m), len(u)) for c, (m, u) in report.items()} == {
         c: (0, 0) for c in COMPONENTS}
-    return jengine.SVDEngine(cfg), state, teng, flat
+    return jengine.SVDEngine(cfg), state, teng, flat, shapes
 
 
 def _batch(seed=80):
@@ -88,7 +103,7 @@ def _conds(jeng, state, teng):
 
 
 def test_tiny_engine_conditioning_and_denoiser_match_jax(engines):
-    jeng, state, teng, _ = engines
+    jeng, state, teng, _, _ = engines
     (jc, juc), (tc, tuc) = _conds(jeng, state, teng)
     for k in jc:
         check(tc[k], jc[k], 1e-5, k)
@@ -106,7 +121,7 @@ def test_tiny_engine_conditioning_and_denoiser_match_jax(engines):
 
 
 def test_tiny_engine_sample_matches_jax_euler_edm(engines):
-    jeng, state, teng, _ = engines
+    jeng, state, teng, _, _ = engines
     (jc, juc), (tc, tuc) = _conds(jeng, state, teng)
     noise = np.random.default_rng(82).normal(size=(T, 8, 6, 4)).astype(
         np.float32)
@@ -124,13 +139,12 @@ def test_tiny_engine_sample_matches_jax_euler_edm(engines):
 
 def test_weights_round_trip_through_the_jax_importer(engines):
     """The port's reference-keyed state dict, fed to the JAX package's
-    ``weights_io`` importers against the JAX init, gives back exactly the
-    parameters the carrier was given, with nothing missing or left over:
-    the port's module names are the SVD checkpoint's key space."""
-    jeng, _, teng, flat = engines
+    ``weights_io`` importers against the JAX init's tree (its shapes),
+    gives back exactly the parameters the carrier makes of it, with
+    nothing missing or left over: the port's module names are the SVD
+    checkpoint's key space."""
+    _, _, teng, flat, init = engines
     cfg = jsvd_test._engine_config(_tiny_args())
-    init = jengine.init_engine(cfg, jax.random.key(5), latent_hw=(8, 6),
-                               image_hw=SIZE)
     sd = {k: v.numpy() for k, v in teng.reference_state_dict().items()}
     assert all(any(k.startswith(p) for p in checkpoint.PREFIXES.values())
                for k in sd)
@@ -170,11 +184,15 @@ def test_svd_test_cli_on_a_synthetic_gs_tree(tmp_path):
 def test_svd_test_cli_loads_jax_and_torch_checkpoints(engines, tmp_path,
                                                       capsys):
     """--base_ckpt/--ctrl_ckpt in the JAX npz layout and in the torch key
-    space load with nothing missing and nothing left over."""
-    _, _, teng, flat = engines
+    space load with nothing missing and nothing left over. The JAX npz
+    is drawn leaf by leaf to the JAX init's tree, named by its flatten."""
+    _, _, teng, _, init = engines
+    rng = np.random.default_rng(71)
     base = str(tmp_path / "base.npz")
-    np.savez(base, **{k: v for k, v in flat.items()
-                      if not k.startswith("controlnet/")})
+    np.savez(base, **{
+        f"{c}/{k}": rng.normal(0, 0.05, v.shape).astype(v.dtype)
+        for c in COMPONENTS if c != "controlnet"
+        for k, v in flatten_dict(getattr(init, c), sep="/").items()})
     ctrl = str(tmp_path / "ctrl.pth")
     torch.save({k: v for k, v in teng.reference_state_dict().items()
                 if k.startswith(checkpoint.PREFIXES["controlnet"])}, ctrl)
