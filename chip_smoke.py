@@ -295,7 +295,37 @@ non-zero:
     steps, ``--disc_start 5``, counters zeroed before (no launches): every
     log finite, ``loss/disc`` 0 before step 5 and not after, both npz files
     read back equal; median ms per step and peak memory;
-40. the ``kernels`` JSON line (K1 and K2 at main path 1's big2m frame, K3
+41. main path 11 (slice 10): main path 1's big2m 1080p bench frame as 4
+    interleaved tile-row bands (``render(band_rows=, band_row0=,
+    band_stride=)``) one after another, counters zeroed before (K1 and K2
+    once per band): stitched bit for bit equal to the full frame, the
+    pairs summed equal, each band's and the full frame's ms in turns (the
+    worst band is the per-GPU time of a 4-way band-sharded frame); K2 in
+    band mode on the heaviest band against its plain version (phase 4's
+    bars) and bit-equal to the full frame's K2 on the same tiles, with its
+    time and bound;
+42. main path 2's ball2m-train step as 4 bands on the card
+    (``gs_band_train.band_grads`` per band, the other bands' rgb
+    detached): the bands' gradients summed against ``train_step``'s (its
+    Adam moments and densification statistics) at 2e-6 + 1e-4 max|g|, the
+    loss equal, pairs summed equal, K1-K3 once per band; K3 in band mode
+    on the heaviest band against its plain version as in phase 5; each
+    band's ms against the full step's;
+43. the distributed paths over NCCL at world size 1 (tcp on localhost)
+    against the single-process functions: ``render_views_sharded`` on 14
+    views of big2m and ``render_frame_sharded`` bit for bit;
+    ``dp_train_step`` on two ball2m-train views, ``band_train_step`` and
+    its ZeRO form with the loss equal and the gradients at 2e-6 + 1e-4
+    max|g| (a train step's gradients do not repeat bit for bit: the
+    gather's backward adds atomically);
+44. ``data.native_io`` built from ``native/dataio.cpp`` (its seconds; a
+    missing ``zlib.h`` is reported, any other failure fails),
+    ``decode_png`` of main path 5's 28 gen_seq PNGs equal to PIL (ms per
+    frame of each) and through ``PrefetchLoader``; a 20-step ``train_gs
+    --live_view`` run on main path 2's scene publishing every 5 steps,
+    whose server answers its page, the PNG of the current render and a
+    posted pose, and then serves renders of that pose;
+45. the ``kernels`` JSON line (K1 and K2 at main path 1's big2m frame, K3
     at main path 2's first step, K4 at main path 3's ds1 shape, K5 at main
     path 4's ds1 shape; K4 and K5 also carry ``vs_library``, kernel ms over
     SDPA ms, and K4 ``library_bf16_ms``/``vs_library_bf16``, SDPA on the
@@ -306,17 +336,21 @@ non-zero:
     and K2 carry ``main_path_8``: its launches and their times and bounds
     at the recomposed PLY's first view; K4 carries ``main_path_10``: its
     launches in 15b, 15c and per demo request, and its records at 15d's
-    shapes); the last line is the ``ok`` JSON object.
+    shapes; K2 and K3 carry ``band``: main path 11's launches and their
+    times and bounds at the band shapes of phases 41 and 42); the last
+    line is the ``ok`` JSON object.
 
 Build outputs and the scenes go under ``build/`` in the checkout.
 """
 
 import ctypes
 import dataclasses
+import io
 import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -542,6 +576,16 @@ CMP_EXP, METRIC_REL_TOL, LPIPS_SHAPE = "smoke", 1e-4, (4, 512, 512, 3)
 # the logs within VAE_STEP_REL_TOL relative.
 VAE_RES, VAE_BATCH, VAE_STEPS, VAE_DISC_START = 256, 4, 20, 5
 VAE_STEP_REL_TOL = 1e-5
+# Main path 11 (slice 10): main path 1's big2m 1080p frame as BANDS
+# interleaved tile-row bands rendered one after another (the per-GPU work
+# of a BANDS-way band-sharded frame), main path 2's ball2m-train step
+# likewise, the distributed paths over NCCL at world size 1 (DIST_VIEWS
+# orbit views of big2m), native_io on main path 5's gen_seq PNGs, and a
+# LIVE_STEPS-step train_gs with the live view publishing every
+# LIVE_INTERVAL steps.
+BANDS, BAND_REPEATS, DIST_VIEWS = 4, 5, 14
+LIVE_STEPS, LIVE_INTERVAL = 20, 5
+LIVE_POSE = {"yaw": 30.0, "pitch": -10.0, "radius": 1.5}
 
 
 # ``cuda_ms`` sleeps the device this long per timed call before starting
@@ -580,16 +624,17 @@ def grad_bar(want, dim=None):
     return GRAD_ATOL + GRAD_RTOL * m
 
 
-def walk_counts(torch, attrs, seg_start, counts, size):
+def walk_counts(torch, attrs, seg_start, counts, size, row0=0, stride=1):
     """(walked, kept, contributing) pair-pixels of the composite's forward
     walk on these inputs, from the plain version's own recomputation of
     each chunk (``composite._chunk``): a pixel walks a splat while its
     T_in >= 1e-4 in the chunk, keeps it when it passes the gate, and it
-    contributes when kept with T_out >= 1e-4."""
+    contributes when kept with T_out >= 1e-4. ``row0``/``stride`` place
+    a band's tile rows."""
     from multiview_inpaint_tpu_torch.ops.rasterizer import composite as c
     tiles_x, tiles_y, th, tw = size
     dev = attrs.device
-    coords = c.tile_pixel_coords(tiles_x, tiles_y, tw, th, dev)
+    coords = c.tile_pixel_coords(tiles_x, tiles_y, tw, th, dev, row0, stride)
     t_carry = torch.ones((tiles_x * tiles_y, th * tw), device=dev)
     lane = torch.arange(c.CHUNK, device=dev)
     zero = torch.zeros((), device=dev)
@@ -815,12 +860,13 @@ def k2_verdict(torch, out_k, out_p, attrs, size):
     return e_rgb, e_d, e_t, bad, within
 
 
-def k2_bound_of(torch, attrs, seg_start, counts, tiles_x, tiles_y, th, tw):
+def k2_bound_of(torch, attrs, seg_start, counts, tiles_x, tiles_y, th, tw,
+                row0=0, stride=1):
     """The walk's pair-pixel counts (``walk_counts``) and K2's
     ``bound_ms``/``bound_by`` on these inputs: its bytes (64 per pair and
     16 per tile in, 8 rows per pixel out) or its least operations."""
     walk = walk_counts(torch, attrs, seg_start, counts,
-                       (tiles_x, tiles_y, th, tw))
+                       (tiles_x, tiles_y, th, tw), row0, stride)
     n_tiles = tiles_x * tiles_y
     t_bytes = (attrs.shape[0] * 64 + n_tiles * 16
                + n_tiles * 8 * th * tw * 4) / HBM_BYTES_PER_S
@@ -937,23 +983,26 @@ def depth_stats(torch, counts):
             f"grid {composite.max_items(counts.numel(), int(counts.sum()))})")
 
 
-def check_k3(torch, card, label, k3_args, gid, n_gauss):
+def check_k3(torch, card, label, k3_args, gid, n_gauss, band=(0, 1)):
     """K3 against its plain version on ``k3_args`` (attrs, seg_start,
     counts, tiles8, g_tiles8, tiles_x, tiles_y, tile_h, tile_w, the
     forward's per-item state), pair by pair and gaussian by gaussian
     (``compare_k3``), twice: against the plain K3 walking each tile from
     its start, which owes nothing to K2's state, and against the plain
-    K3 started from that state. Fails on a breach of either, else returns
-    K3's record for the kernels line (launches filled in later)."""
+    K3 started from that state. ``band`` is (row0, stride) of a band's
+    tiles. Fails on a breach of either, else returns K3's record for the
+    kernels line (launches filled in later)."""
     from multiview_inpaint_tpu_torch.ops.rasterizer import (composite,
                                                             composite_cuda)
 
     attrs, seg_start, counts, _, _, *size, _ = k3_args
+    row0, stride = band
     with torch.no_grad():
-        d_k = composite_cuda.composite_bwd(*k3_args)
-        again = composite_cuda.composite_bwd(*k3_args)
-        d_walk = composite.composite_segments_bwd(*k3_args[:-1])
-        d_p = composite.composite_segments_bwd(*k3_args)
+        d_k = composite_cuda.composite_bwd(*k3_args, row0, stride)
+        again = composite_cuda.composite_bwd(*k3_args, row0, stride)
+        d_walk = composite.composite_segments_bwd(*k3_args[:-1], None, row0,
+                                                  stride)
+        d_p = composite.composite_segments_bwd(*k3_args, row0, stride)
     if not torch.isfinite(d_k).all() or d_k[:, 10:].any():
         fail(f"K3 rows not finite, or rows 10-15 not 0, at {label}")
     if not torch.equal(d_k, again):
@@ -962,15 +1011,16 @@ def check_k3(torch, card, label, k3_args, gid, n_gauss):
         compare_k3(torch, d_k, d_walk, gid, n_gauss))
     e_rows, share, within, e_gauss, share_g, within_g, ok = compare_k3(
         torch, d_k, d_p, gid, n_gauss)
-    k3_ms = cuda_ms(torch, lambda: composite_cuda.composite_bwd(*k3_args),
-                    5)
+    k3_ms = cuda_ms(torch, lambda: composite_cuda.composite_bwd(
+        *k3_args, row0, stride), 5)
     with torch.no_grad():
         k3_plain_ms = cuda_ms(
-            torch, lambda: composite.composite_segments_bwd(*k3_args), 1)
+            torch, lambda: composite.composite_segments_bwd(
+                *k3_args, row0, stride), 1)
     tiles_x, tiles_y, th, tw = size
     n_tiles, pix = tiles_x * tiles_y, th * tw
     n_pairs = attrs.shape[0]
-    walk = walk_counts(torch, attrs, seg_start, counts, size)
+    walk = walk_counts(torch, attrs, seg_start, counts, size, row0, stride)
     t_bytes = (n_pairs * 64 * 2 + n_tiles * 16
                + n_tiles * pix * 2 * 32) / HBM_BYTES_PER_S
     k3 = dict(max_abs_err=float(max(e_walk.max(), e_rows.max())), ms=k3_ms,
@@ -1373,7 +1423,8 @@ class StepProbe:
             return packed
 
         def k3(*a):
-            self.k3_args = a
+            # K3's ten arguments, then the band's row0 and stride
+            self.k3_args, self.k3_band = a[:10], a[10:]
             return k3_marked(*a)
 
         def k1(*a):
@@ -3237,7 +3288,8 @@ def phase_gen_seq(torch, card, s):
 
 def _render_route(torch, params, cam, k2=None):
     """``api.render`` of ``cam`` with its K2 call replaced by ``k2``
-    (None: K2 itself)."""
+    (None: K2 itself), which takes the call's arguments and its band
+    keywords ``row0`` and ``stride``."""
     from multiview_inpaint_tpu_torch.ops.rasterizer import api
     real = api.composite_tiles
     if k2 is not None:
@@ -3293,8 +3345,8 @@ def phase_mask_plain(torch, card, s):
     clusters = dataclasses.replace(params, live=live)
     flip_t = composite.T_STOP / (1.0 - composite.ALPHA_MAX)
 
-    def plain_k2(*a):
-        return composite.composite_segments(*a)
+    def plain_k2(*a, **band):
+        return composite.composite_segments(*a, **band)
 
     frames = (("x1 frame 0", orbit0, params, True),
               ("bds_train view00", front, params, True),
@@ -3346,8 +3398,8 @@ def phase_mask_plain(torch, card, s):
 
     real_k2 = api.composite_tiles
 
-    def faulty_k2(*a):
-        t8 = real_k2(*a).clone()
+    def faulty_k2(*a, **band):
+        t8 = real_k2(*a, **band).clone()
         t_fin = t8[:, 4, :]
         t8[:, 4, :] = torch.where(t_fin == 1.0,
                                   torch.full_like(t_fin, 1.0 - 2.0 ** -24),
@@ -4175,7 +4227,8 @@ class SdsProbe:
             return b
 
         def k3(*a):
-            self.k3_args = a
+            # K3's ten arguments, then the band's row0 and stride
+            self.k3_args, self.k3_band = a[:10], a[10:]
             return composite_bwd(*a)
 
         def k1(*a):
@@ -4549,7 +4602,8 @@ def phase_sds_depth(torch, card, s, sds_out):
                 view_range=o.view_range, r_scale=o.r_scale, k_lift=o.k_lift,
                 k_bias=o.k_bias):
             out = _render_route(torch, params, RenderCamera.from_camera(
-                view, DEVICE), lambda *a: composite.composite_segments(*a))
+                view, DEVICE),
+                lambda *a, **band: composite.composite_segments(*a, **band))
             disp = gen_depth.disparity(out.depth.cpu().numpy())
             want = (np.clip(disp, 0, 1) * 255).astype(np.uint8)
             got = _png_array(os.path.join(depth_dir, mode,
@@ -5105,6 +5159,539 @@ def phase_vae_finetune(torch, card, s):
         fail(f"main path 9 (vae_finetune CLI) checks failed: {checks}")
 
 
+def _event_ms(torch, fn):
+    """Device ms of one call of ``fn`` (CUDA events, synchronised)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_band_frame(torch, card, params):
+    """Main path 11 (a): main path 1's big2m 1080p bench frame as BANDS
+    interleaved tile-row bands (``render(band_rows=, band_row0=,
+    band_stride=)``) rendered one after another: stitched bit for bit
+    equal to the full frame, the pairs summed equal, each band's and the
+    full frame's ms in turns; then K2 in band mode against its plain
+    version on the heaviest band (and bit-equal to the full frame's K2 on
+    the same tiles). Returns K2's band record for the kernels line."""
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (
+        RenderCamera, api, binning, composite, composite_cuda, render)
+    from multiview_inpaint_tpu_torch.parallel.render_parallel import (
+        band_layout, stitch_bands)
+    from multiview_inpaint_tpu_torch.utils import synthetic
+
+    cam = RenderCamera.from_camera(synthetic.bench_camera(), DEVICE)
+    bg = torch.zeros(3, device=DEVICE)
+    tiles_x, tiles_y = -(-cam.width // TILE), -(-cam.height // TILE)
+    rows, stride, row0s = band_layout(tiles_y, BANDS, True)
+    kws = [dict(band_rows=rows, band_row0=r, band_stride=stride)
+           for r in row0s]
+    with torch.no_grad():
+        full = render(params, cam, bg, device=DEVICE)
+        _kernels.reset_launches()
+        bands = [render(params, cam, bg, device=DEVICE, **kw) for kw in kws]
+        torch.cuda.synchronize()
+        launches = dict(_kernels.LAUNCHES)
+        equal = {f: torch.equal(stitch_bands(torch.stack(
+            [getattr(b, f) for b in bands]), True, TILE, cam.height),
+            getattr(full, f)) for f in ("rgb", "depth", "alpha")}
+        pairs = [b.pairs for b in bands]
+        times = {"full": []} | {d: [] for d in range(BANDS)}
+        for _ in range(BAND_REPEATS):      # in turns: full, bands
+            times["full"].append(_event_ms(torch, lambda: render(
+                params, cam, bg, device=DEVICE)))
+            for d, kw in enumerate(kws):
+                times[d].append(_event_ms(torch, lambda kw=kw: render(
+                    params, cam, bg, device=DEVICE, **kw)))
+    del bands
+    band_ms = [statistics.median(times[d]) for d in range(BANDS)]
+    full_ms = statistics.median(times["full"])
+    want = {"pair_expand": BANDS, "composite": BANDS, "composite_bwd": 0,
+            "flash_attn_fwd": 0, "flash_attn_bwd": 0}
+    print(f"[41 band frame] big2m ({BIG_N} gaussians) 1920x1080 as "
+          f"{BANDS} interleaved bands of {rows} tile rows (stride {stride}):"
+          f" stitched equal to the full frame bit for bit {equal} | pairs "
+          f"per band {pairs}, sum {sum(pairs)}, full frame {full.pairs} | "
+          f"ms per band {[round(t, 3) for t in band_ms]} (median of "
+          f"{BAND_REPEATS}, CUDA events), worst band {max(band_ms):.3f} ms "
+          f"= the per-GPU frame time of a {BANDS}-way band-sharded frame "
+          f"without its all-gather; full frame {full_ms:.3f} ms in the same "
+          f"turns | launches {launches} | {card}", flush=True)
+    if not all(equal.values()) or sum(pairs) != full.pairs \
+            or launches != want:
+        fail("main path 11: the bands do not stitch to the full frame, "
+             "their pairs do not sum to its, or the launches are off")
+
+    d = max(range(BANDS), key=lambda i: pairs[i])
+    band = dict(row0=row0s[d], stride=stride)
+    with torch.no_grad():
+        proj = api.project(params, cam, 0)
+        packed = composite_cuda.pack_attrs(proj.means2d, proj.conic,
+                                           proj.opacity, proj.color,
+                                           proj.depth)
+        bins = binning.bin_gaussians(
+            proj.means2d, proj.radius, proj.depth, tiles_x, rows, TILE,
+            TILE, extent=proj.extent, tile_row0=row0s[d],
+            tiles_y_total=tiles_y, tile_row_stride=stride)
+        whole = binning.bin_gaussians(
+            proj.means2d, proj.radius, proj.depth, tiles_x, tiles_y, TILE,
+            TILE, extent=proj.extent)
+        attrs = packed[bins.order[bins.gid_sorted]].contiguous()
+        k2_args = (attrs, bins.seg_start, bins.counts, tiles_x, rows, TILE,
+                   TILE)
+        out_k = composite_cuda.composite_fwd(*k2_args, **band)
+        out_p = composite.composite_segments(*k2_args, **band)
+        out_w = composite_cuda.composite_fwd(
+            packed[whole.order[whole.gid_sorted]].contiguous(),
+            whole.seg_start, whole.counts, tiles_x, tiles_y, TILE, TILE)
+        glob = torch.arange(rows, device=DEVICE) * stride + row0s[d]
+        glob = glob[glob < tiles_y]
+        tiles = (glob[:, None] * tiles_x
+                 + torch.arange(tiles_x, device=DEVICE)).reshape(-1)
+        same_tiles = torch.equal(out_k[:tiles.numel()], out_w[tiles])
+    size = (tiles_x, rows, TILE, TILE, cam.width, rows * TILE)
+    e_rgb, e_d, e_t, bad, within = k2_verdict(torch, out_k, out_p, attrs,
+                                              size)
+    k2_ms = cuda_ms(torch, lambda: composite_cuda.composite_fwd(
+        *k2_args, **band), 10)
+    with torch.no_grad():
+        k2_plain_ms = cuda_ms(torch, lambda: composite.composite_segments(
+            *k2_args, **band), 1)
+    walk, k2_bound = k2_bound_of(torch, *k2_args, row0s[d], stride)
+    record = dict(
+        launches=launches["composite"], band=f"{d} of {BANDS} (row0 {d}, "
+        f"stride {stride}, {rows} tile rows) at big2m 1080p",
+        max_abs_err=float(max(e_rgb.max(), e_d.max(), e_t.max())),
+        ms=k2_ms, plain_ms=k2_plain_ms, **k2_bound, library_ms=None,
+        band_frame_ms=band_ms, worst_band_frame_ms=max(band_ms),
+        full_frame_ms=full_ms)
+    print(f"[41 K2 band] band {d} (heaviest: {bins.total_pairs} pairs in "
+          f"{tiles_x * rows} tiles) vs the plain K2 with the same origin: "
+          f"max abs err rgb {float(e_rgb.max()):.3g} depth "
+          f"{float(e_d.max()):.3g} T {float(e_t.max()):.3g} | {bad}/"
+          f"{e_d.numel()} px beyond rgb {RGB_TOL} / depth {DEPTH_TOL} | "
+          f"within the stop-flip bound: {within} | tiles bit-equal to the "
+          f"full frame's K2: {same_tiles} | walked, kept, contributing "
+          f"share {walk_shares(walk, bins.total_pairs * TILE * TILE)} | "
+          f"kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.2f} ms, bound "
+          f"{record['bound_ms']:.4f} ms ({record['bound_by']}) | {card}",
+          flush=True)
+    if bad > BAD_FRACTION * e_d.numel() or not within or not same_tiles:
+        fail("K2 in band mode disagrees with its plain version or with "
+             "the full frame")
+    return record
+
+
+def _step_cell(torch):
+    """Main path 2's ball2m-train step cell: (params, camera, gt, bg)."""
+    from multiview_inpaint_tpu_torch.gs import cameras
+    from multiview_inpaint_tpu_torch.ops.rasterizer import RenderCamera
+    from multiview_inpaint_tpu_torch.utils import synthetic
+
+    params = synthetic.make_bench_ball(STEP_N, capacity=STEP_CAPACITY,
+                                       device=DEVICE)
+    cam = RenderCamera.from_camera(cameras.make_camera(
+        0, np.eye(3), np.array([0.0, 0.0, 3.0]), fovx=1.1, fovy=0.8,
+        width=STEP_W, height=STEP_H), DEVICE)
+    gt = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (STEP_H, STEP_W, 3)).astype(np.float32)).to(DEVICE)
+    return params, cam, gt, torch.zeros(3, device=DEVICE)
+
+
+def phase_band_step(torch, card, cell):
+    """Main path 11 (b): the ball2m-train step as BANDS interleaved bands
+    on one card. Each band's share of the gradients (``band_grads``: its
+    render with the means2d offset, the full-frame L1+SSIM over the frame
+    stitched from every band's detached rgb and its own, its backward
+    through K3 in band mode) summed over the bands against
+    ``train_step``'s gradients (its first Adam moments / 0.1 and its
+    densification statistics) at the gradient bar, the loss equal; K3 in
+    band mode against its plain version on the heaviest band; each
+    band's ms against the full step's. Returns K3's band record."""
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.gs.gaussians import PARAM_FIELDS
+    from multiview_inpaint_tpu_torch.models import gs_trainer
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (
+        binning, composite_cuda, render)
+    from multiview_inpaint_tpu_torch.parallel.gs_band_train import band_grads
+    from multiview_inpaint_tpu_torch.parallel.render_parallel import (
+        band_layout)
+
+    params, cam, gt, bg = cell
+    cfg = gs_trainer.OptimizationConfig()
+    rows, stride, row0s = band_layout(-(-STEP_H // TILE), BANDS, True)
+    state0 = gs_trainer.init_state(params)
+    ref, m = gs_trainer.train_step(state0, cam, gt, bg, cfg, 1.0)
+    with torch.no_grad():
+        detached = torch.stack([render(
+            params, cam, bg, band_rows=rows, band_row0=r, band_stride=stride,
+            device=DEVICE).rgb for r in row0s])
+
+    def gather(_):
+        return detached
+
+    seen = {}
+    bin_gaussians, bwd = binning.bin_gaussians, composite_cuda.composite_bwd
+
+    def bins(*a, **kw):
+        b = bin_gaussians(*a, **kw)
+        seen["gid"] = b.order[b.gid_sorted]
+        return b
+
+    def k3(*a):
+        seen["k3"] = a
+        return bwd(*a)
+
+    _kernels.reset_launches()
+    per, k3_seen = [], {}
+    binning.bin_gaussians, composite_cuda.composite_bwd = bins, k3
+    try:
+        for d in range(BANDS):
+            per.append(band_grads(params, cam, gt, bg, cfg, BANDS, d,
+                                  gather))
+            k3_seen[d] = (seen["k3"], seen["gid"], per[-1].pairs)
+    finally:
+        binning.bin_gaussians, composite_cuda.composite_bwd = bin_gaussians, bwd
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    live = params.live
+    worst, ok = {}, True
+    with torch.no_grad():
+        for f in PARAM_FIELDS:
+            got = sum(b.grads[f] for b in per)
+            rowmask = live.reshape((-1,) + (1,) * (got.dim() - 1))
+            got = torch.where(rowmask & torch.isfinite(got), got, 0.0)
+            want = ref.mu[f] / 0.1              # mu = 0.1 g at step 1
+            if want.numel() == 0:
+                continue
+            bar = grad_bar(want)
+            err = float((got - want).abs().max())
+            worst[f] = round(err / float(bar), 4)
+            ok = ok and err <= float(bar)
+        g_off = sum(b.g_offset for b in per)
+        acc = torch.where(ref.stats.denom > 0, torch.linalg.vector_norm(
+            g_off, dim=-1), 0.0)
+        e_acc = float((acc - ref.stats.grad_accum).abs().max())
+        ok = ok and e_acc <= float(grad_bar(ref.stats.grad_accum))
+    losses = [float(b.loss) for b in per]
+    loss_equal = all(x == float(m.loss) for x in losses)
+    pairs = [b.pairs for b in per]
+    want_l = {"pair_expand": BANDS, "composite": BANDS,
+              "composite_bwd": BANDS, "flash_attn_fwd": 0,
+              "flash_attn_bwd": 0}
+
+    times = {"full": []} | {d: [] for d in range(BANDS)}
+    for _ in range(3):                      # in turns: full step, bands
+        times["full"].append(_event_ms(torch, lambda: gs_trainer.train_step(
+            state0, cam, gt, bg, cfg, 1.0)))
+        for d in range(BANDS):
+            times[d].append(_event_ms(torch, lambda d=d: band_grads(
+                params, cam, gt, bg, cfg, BANDS, d, gather)))
+    band_ms = [statistics.median(times[d]) for d in range(BANDS)]
+    full_ms = statistics.median(times["full"])
+    print(f"[42 band step] ball2m-train ({STEP_N} gaussians in "
+          f"{STEP_CAPACITY} rows, {STEP_W}x{STEP_H}) as {BANDS} interleaved "
+          f"bands of {rows} tile rows: the bands' gradients summed vs "
+          f"train_step's, err / bar (2e-6 + 1e-4 max|g|) per field "
+          f"{json.dumps(worst)} | grad_accum err {e_acc:.3g} | loss per "
+          f"band {losses} equal to train_step's {float(m.loss)}: "
+          f"{loss_equal} | pairs per band {pairs}, sum {sum(pairs)}, "
+          f"train_step {m.pairs} | launches {launches} | ms per band "
+          f"(band_grads: band render forward and backward, full-frame "
+          f"loss; median of 3) {[round(t, 3) for t in band_ms]}, worst "
+          f"{max(band_ms):.3f}; full train_step {full_ms:.3f} ms in the "
+          f"same turns | {card}", flush=True)
+    if not (ok and loss_equal and sum(pairs) == m.pairs
+            and launches == want_l):
+        fail("main path 11: the band step's gradients, loss, pairs or "
+             "launches disagree with train_step")
+    d = max(range(BANDS), key=lambda i: pairs[i])
+    args, gid, _ = k3_seen[d]
+    k3 = check_k3(torch, card, f"42 K3 band {d}", args[:10], gid,
+                  params.capacity, band=tuple(args[10:]))
+    return dict(launches=launches["composite_bwd"],
+                band=f"{d} of {BANDS} (row0 {d}, stride {stride}, {rows} "
+                f"tile rows) at ball2m-train", **k3, band_step_ms=band_ms,
+                worst_band_step_ms=max(band_ms), full_step_ms=full_ms)
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _step_close(torch, got, want):
+    """A train step's state ``got`` against ``want`` from the same first
+    step: the gradients (Adam's first moments / 0.1, the square roots of
+    the second / 0.001) and grad_accum at 2e-6 + 1e-4 max|g|, denom and
+    max_radii2d equal. Returns (ok, the worst err / bar)."""
+    worst, ok = 0.0, True
+    pairs = [(got.mu[f] / 0.1, want.mu[f] / 0.1) for f in want.mu] + [
+        (torch.sqrt(got.nu[f] / 0.001), torch.sqrt(want.nu[f] / 0.001))
+        for f in want.nu] + [(got.stats.grad_accum, want.stats.grad_accum)]
+    for a, b in pairs:
+        if b.numel():
+            r = float((a - b).abs().max()) / float(grad_bar(b))
+            worst, ok = max(worst, r), ok and r <= 1.0
+    ok = ok and torch.equal(got.stats.denom, want.stats.denom) \
+        and torch.equal(got.stats.max_radii2d, want.stats.max_radii2d)
+    return ok, round(worst, 4)
+
+
+def phase_distributed(torch, card, big, cell):
+    """Main path 11 (c): every distributed path over NCCL at world size 1
+    (``init_method`` tcp on localhost) against the single-process
+    function: ``render_views_sharded`` on DIST_VIEWS orbit views of big2m
+    (``render_views``) and ``render_frame_sharded`` (``render``) bit for
+    bit; ``dp_train_step`` on two ball2m-train views (the same step
+    without a process group), ``band_train_step`` and its ZeRO form
+    (``train_step``) with the loss equal and the gradients at the
+    gradient bar (``_step_close``): a train step's gradients do not repeat
+    bit for bit from run to run, as the gather's backward sums each
+    gaussian's pair gradients by atomic adds."""
+    import torch.distributed as dist
+
+    from multiview_inpaint_tpu_torch.gs.cameras import make_camera
+    from multiview_inpaint_tpu_torch.models import gs_trainer
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (
+        RenderCamera, render, render_views)
+    from multiview_inpaint_tpu_torch.parallel import mesh
+    from multiview_inpaint_tpu_torch.parallel.gs_band_train import (
+        band_train_step)
+    from multiview_inpaint_tpu_torch.parallel.gs_data_parallel import (
+        CameraBatch, dp_train_step, shard_for_dp)
+    from multiview_inpaint_tpu_torch.parallel.render_parallel import (
+        render_frame_sharded, render_views_sharded)
+    from multiview_inpaint_tpu_torch.utils import synthetic
+
+    params, cam, gt, bg = cell
+    cfg = gs_trainer.OptimizationConfig()
+    views = [synthetic.bench_camera(y) for y in
+             np.linspace(-0.2, 0.2, DIST_VIEWS)]
+    dp_cams = [make_camera(i, np.eye(3), np.array([0.1 * i, 0.0, 3.0]),
+                           fovx=1.1, fovy=0.8, width=STEP_W, height=STEP_H,
+                           image=np.random.default_rng(i).uniform(
+                               0, 1, (STEP_H, STEP_W, 3)).astype(np.float32))
+               for i in range(2)]
+    zero3 = torch.zeros(3, device=DEVICE)
+
+    def dp():
+        state, batch = shard_for_dp(gs_trainer.init_state(params),
+                                    CameraBatch.from_cameras(dp_cams, DEVICE))
+        return dp_train_step(state, batch, bg, cfg, 1.0, cam.tan_fovx,
+                             cam.tan_fovy, STEP_W, STEP_H)
+
+    def same_render(a, b):
+        return all(torch.equal(getattr(a, f), getattr(b, f))
+                   for f in ("rgb", "depth", "alpha", "radii")) \
+            and a.pairs == b.pairs
+
+    with torch.no_grad():
+        ref_views = render_views(big, views, zero3, device=DEVICE)
+        ref_frame = render(big, RenderCamera.from_camera(views[0], DEVICE),
+                           zero3, device=DEVICE)
+    ref_dp, ref_dp_loss = dp()
+    ref_step, ref_m = gs_trainer.train_step(gs_trainer.init_state(params),
+                                            cam, gt, bg, cfg, 1.0)
+    t0 = time.perf_counter()
+    mesh.init(0, 1, f"tcp://127.0.0.1:{_free_port()}", DEVICE)
+    init_s = time.perf_counter() - t0
+    try:
+        backend = dist.get_backend()
+        with torch.no_grad():
+            out_views = render_views_sharded(big, views, zero3, device=DEVICE)
+            out_frame = render_frame_sharded(big, views[0], zero3,
+                                             device=DEVICE)
+        got_dp, got_dp_loss = dp()
+        band, band_m = band_train_step(gs_trainer.init_state(params), cam,
+                                       gt, bg, cfg, 1.0)
+        zero, zero_m = band_train_step(gs_trainer.init_state(params), cam,
+                                       gt, bg, cfg, 1.0, zero_sharded=True)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    closeness = {"dp_train_step": _step_close(torch, got_dp, ref_dp),
+                 "band_train_step": _step_close(torch, band, ref_step),
+                 "zero_sharded": _step_close(torch, zero, ref_step)}
+    checks = {
+        "render_views_sharded bit for bit": same_render(out_views,
+                                                        ref_views),
+        "render_frame_sharded bit for bit": same_render(out_frame,
+                                                        ref_frame),
+        "losses equal": torch.equal(got_dp_loss, ref_dp_loss)
+        and torch.equal(band_m.loss, ref_m.loss)
+        and torch.equal(zero_m.loss, ref_m.loss),
+        "pairs equal": band_m.pairs == zero_m.pairs == ref_m.pairs,
+        "steps at the gradient bar": all(ok for ok, _ in
+                                         closeness.values()),
+        "ZeRO rows": all(v.shape[0] == params.capacity
+                         for v in zero.mu.values()),
+    }
+    print(f"[43 distributed] {backend} at world size 1 (tcp://127.0.0.1, "
+          f"init {init_s:.2f} s) against the single-process functions: "
+          f"{json.dumps(checks)} | worst err / bar of the steps' gradients "
+          f"{json.dumps({k: w for k, (_, w) in closeness.items()})} | "
+          f"{DIST_VIEWS} views of big2m at 1920x1080, pairs "
+          f"{out_views.pairs}; the dp step on 2 views, the band and ZeRO "
+          f"steps on ball2m-train, loss {float(band_m.loss):.6f} | {card}",
+          flush=True)
+    if backend != "nccl" or not all(checks.values()):
+        fail(f"main path 11: a distributed path differs from its "
+             f"single-process function at world size 1: {checks}")
+
+
+def phase_host_parts(torch, card, s):
+    """Main path 11 (d): ``native_io`` built from ``native/dataio.cpp``
+    (its seconds), decoding main path 5's gen_seq PNGs equal to PIL (ms
+    per frame of each) and through its ``PrefetchLoader``; then a
+    LIVE_STEPS-step train_gs CLI run with ``--live_view`` on main path
+    2's scene: the server's page, the published PNG of the current
+    render, a posted pose and the renders of that pose."""
+    import subprocess as sp
+
+    from PIL import Image
+
+    from multiview_inpaint_tpu_torch.data import native_io
+    from multiview_inpaint_tpu_torch.pipelines import train_gs
+    from multiview_inpaint_tpu_torch.utils import live_view, synthetic
+
+    build = os.path.join(REPO, "build", "native_smoke")
+    shutil.rmtree(build, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        native_io.build(build)
+        built, note = True, "built"
+    except sp.CalledProcessError as e:
+        if "zlib.h" not in (e.stderr or ""):
+            fail(f"native_io did not build: {e.stderr}")
+        built, note = False, "not built: this machine has no zlib.h"
+    build_s = time.perf_counter() - t0
+    pngs = sorted(os.path.join(_seq_dir(s, m), "renders", n)
+                  for m in SEQ_MODES
+                  for n in os.listdir(os.path.join(_seq_dir(s, m),
+                                                   "renders")))
+    if len(pngs) != len(SEQ_MODES) * SEQ_FRAMES:
+        fail(f"{len(pngs)} gen_seq PNGs, expected "
+             f"{len(SEQ_MODES) * SEQ_FRAMES}")
+    t_nat, t_pil, equal = [], [], True
+    for p in pngs:
+        t0 = time.perf_counter()
+        got = native_io.decode_png(p, build)
+        t_nat.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        with Image.open(p) as im:
+            want = np.asarray(im.convert("RGB"))
+        t_pil.append(time.perf_counter() - t0)
+        equal = equal and np.array_equal(got, want)
+    with native_io.PrefetchLoader(build_dir=build) as loader:
+        jobs = [loader.submit(p) for p in pngs]
+        t0 = time.perf_counter()
+        loaded = [loader.take(j) for j in jobs]
+        take_s = time.perf_counter() - t0
+    equal_loader = all(np.array_equal(a, native_io.decode_png(p, build))
+                       for a, p in zip(loaded, pngs))
+    shape = loaded[0].shape
+    print(f"[44 native_io] {note} from native/dataio.cpp in {build_s:.2f} s "
+          f"| {len(pngs)} gen_seq PNGs {shape}: decode_png equal to PIL "
+          f"{equal}, {1e3 * statistics.mean(t_nat):.2f} ms/frame native vs "
+          f"{1e3 * statistics.mean(t_pil):.2f} ms/frame PIL (host clock, "
+          f"one thread each) | PrefetchLoader (4 threads) equal {equal_loader}"
+          f", {1e3 * take_s / len(pngs):.2f} ms/frame to take | the default "
+          f"build/native library loads: {native_io.native_available()} | "
+          f"{card}", flush=True)
+    if not (equal and equal_loader) or (built and not
+                                        native_io.native_available()):
+        fail("native_io decodes differ from PIL, or the library did not load")
+
+    src = os.path.join(REPO, "build", "smoke_train", "scene")
+    if not os.path.isdir(src):
+        synthetic.write_orbit_colmap_scene(
+            src, synthetic.make_big_scene(BIG_N, device=DEVICE),
+            np.linspace(-0.35, 0.35, TRAIN_VIEWS), TRAIN_W, TRAIN_H,
+            TRAIN_POINTS)
+    model = os.path.join(REPO, "build", "smoke_live")
+    shutil.rmtree(model, ignore_errors=True)
+    seen = {"frames": [], "answers": {}, "server": None}
+
+    class SmokeLive(live_view.LiveViewServer):
+        """The CLI's server, which talks to itself over HTTP at its first
+        publish and stays up after the run for one more read."""
+
+        def __init__(self, port):
+            super().__init__(port)
+            seen["server"] = self
+
+        def publish(self, rgb):
+            super().publish(rgb)
+            seen["frames"].append((self.requested_pose(), rgb))
+            if len(seen["frames"]) == 1:
+                base = f"http://127.0.0.1:{self.port}"
+                a = seen["answers"]
+                a["page"] = _http(base + "/")
+                a["frame"] = _http(base + "/frame.png")
+                a["post"] = _http(base + "/pose",
+                                  json.dumps(LIVE_POSE).encode())
+                a["pose"] = _http(base + "/pose")
+
+        def close(self):
+            pass
+
+    real = train_gs.LiveViewServer
+    train_gs.LiveViewServer = SmokeLive
+    port = _free_port()
+    t0 = time.perf_counter()
+    try:
+        train_gs.main(["-s", src, "-m", model, "--resolution", "1",
+                       "--iterations", str(LIVE_STEPS), "--live_view",
+                       str(port), "--live_interval", str(LIVE_INTERVAL),
+                       "--test_iterations", str(LIVE_STEPS),
+                       "--save_iterations", str(LIVE_STEPS),
+                       "--log_interval", "10", "--device", DEVICE])
+        cli_s = time.perf_counter() - t0
+        server = seen["server"]
+        last = _http(f"http://127.0.0.1:{server.port}/frame.png")
+    finally:
+        train_gs.LiveViewServer = real
+        if seen["server"] is not None:
+            live_view.LiveViewServer.close(seen["server"])
+
+    def png(body):
+        with Image.open(io.BytesIO(body)) as im:
+            return np.asarray(im.convert("RGB"))
+
+    def u8(rgb):
+        return (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
+
+    frames, a = seen["frames"], seen["answers"]
+    first, posed = frames[0][1], frames[-1][1]
+    checks = {
+        "publishes": len(frames) == LIVE_STEPS // LIVE_INTERVAL,
+        "page": a["page"][0] == 200 and b"live view" in a["page"][2],
+        "first frame PNG": a["frame"][1] == "image/png"
+        and np.array_equal(png(a["frame"][2]), u8(first)),
+        "pose posted": a["post"][0] == 204
+        and json.loads(a["pose"][2]) == LIVE_POSE,
+        "later frames render the pose": all(p == LIVE_POSE
+                                            for p, _ in frames[1:]),
+        "last frame served": np.array_equal(png(last[2]), u8(posed)),
+        "posed frame differs": posed.shape == first.shape
+        and not np.array_equal(u8(posed), u8(first))
+        and float(posed.std()) > 0,
+    }
+    print(f"[44 live view] train_gs --live_view {port} --live_interval "
+          f"{LIVE_INTERVAL}, {LIVE_STEPS} steps on main path 2's scene in "
+          f"{cli_s:.1f} s: {len(frames)} frames {first.shape} published; "
+          f"{json.dumps(checks)} | {card}", flush=True)
+    if not all(checks.values()):
+        fail(f"live view checks failed: {checks}")
+
+
 def main():
     import torch
 
@@ -5175,6 +5762,15 @@ def main():
     phase_cmp(torch, card, stage1, cmp)
     phase_vae_step(torch)
     phase_vae_finetune(torch, card, stage1)
+    torch.cuda.empty_cache()
+    big = synthetic.make_big_scene(BIG_N, device=DEVICE)
+    band_k2 = phase_band_frame(torch, card, big)
+    cell = _step_cell(torch)
+    band_k3 = phase_band_step(torch, card, cell)
+    phase_distributed(torch, card, big, cell)
+    del big, cell
+    torch.cuda.empty_cache()
+    phase_host_parts(torch, card, stage1)
 
     def path6(name, key):
         """Main path 6's launches and its orbit-rec times of one kernel."""
@@ -5212,7 +5808,7 @@ def main():
              launches=launches["composite"], **k2,
              main_path_6=path6("composite", "K2"),
              main_path_7=path7("composite", "K2"),
-             main_path_8=path8("composite", "K2")),
+             main_path_8=path8("composite", "K2"), band=band_k2),
         # K3 at the first step of main path 2, the path that runs it.
         dict(name="composite_bwd", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/composite_bwd.cu",
@@ -5220,7 +5816,7 @@ def main():
                       "pallas_backward.py:54",
              launches=launches_train["composite_bwd"], **k3,
              main_path_6=path6("composite_bwd", "K3"),
-             main_path_7=path7("composite_bwd", "K3")),
+             main_path_7=path7("composite_bwd", "K3"), band=band_k3),
         # K4 at the ds1 shape of main path 3, the path that runs it.
         dict(name="flash_attn_fwd", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -5243,7 +5839,7 @@ def main():
                       "flash_attention.py:117",
              launches=launches_svd_train["flash_attn_bwd"], **k5),
     ]
-    print(f"[40 done] all phases passed in "
+    print(f"[45 done] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,11 @@
 //   logs) at the end of the chunk, so the next chunk may contribute again.
 // It writes raw rows per tile [8, PIX]: bg-free rgb and depth
 // accumulators, the final T in row 4, zeros in rows 5-7. Empty tiles
-// write (0,0,0,0,1,0,0,0). When the caller will run the backward (K3,
+// write (0,0,0,0,1,0,0,0). In band mode (the JAX render's band_rows,
+// pallas_composite.py:137) the grid's tiles_y rows are the frame's tile
+// rows row0 + l * stride, and a pixel's global row is (row0 + (tile /
+// tiles_x) * stride) * tile_h + ly; a full frame is row0 = 0, stride = 1,
+// the same integer arithmetic as before. When the caller will run the backward (K3,
 // composite_bwd.cu), it also stores the per-item state [items, 5, PIX]:
 // at the first chunk of every work item (kItemChunks chunks of the
 // tile's segment, numbered through `item_end`), the T carried into it
@@ -153,7 +157,8 @@ composite_kernel(const float* __restrict__ attrs,
                  const long long* __restrict__ item_end,
                  const long long* __restrict__ order,
                  float* __restrict__ state, float* __restrict__ out,
-                 int tiles_x, int tile_w, int tile_h, float shrink) {
+                 int tiles_x, int tile_w, int tile_h, int row0,
+                 int stride, float shrink) {
   // Two chunk buffers, each with its splats' gate boxes and bounds.
   __shared__ __align__(16) float s_attr[2][kChunk * kRows];
   __shared__ float4 s_box[2][kChunk];
@@ -175,7 +180,7 @@ composite_kernel(const float* __restrict__ attrs,
   const int p = ly * tile_w + lx;
   // Integer pixel coordinates (no +0.5), as the reference.
   const int ix = (tile % tiles_x) * tile_w + lx;
-  const int iy = (tile / tiles_x) * tile_h + ly;
+  const int iy = (row0 + (tile / tiles_x) * stride) * tile_h + ly;
   const float px = (float)ix, py = (float)iy;
   // The warp's pixel rectangle.
   const float rx0 = (float)__reduce_min_sync(kFull, ix);
@@ -319,18 +324,21 @@ composite_kernel(const float* __restrict__ attrs,
 // `item_end` and `state` are both null (no state) or both set; `order`
 // (null: tile order) is a permutation of the tiles, block b taking tile
 // order[b]. Blocks of tile_w * tile_h threads, 128-256 in whole warps.
+// Local tile row l is the frame's row row0 + l * stride (0 and 1 for a
+// full frame).
 extern "C" int mvi_composite(const void* attrs, const void* seg_start,
                              const void* counts, const void* item_end,
                              const void* order, void* state, void* out,
                              int num_tiles, int tiles_x, int tile_w,
-                             int tile_h, float shrink, void* stream) {
+                             int tile_h, int row0, int stride, float shrink,
+                             void* stream) {
   if (num_tiles > 0) {
     composite_kernel<<<num_tiles, tile_w * tile_h, 0,
                        (cudaStream_t)stream>>>(
         (const float*)attrs, (const long long*)seg_start,
         (const long long*)counts, (const long long*)item_end,
         (const long long*)order, (float*)state, (float*)out, tiles_x,
-        tile_w, tile_h, shrink);
+        tile_w, tile_h, row0, stride, shrink);
   }
   return (int)cudaGetLastError();
 }

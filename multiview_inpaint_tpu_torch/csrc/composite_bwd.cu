@@ -70,7 +70,8 @@
 // Each pair belongs to one item, so the rows are written without atomics;
 // the TPU kernel's 128-aligned window merge and cross-step carry have no
 // counterpart. The reduction of pairs to gaussians stays outside (the
-// gather's backward).
+// gather's backward). In band mode (pallas_backward.py:374) a tile of
+// local row l sits at the frame's tile row row0 + l * stride, as in K2.
 
 #include <cuda_runtime.h>
 
@@ -134,7 +135,8 @@ composite_bwd_kernel(const float* __restrict__ attrs,
                      const float* __restrict__ fwd,
                      const float* __restrict__ grad,
                      float* __restrict__ d_attrs, int num_tiles,
-                     int tiles_x, int tile_w, int tile_h) {
+                     int tiles_x, int tile_w, int tile_h, int row0,
+                     int stride) {
   __shared__ float s_attr[kChunk * kStage];
   // Per-warp partial sums: [warp][splat * 10 + row].
   __shared__ float s_part[kMaxWarps * kChunk * kGradRows];
@@ -167,7 +169,8 @@ composite_bwd_kernel(const float* __restrict__ attrs,
   const int lane = t & 31;
   const int n_warps = blockDim.x >> 5;
   const float px = (float)((tile % tiles_x) * tile_w + t % tile_w);
-  const float py = (float)((tile / tiles_x) * tile_h + t / tile_w);
+  const float py =
+      (float)((row0 + (tile / tiles_x) * stride) * tile_h + t / tile_w);
 
   const float* f = fwd + (long long)tile * kOutRows * pix + t;
   const float* gp = grad + (long long)tile * kOutRows * pix + t;
@@ -283,19 +286,21 @@ composite_bwd_kernel(const float* __restrict__ attrs,
 
 // Launches one block per item, `max_items` of them: a bound on the
 // frame's items (tiles + pairs / kItemPairs); the surplus blocks exit.
+// Local tile row l is the frame's row row0 + l * stride.
 extern "C" int mvi_composite_bwd(const void* attrs, const void* seg_start,
                                  const void* counts, const void* item_end,
                                  const void* state, const void* fwd,
                                  const void* grad, void* d_attrs,
                                  int num_tiles, int max_items, int tiles_x,
-                                 int tile_w, int tile_h, void* stream) {
+                                 int tile_w, int tile_h, int row0,
+                                 int stride, void* stream) {
   if (num_tiles > 0 && max_items > 0) {
     composite_bwd_kernel<<<max_items, tile_w * tile_h, 0,
                            (cudaStream_t)stream>>>(
         (const float*)attrs, (const long long*)seg_start,
         (const long long*)counts, (const long long*)item_end,
         (const float*)state, (const float*)fwd, (const float*)grad,
-        (float*)d_attrs, num_tiles, tiles_x, tile_w, tile_h);
+        (float*)d_attrs, num_tiles, tiles_x, tile_w, tile_h, row0, stride);
   }
   return (int)cudaGetLastError();
 }

@@ -166,11 +166,18 @@ def load_image(path: str, resolution: Optional[tuple] = None,
                grayscale: bool = False) -> np.ndarray:
     """PNG/JPG -> float32 [H, W, C] (or [H, W] grayscale) in [0, 1].
 
-    PIL decodes every format and handles resizing (the PNG bytes decode
-    to the same pixels as the JAX package's native decoder).
+    PNGs decode through the native C++ library when it builds
+    (``data.native_io``, ``native/dataio.cpp``); PIL handles resizing and
+    other formats.
     """
     from PIL import Image
-    with Image.open(path) as im:
+
+    from ..data import native_io
+    if path.endswith(".png") and native_io.native_available():
+        im = Image.fromarray(native_io.decode_png(path))
+    else:
+        im = Image.open(path)
+    with im:
         im = im.convert("L" if grayscale else "RGB")
         if resolution is not None:
             im = im.resize(resolution)

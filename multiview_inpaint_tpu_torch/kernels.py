@@ -56,15 +56,17 @@ _SIGNATURES = {
     # starts, x0, y0, w, n_active, total, tiles_x, keys, stream
     "mvi_expand_keys": (_P, _P, _P, _P, _I, _L, _I, _P, _P),
     # attrs, seg_start, counts, item_end (or NULL), order (or NULL), state
-    # (or NULL), out, num_tiles, tiles_x, tile_w, tile_h, box shrink,
-    # stream
-    "mvi_composite": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # (or NULL), out, num_tiles, tiles_x, tile_w, tile_h, band row0, band
+    # stride, box shrink, stream
+    "mvi_composite": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _F, _P),
     # K2 at threads per block, int[1] out: blocks per SM
     "mvi_composite_residency": (_I, _P),
     # attrs, seg_start, counts, item_end, state, fwd, grad, d_attrs,
-    # num_tiles, max_items, tiles_x, tile_w, tile_h, stream
+    # num_tiles, max_items, tiles_x, tile_w, tile_h, band row0, band
+    # stride, stream
     "mvi_composite_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _P),
+                          _I, _I, _I, _P),
     # q, k, v, o, lse (or NULL), is_f32, batch, heads, t, d, batch
     # stride, row stride, head stride, scale, stream
     "mvi_flash_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,

@@ -148,6 +148,57 @@ def loss_terms(rgb: torch.Tensor, gt_image: torch.Tensor,
 
 
 @torch.no_grad()
+def adam_fields(fields: dict, mu: dict, nu: dict, grads: dict,
+                live: torch.Tensor, step: int, cfg: OptimizationConfig,
+                spatial_lr_scale: float, zero_nonfinite: bool = True):
+    """The grouped Adam update of ``step`` (the new step number) on the
+    six fields' rows (all of them, or one rank's slice with its ``live``
+    rows): returns (new fields, new mu, new nu, non-finite count). Dead
+    rows get no update; with ``zero_nonfinite`` non-finite gradient
+    entries are zeroed and counted (the data-parallel step, as the JAX
+    one, keeps them)."""
+    n = live.shape[0]
+    lrs = _group_lrs(cfg, step, spatial_lr_scale)
+    t = torch.tensor(float(step), dtype=torch.float32)
+    bc1 = 1.0 - torch.tensor(_B1, dtype=torch.float32) ** t
+    bc2 = 1.0 - torch.tensor(_B2, dtype=torch.float32) ** t
+    zero = torch.zeros((), dtype=torch.float32, device=live.device)
+    nonfinite = torch.zeros((), dtype=torch.int64, device=live.device)
+    new_fields, new_mu, new_nu = {}, {}, {}
+    for f in PARAM_FIELDS:
+        g = grads[f]
+        rowmask = live.reshape((n,) + (1,) * (g.dim() - 1))
+        g = torch.where(rowmask, g, zero)      # no updates for dead rows
+        if zero_nonfinite:
+            # Zero and count non-finite entries: one degenerate backward
+            # (near-singular conic, saturated alpha) would otherwise write
+            # inf/NaN into the moments, which is absorbing.
+            g_ok = torch.isfinite(g)
+            nonfinite = nonfinite + (~g_ok).sum()
+            g = torch.where(g_ok, g, zero)
+        m = _B1 * mu[f] + (1 - _B1) * g
+        v = _B2 * nu[f] + (1 - _B2) * g * g
+        upd = lrs[f] * (m / bc1) / (torch.sqrt(v / bc2) + _EPS)
+        new_fields[f] = fields[f] - torch.where(rowmask, upd, zero)
+        new_mu[f] = m
+        new_nu[f] = v
+    return new_fields, new_mu, new_nu, nonfinite
+
+
+@torch.no_grad()
+def update_stats(stats: DensifyStats, g_offset: torch.Tensor,
+                 radii: torch.Tensor, visibility: torch.Tensor
+                 ) -> tuple[DensifyStats, torch.Tensor]:
+    """The densification statistics from the ``means2d_offset`` gradient
+    (non-finite entries zeroed) and the render's radii and visibility;
+    returns them and the count of non-finite entries."""
+    off_ok = torch.isfinite(g_offset)
+    zero = torch.zeros((), dtype=g_offset.dtype, device=g_offset.device)
+    return (stats.update(torch.where(off_ok, g_offset, zero), radii,
+                         visibility), (~off_ok).sum())
+
+
+@torch.no_grad()
 def apply_adam(state: TrainState, grads: dict, g_offset: torch.Tensor,
                radii: torch.Tensor, visibility: torch.Tensor,
                cfg: OptimizationConfig, spatial_lr_scale: float
@@ -157,38 +208,15 @@ def apply_adam(state: TrainState, grads: dict, g_offset: torch.Tensor,
     ``radii`` and ``visibility``); returns the new state and the count of
     non-finite gradient entries."""
     p = state.params
-    n = p.capacity
     step = state.step + 1
-    lrs = _group_lrs(cfg, step, spatial_lr_scale)
-    t = torch.tensor(float(step), dtype=torch.float32)
-    bc1 = 1.0 - torch.tensor(_B1, dtype=torch.float32) ** t
-    bc2 = 1.0 - torch.tensor(_B2, dtype=torch.float32) ** t
-    zero = torch.zeros((), dtype=torch.float32, device=p.xyz.device)
-    nonfinite = torch.zeros((), dtype=torch.int64, device=p.xyz.device)
-    new_fields, new_mu, new_nu = {}, {}, {}
-    for f in PARAM_FIELDS:
-        g = grads[f]
-        rowmask = p.live.reshape((n,) + (1,) * (g.dim() - 1))
-        g = torch.where(rowmask, g, zero)      # no updates for dead rows
-        # Zero and count non-finite entries: one degenerate backward
-        # (near-singular conic, saturated alpha) would otherwise write
-        # inf/NaN into the moments, which is absorbing.
-        g_ok = torch.isfinite(g)
-        nonfinite = nonfinite + (~g_ok).sum()
-        g = torch.where(g_ok, g, zero)
-        m = _B1 * state.mu[f] + (1 - _B1) * g
-        v = _B2 * state.nu[f] + (1 - _B2) * g * g
-        upd = lrs[f] * (m / bc1) / (torch.sqrt(v / bc2) + _EPS)
-        new_fields[f] = getattr(p, f) - torch.where(rowmask, upd, zero)
-        new_mu[f] = m
-        new_nu[f] = v
-    off_ok = torch.isfinite(g_offset)
-    nonfinite = nonfinite + (~off_ok).sum()
-    stats = state.stats.update(torch.where(off_ok, g_offset, zero), radii,
-                               visibility)
+    fields = {f: getattr(p, f) for f in PARAM_FIELDS}
+    new_fields, new_mu, new_nu, nonfinite = adam_fields(
+        fields, state.mu, state.nu, grads, p.live, step, cfg,
+        spatial_lr_scale)
+    stats, off_bad = update_stats(state.stats, g_offset, radii, visibility)
     return TrainState(params=GaussianParams(live=p.live, **new_fields),
                       mu=new_mu, nu=new_nu, stats=stats,
-                      step=step), nonfinite
+                      step=step), nonfinite + off_bad
 
 
 def train_step(state: TrainState, camera: RenderCamera,

@@ -12,6 +12,15 @@ kernel. The render is differentiable on both devices: the composite's
 backward is K3 (its plain version on ``cpu``), the gather of the packed
 attributes reduces the pair gradients to gaussians, and autograd carries
 them through the projection (``means2d_offset`` included).
+
+Band mode (``band_rows``) renders only the tile rows ``band_row0 + l *
+band_stride`` of the frame, l = 0..band_rows-1, for single-frame
+sharding (``parallel.render_parallel.render_frame_sharded``,
+``parallel.gs_band_train``): the projection stays full-frame, the binning
+cuts the rects to the band's rows in integer tile space, and K2 and K3
+place each local tile row at its frame row. Each band tile's pair list
+and its order are the full frame's, so the band's pixels are bit-equal
+to the same rows of the full frame.
 """
 
 from __future__ import annotations
@@ -94,9 +103,19 @@ def render(params: GaussianParams, camera: RenderCamera,
            bg_color, sh_degree: int = 0, scaling_modifier: float = 1.0,
            means2d_offset: Optional[torch.Tensor] = None,
            tile: tuple[int, int] = (16, 16),
+           band_rows: Optional[int] = None,
+           band_row0: Optional[int] = None,
+           band_stride: int = 1,
            device=DEFAULT_DEVICE) -> RenderOutput:
     """Render one view on ``device``. ``tile`` is (h, w): 16x16 or 8x16
-    on CUDA (one thread per pixel, <= 256 pixels), any shape on CPU."""
+    on CUDA (one thread per pixel, <= 256 pixels), any shape on CPU.
+
+    With ``band_rows`` only the band of tile rows ``band_row0 + l *
+    band_stride`` (``band_row0`` a Python int, default 0) is rendered:
+    rgb, depth and alpha hold its ``band_rows * tile_h`` rows in local
+    order (the caller stitches the bands and crops to the frame), and
+    ``pairs`` counts the band's pairs; radii and visibility come from the
+    full projection."""
     dev = resolve_device(device)
     params = params.to(dev)
     camera = camera.to(dev)
@@ -105,25 +124,33 @@ def render(params: GaussianParams, camera: RenderCamera,
         means2d_offset = means2d_offset.to(dev)
     tile_h, tile_w = tile
     tiles_x = -(-camera.width // tile_w)
-    tiles_y = -(-camera.height // tile_h)
+    tiles_y_total = -(-camera.height // tile_h)
+    if band_rows is None:
+        tiles_y, row0, stride, out_h = tiles_y_total, None, 1, camera.height
+    else:
+        tiles_y, stride = int(band_rows), int(band_stride)
+        row0 = 0 if band_row0 is None else int(band_row0)
+        out_h = tiles_y * tile_h
 
     proj = project(params, camera, sh_degree, scaling_modifier,
                    means2d_offset)
     bins = binning.bin_gaussians(
         proj.means2d.detach(), proj.radius, proj.depth.detach(), tiles_x,
-        tiles_y, tile_w, tile_h, extent=proj.extent)
+        tiles_y, tile_w, tile_h, extent=proj.extent, tile_row0=row0,
+        tiles_y_total=tiles_y_total, tile_row_stride=stride)
     packed = pack_attrs(proj.means2d, proj.conic, proj.opacity, proj.color,
                         proj.depth)
     attrs = packed[bins.order[bins.gid_sorted]]            # [P, 16]
     tiles8 = composite_tiles(attrs, bins.seg_start, bins.counts, tiles_x,
-                             tiles_y, tile_h, tile_w)      # [T, 8, PIX]
+                             tiles_y, tile_h, tile_w, row0=row0 or 0,
+                             stride=stride)                # [T, 8, PIX]
 
     t_fin = tiles8[:, 4, :]
     tile_rgb = torch.stack([tiles8[:, c, :] + t_fin * bg[c]
                             for c in range(3)], dim=-1)
     tile_depth = tiles8[:, 3, :] + t_fin * composite.DEPTH_EMPTY
     tile_alpha = 1.0 - t_fin
-    size = (tiles_x, tiles_y, tile_w, tile_h, camera.width, camera.height)
+    size = (tiles_x, tiles_y, tile_w, tile_h, camera.width, out_h)
     return RenderOutput(rgb=assemble(tile_rgb, *size),
                         depth=assemble(tile_depth, *size),
                         alpha=assemble(tile_alpha, *size),

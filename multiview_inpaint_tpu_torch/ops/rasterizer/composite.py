@@ -159,12 +159,16 @@ def _item_of(ends, counts, tl, c0):
 
 
 def tile_pixel_coords(tiles_x: int, tiles_y: int, tile_w: int, tile_h: int,
-                      device=None) -> torch.Tensor:
+                      device=None, row0: int = 0,
+                      stride: int = 1) -> torch.Tensor:
     """[T, PIX, 2] integer-valued float32 pixel coordinates of every tile
-    (the reference's ``_tile_pixel_coords``: no +0.5 offset)."""
+    (the reference's ``_tile_pixel_coords``: no +0.5 offset). In band
+    mode local tile row ty is the frame's row ``row0 + ty * stride``
+    (the JAX ``render``'s origin shift, ``api.py:333``)."""
     ty, tx = torch.meshgrid(torch.arange(tiles_y), torch.arange(tiles_x),
                             indexing="ij")
-    origin = torch.stack([tx.reshape(-1) * tile_w, ty.reshape(-1) * tile_h],
+    origin = torch.stack([tx.reshape(-1) * tile_w,
+                          (row0 + ty.reshape(-1) * stride) * tile_h],
                          dim=-1)
     ly, lx = torch.meshgrid(torch.arange(tile_h), torch.arange(tile_w),
                             indexing="ij")
@@ -239,7 +243,8 @@ def _chunks(counts, pix, chunk):
 def composite_segments(attrs: torch.Tensor, seg_start: torch.Tensor,
                        counts: torch.Tensor, tiles_x: int, tiles_y: int,
                        tile_h: int, tile_w: int, chunk: int = CHUNK,
-                       with_state: bool = False):
+                       with_state: bool = False, row0: int = 0,
+                       stride: int = 1):
     """Plain version of the composite kernel (K2).
 
     attrs [P, 16] pair-sorted packed attributes; seg_start/counts [T]
@@ -249,12 +254,14 @@ def composite_segments(attrs: torch.Tensor, seg_start: torch.Tensor,
     it also returns the per-item state [max_items(T, P), STATE_ROWS, PIX]
     (not differentiated; rows past the frame's items are 0): the carry T
     and the accumulators at the start of every item, recorded from this
-    walk's own carry.
+    walk's own carry. In band mode the T tiles are ``tiles_y`` band rows,
+    local row ty at the frame's tile row ``row0 + ty * stride``.
     """
     dev = attrs.device
     n_tiles = tiles_x * tiles_y
     pix = tile_h * tile_w
-    coords = tile_pixel_coords(tiles_x, tiles_y, tile_w, tile_h, dev)
+    coords = tile_pixel_coords(tiles_x, tiles_y, tile_w, tile_h, dev, row0,
+                               stride)
     t_carry = torch.ones((n_tiles, pix), dtype=torch.float32, device=dev)
     acc = torch.zeros((n_tiles, pix, 4), dtype=torch.float32, device=dev)
     lane = torch.arange(chunk, device=dev)
@@ -285,7 +292,8 @@ def composite_segments_bwd(attrs: torch.Tensor, seg_start: torch.Tensor,
                            counts: torch.Tensor, tiles8: torch.Tensor,
                            g_tiles8: torch.Tensor, tiles_x: int,
                            tiles_y: int, tile_h: int, tile_w: int,
-                           state: torch.Tensor | None = None
+                           state: torch.Tensor | None = None,
+                           row0: int = 0, stride: int = 1
                            ) -> torch.Tensor:
     """Plain version of the composite backward kernel (K3).
 
@@ -308,12 +316,14 @@ def composite_segments_bwd(attrs: torch.Tensor, seg_start: torch.Tensor,
     With the forward's per-item ``state`` (``composite_segments(...,
     with_state=True)``) every item starts from it: T from its row 0 and
     the prefix of w.A from g . its accumulators, as the CUDA K3 does.
-    Without it the walk carries both from the tile's start.
+    Without it the walk carries both from the tile's start. ``row0`` and
+    ``stride`` place a band's tiles as in ``composite_segments``.
     """
     dev = attrs.device
     n_tiles = tiles_x * tiles_y
     pix = tile_h * tile_w
-    coords = tile_pixel_coords(tiles_x, tiles_y, tile_w, tile_h, dev)
+    coords = tile_pixel_coords(tiles_x, tiles_y, tile_w, tile_h, dev, row0,
+                               stride)
     t_carry = torch.ones((n_tiles, pix), dtype=torch.float32, device=dev)
     prefix = torch.zeros((n_tiles, pix), dtype=torch.float32, device=dev)
     g4 = g_tiles8[:, 0:4, :].transpose(1, 2)                # [T, PIX, 4]

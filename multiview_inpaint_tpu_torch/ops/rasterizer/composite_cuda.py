@@ -24,6 +24,11 @@ counts on the host.
 tensors its forward is the plain K2 and its backward the plain K3; on
 CUDA tensors it launches K2 and K3. Any other device raises; nothing falls
 back to another device or to autograd through the plain forward.
+
+Band mode: every function takes ``row0`` and ``stride`` (0 and 1 for a
+full frame), which place local tile row l at the frame's tile row ``row0
++ l * stride`` (the JAX ``render(band_rows=, band_row0=, band_stride=)``).
+Both kernels and both plain versions take them.
 """
 
 from __future__ import annotations
@@ -101,12 +106,21 @@ def resident_blocks(device: torch.device, threads: int) -> int:
         device).multi_processor_count
 
 
+def _band(row0, stride):
+    row0, stride = int(row0), int(stride)
+    if row0 < 0 or stride < 1:
+        raise ValueError(f"composite: band row0 {row0} must be >= 0 and "
+                         f"stride {stride} >= 1")
+    return row0, stride
+
+
 def _launch(attrs, seg_start, counts, tiles_x, tiles_y, tile_h, tile_w,
-            with_state, box_shrink=0.0, by_depth=None):
+            with_state, box_shrink=0.0, by_depth=None, row0=0, stride=1):
     """K2 on CUDA tensors. ``by_depth`` forces (True) or forbids (False)
     the deepest-first launch order, which None leaves to the grid's
     waves; ``box_shrink`` pulls every gate box in by that many pixels
-    (a planted fault, 0 otherwise)."""
+    (a planted fault, 0 otherwise); ``row0``/``stride`` place a band."""
+    row0, stride = _band(row0, stride)
     _check(attrs, seg_start, counts, tiles_x, tiles_y, tile_h, tile_w)
     if attrs.data_ptr() % 16:
         raise ValueError("composite: attrs must be 16-byte aligned (K2 "
@@ -133,7 +147,7 @@ def _launch(attrs, seg_start, counts, tiles_x, tiles_y, tile_h, tile_w,
                            None if order is None else order.data_ptr(),
                            None if state is None else state.data_ptr(),
                            out.data_ptr(), n_tiles, tiles_x, tile_w, tile_h,
-                           float(box_shrink),
+                           row0, stride, float(box_shrink),
                            _kernels.stream_ptr(attrs.device))
     _kernels.check(rc, "composite")
     _kernels.LAUNCHES["composite"] += 1
@@ -141,7 +155,8 @@ def _launch(attrs, seg_start, counts, tiles_x, tiles_y, tile_h, tile_w,
 
 
 def _launch_bwd(attrs, seg_start, counts, tiles8, g_tiles8, tiles_x,
-                tiles_y, tile_h, tile_w, state):
+                tiles_y, tile_h, tile_w, state, row0=0, stride=1):
+    row0, stride = _band(row0, stride)
     n_tiles = tiles_x * tiles_y
     n_items = max_items(n_tiles, attrs.shape[0])
     if state is None:
@@ -160,6 +175,7 @@ def _launch_bwd(attrs, seg_start, counts, tiles8, g_tiles8, tiles_x,
                                state.data_ptr(), tiles8.data_ptr(),
                                g_tiles8.data_ptr(), d_attrs.data_ptr(),
                                n_tiles, n_items, tiles_x, tile_w, tile_h,
+                               row0, stride,
                                _kernels.stream_ptr(attrs.device))
     _kernels.check(rc, "composite_bwd")
     _kernels.LAUNCHES["composite_bwd"] += 1
@@ -173,20 +189,24 @@ def _device_type(attrs: torch.Tensor) -> str:
 
 
 def composite_fwd(attrs, seg_start, counts, tiles_x, tiles_y, tile_h,
-                  tile_w, with_state: bool = False):
+                  tile_w, with_state: bool = False, row0: int = 0,
+                  stride: int = 1):
     """K2: raw [T, 8, PIX] tiles, and with ``with_state`` also the
     per-item state [max_items, 5, PIX] that K3 starts from. CPU tensors
     take the plain version, CUDA tensors launch the kernel."""
     if _device_type(attrs) == "cpu":
+        row0, stride = _band(row0, stride)
         return composite_segments(attrs, seg_start, counts, tiles_x,
                                   tiles_y, tile_h, tile_w,
-                                  with_state=with_state)
+                                  with_state=with_state, row0=row0,
+                                  stride=stride)
     return _launch(attrs, seg_start, counts, tiles_x, tiles_y, tile_h,
-                   tile_w, with_state)
+                   tile_w, with_state, row0=row0, stride=stride)
 
 
 def composite_bwd(attrs, seg_start, counts, tiles8, g_tiles8, tiles_x,
-                  tiles_y, tile_h, tile_w, state=None) -> torch.Tensor:
+                  tiles_y, tile_h, tile_w, state=None, row0: int = 0,
+                  stride: int = 1) -> torch.Tensor:
     """K3: d attrs [P, 16] from the forward's raw tiles, their cotangent
     and the forward's per-item ``state``. CPU tensors take the plain
     version (which also walks each tile from its start when ``state`` is
@@ -194,43 +214,48 @@ def composite_bwd(attrs, seg_start, counts, tiles8, g_tiles8, tiles_x,
     if _device_type(attrs) == "cpu":
         return composite_segments_bwd(attrs, seg_start, counts, tiles8,
                                       g_tiles8, tiles_x, tiles_y, tile_h,
-                                      tile_w, state)
+                                      tile_w, state, *_band(row0, stride))
     return _launch_bwd(attrs, seg_start, counts, tiles8, g_tiles8, tiles_x,
-                       tiles_y, tile_h, tile_w, state)
+                       tiles_y, tile_h, tile_w, state, row0, stride)
 
 
 class _CompositeFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, attrs, seg_start, counts, tiles_x, tiles_y, tile_h,
-                tile_w):
+                tile_w, row0, stride):
         # The per-item state only when a backward can follow.
         if ctx.needs_input_grad[0]:
             tiles8, state = composite_fwd(attrs, seg_start, counts, tiles_x,
                                           tiles_y, tile_h, tile_w,
-                                          with_state=True)
+                                          with_state=True, row0=row0,
+                                          stride=stride)
         else:
             tiles8 = composite_fwd(attrs, seg_start, counts, tiles_x,
-                                   tiles_y, tile_h, tile_w)
+                                   tiles_y, tile_h, tile_w, row0=row0,
+                                   stride=stride)
             state = None
         ctx.save_for_backward(attrs, seg_start, counts, tiles8, state)
         ctx.size = (tiles_x, tiles_y, tile_h, tile_w)
+        ctx.band = (row0, stride)
         return tiles8
 
     @staticmethod
     def backward(ctx, grad):
         attrs, seg_start, counts, tiles8, state = ctx.saved_tensors
         d_attrs = composite_bwd(attrs, seg_start, counts, tiles8,
-                                grad.contiguous(), *ctx.size, state)
-        return d_attrs, None, None, None, None, None, None
+                                grad.contiguous(), *ctx.size, state,
+                                *ctx.band)
+        return d_attrs, None, None, None, None, None, None, None, None
 
 
 def composite(attrs: torch.Tensor, seg_start: torch.Tensor,
               counts: torch.Tensor, tiles_x: int, tiles_y: int,
-              tile_h: int, tile_w: int) -> torch.Tensor:
+              tile_h: int, tile_w: int, row0: int = 0,
+              stride: int = 1) -> torch.Tensor:
     """Raw [T, 8, PIX] tiles from pair-sorted attrs [P, 16] and int64
     [T] segments, differentiable in ``attrs`` through K3 (the plain
     versions on CPU tensors, the kernels on CUDA tensors; any other
-    device raises)."""
+    device raises). ``row0``/``stride`` place a band's tile rows."""
     _device_type(attrs)
     return _CompositeFn.apply(attrs, seg_start, counts, tiles_x, tiles_y,
-                              tile_h, tile_w)
+                              tile_h, tile_w, row0, stride)

@@ -15,12 +15,15 @@ hits it closer than the rendered surface, or the pixel is empty
 
     python -m multiview_inpaint_tpu_torch.pipelines.gen_seq \
         --scene_id <scene>_<case> -m output/<scene> -s dataset/<scene> \
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--shard_views]
 
 Port of ``multiview_inpaint_tpu/pipelines/gen_seq.py``. Each view is
 rendered, masked and written before the next one is rendered (the files
 are the JAX CLI's), so a large training set never holds more than one
-view's outputs on the device.
+view's outputs on the device. With ``--shard_views`` under torchrun at a
+world size above 1, the views are rendered in groups of one per rank
+(``parallel.render_parallel.views_sharded``) and rank 0 masks and writes
+them; at world size 1 the flag changes nothing.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from ..gs import scene_io
 from ..gs.cameras import get_rays
 from ..gs.scene import Scene, Workspace, orbit_cameras
 from ..ops.rasterizer import DEPTH_EMPTY, RenderCamera, render
+from ..parallel import mesh
+from ..parallel.render_parallel import views_sharded
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from . import common
 
@@ -54,24 +59,34 @@ def box_mask(view, box, depth: torch.Tensor) -> torch.Tensor:
 
 def render_sequence(views, params, box, out_dir, bg, sh_degree=0,
                     save_poses=True, use_image_name=True,
-                    device=DEFAULT_DEVICE):
+                    device=DEFAULT_DEVICE, shard=False):
+    """``shard``: render the views sharded over the ranks (uniform
+    cameras); only rank 0 writes."""
     for sub in ("renders", "mask", "masked"):
         os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
-    poses = []
-    for idx, view in enumerate(views):
-        v_id = view.image_name if use_image_name else f"{idx:02d}"
-        poses.append(view.camera_to_world)
-        with torch.no_grad():
-            out = render(params, RenderCamera.from_camera(view, device), bg,
-                         sh_degree=sh_degree, device=device)
+    poses = [view.camera_to_world for view in views]
+    with torch.no_grad():
+        if shard:
+            outs = views_sharded(params, views, bg, device=device,
+                                 sh_degree=sh_degree)
+        else:
+            outs = ((i, render(params, RenderCamera.from_camera(v, device),
+                               bg, sh_degree=sh_degree, device=device))
+                    for i, v in enumerate(views))
+        for idx, out in outs:
+            if mesh.rank() != 0:
+                continue
+            view = views[idx]
+            v_id = view.image_name if use_image_name else f"{idx:02d}"
             mask = box_mask(view, box, out.depth)
             m = mask[..., None]
             masked = out.rgb * (1 - m) + m
-        for sub, img in (("renders", out.rgb), ("mask", mask),
-                         ("masked", masked)):
-            scene_io.save_image(os.path.join(out_dir, sub, f"{v_id}.png"),
-                                img.cpu().numpy())
-    if save_poses:
+            for sub, img in (("renders", out.rgb), ("mask", mask),
+                             ("masked", masked)):
+                scene_io.save_image(
+                    os.path.join(out_dir, sub, f"{v_id}.png"),
+                    img.cpu().numpy())
+    if save_poses and mesh.rank() == 0:
         np.save(os.path.join(out_dir, "cam_center.npy"),
                 np.asarray(box.center, np.float32)[None])
         np.save(os.path.join(out_dir, "poses.npy"),
@@ -93,10 +108,15 @@ def main(argv=None):
     parser.add_argument("--sds", action="store_true",
                         help="render the coarse SDS model sequence "
                              "(reads output_sds, writes inpaint_sds)")
+    parser.add_argument("--shard_views", action="store_true",
+                        help="shard orbit views over all devices "
+                             "(data-axis mesh, params replicated)")
     common.add_device_arg(parser)
     common.add_orbit_args(parser)
     args = parser.parse_args(argv)
-    dev = resolve_device(args.device)
+    dev = (mesh.init_from_env(args.device) if args.shard_views
+           else resolve_device(args.device))
+    shard = args.shard_views and mesh.world() > 1
     common.apply_registry(args)
     # fail fast on unknown scene ids (reference raises KeyError)
     orbit = common.resolve_orbit(args)
@@ -123,7 +143,7 @@ def main(argv=None):
                                args.scene_id, mode, f"ours_{iteration}")
         render_sequence(views, scene.gaussians, box, out_dir, bg,
                         sh_degree=args.sh_degree, use_image_name=True,
-                        device=dev)
+                        device=dev, shard=shard)
         print(f"mode {mode}: {len(views)} frames -> {out_dir}")
 
     if not args.sds:
@@ -132,7 +152,8 @@ def main(argv=None):
                                f"ours_{iteration}")
         render_sequence(scene.train_cameras(), scene.gaussians, box,
                         out_dir, bg, sh_degree=args.sh_degree,
-                        save_poses=False, use_image_name=True, device=dev)
+                        save_poses=False, use_image_name=True, device=dev,
+                        shard=shard)
         print(f"bds_train masks -> {out_dir}")
 
 

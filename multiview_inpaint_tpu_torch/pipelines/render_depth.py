@@ -5,10 +5,13 @@ renders, used for depth-hint debugging.
 
     python -m multiview_inpaint_tpu_torch.pipelines.render_depth \
         --scene_id <scene>_<case> -m output/<scene> -s dataset/<scene> \
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--shard_views]
 
 Port of ``multiview_inpaint_tpu/pipelines/render_depth.py``; the
 disparity ``1/clip(depth, 0.1)`` over its max is taken on the device.
+``--shard_views`` under torchrun at a world size above 1 renders the
+views in groups of one per rank and rank 0 writes; at world size 1 it
+changes nothing.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from ..gs import obb as obb_mod
 from ..gs import scene_io
 from ..gs.scene import Scene, Workspace, orbit_cameras
 from ..ops.rasterizer import RenderCamera, render
+from ..parallel import mesh
+from ..parallel.render_parallel import views_sharded
 from ..utils.device import resolve_device
 from . import common
 
@@ -37,10 +42,14 @@ def main(argv=None):
                         help="inpaint hand-off dir (abs or relative to workspace)")
     parser.add_argument("--modes", nargs="+", default=["x1", "x2"])
     parser.add_argument("--frames", type=int, default=14)
+    parser.add_argument("--shard_views", action="store_true",
+                        help="shard orbit views over all devices "
+                             "(params replicated)")
     common.add_device_arg(parser)
     common.add_orbit_args(parser)
     args = parser.parse_args(argv)
-    dev = resolve_device(args.device)
+    dev = (mesh.init_from_env(args.device) if args.shard_views
+           else resolve_device(args.device))
     common.apply_registry(args)
     # fail fast on unknown scene ids (reference raises KeyError)
     orbit = common.resolve_orbit(args)
@@ -65,16 +74,22 @@ def main(argv=None):
                                args.scene_id, mode, f"ours_{iteration}",
                                "disp")
         os.makedirs(out_dir, exist_ok=True)
-        for view in views:
-            with torch.no_grad():
-                d = render(scene.gaussians, RenderCamera.from_camera(
-                    view, dev), bg, sh_degree=args.sh_degree,
-                    device=dev).depth
-                disp = 1.0 / torch.clamp(d, min=0.1)
+        with torch.no_grad():
+            if args.shard_views and mesh.world() > 1:
+                outs = views_sharded(scene.gaussians, views, bg, device=dev,
+                                     sh_degree=args.sh_degree)
+            else:
+                outs = ((i, render(scene.gaussians, RenderCamera.from_camera(
+                    v, dev), bg, sh_degree=args.sh_degree, device=dev))
+                    for i, v in enumerate(views))
+            for i, out in outs:
+                if mesh.rank() != 0:
+                    continue
+                disp = 1.0 / torch.clamp(out.depth, min=0.1)
                 disp = disp / disp.max()
-            scene_io.save_image(os.path.join(out_dir,
-                                             f"{view.image_name}.png"),
-                                disp.cpu().numpy())
+                scene_io.save_image(
+                    os.path.join(out_dir, f"{views[i].image_name}.png"),
+                    disp.cpu().numpy())
         print(f"mode {mode}: disparity -> {out_dir}")
 
 

@@ -28,8 +28,10 @@ azimuth/polar/radius fourier embeddings to the vector cond.
 Random numbers come from ``torch.Generator``s seeded from ``--seed`` (the
 JAX CLI derives the same roles from one key): the VAE posterior's and the
 conditioning augmentation's noise per batch slot, and the sigmas and noise
-of the loss. Not ported: ``--wandb`` (JSONL only) and more than one card
-(``--devices`` takes 1; the data-parallel all-reduce comes later).
+of the loss. ``--wandb`` mirrors the JSONL rows to a wandb run where the
+package can be imported (``utils.logging``). Not ported yet: more than
+one card (``--devices`` takes 1; the data-parallel all-reduce comes with
+the SVD half of the distributed paths).
 """
 
 from __future__ import annotations
@@ -166,7 +168,10 @@ def train(args):
                               ema_decay=args.ema_decay if args.ema else None)
 
     os.makedirs(args.logdir, exist_ok=True)
-    logger = RunLogger(args.logdir, "svd_train")
+    logger = RunLogger(args.logdir, "svd_train",
+                       backend="wandb" if args.wandb else "jsonl",
+                       wandb_project=args.wandb_project,
+                       config=vars(args))
     heads = cfg.vit.heads
 
     def save(tag):
@@ -334,6 +339,11 @@ def main(argv=None):
     p.add_argument("--log_images_every", type=int, default=0,
                    help="sample + save a train grid every N steps "
                         "(ImageLogger parity; 0 = off)")
+    p.add_argument("--wandb", action="store_true",
+                   help="mirror metrics to wandb when the package is "
+                        "available (reference main.py:676-700 "
+                        "WandbLogger); degrades to JSONL otherwise")
+    p.add_argument("--wandb_project", default=None)
     p.add_argument("--seed", type=int, default=23)
     p.add_argument("--param_dtype", default="bfloat16",
                    choices=["float32", "bfloat16"],

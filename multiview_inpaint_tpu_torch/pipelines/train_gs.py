@@ -13,7 +13,11 @@ plus full-state npz (``--checkpoint_iterations`` /
 ``--start_checkpoint``), in the JAX package's npz layout.
 
 ``--profile_dir`` writes a ``torch.profiler`` chrome trace of iterations
-100-109; ``--detect_anomaly`` turns on autograd's anomaly detection. The
+100-109; ``--detect_anomaly`` turns on autograd's anomaly detection.
+``--live_view PORT`` serves a browser live view (``utils.live_view``):
+every ``--live_interval`` iterations the current camera, or the pose the
+browser posted, is rendered and published; other iterations add no host
+sync. The
 JAX CLI's TPU knobs (``--backend``, ``--max_per_tile``,
 ``--pair_budget_mult``, ``--expand_window``) and its pair-budget growth
 are gone: the port's pair count is exact.
@@ -22,6 +26,7 @@ are gone: the port's pair count is exact.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import random
 import time
@@ -32,9 +37,11 @@ import torch
 from ..gs import checkpoint as ckpt_mod
 from ..gs.scene import Scene
 from ..models import gs_trainer
+from ..gs.cameras import retarget
 from ..ops.rasterizer import RenderCamera, render
 from ..utils import losses as loss_utils
 from ..utils.device import resolve_device
+from ..utils.live_view import LiveViewServer
 from ..utils.logging import RunLogger
 from . import common
 
@@ -68,6 +75,11 @@ def train(args) -> None:
         state = gs_trainer.init_state(scene.gaussians)
         first_iter = 0
 
+    live = None
+    if args.live_view:
+        live = LiveViewServer(args.live_view)
+        logger.echo(f"live view: http://localhost:{live.port}/")
+
     spatial = scene.cameras_extent
     rng = random.Random(0)
     generator = torch.Generator(device=dev)
@@ -95,6 +107,8 @@ def train(args) -> None:
                                                spatial, iteration)
         state = gs_trainer.grow_if_needed(state, info)
 
+        if live is not None and iteration % args.live_interval == 0:
+            _publish(live, cam, state, bg, sh_degree, spatial, dev)
         if iteration % args.log_interval == 0:
             logger.log(iteration, loss=metrics.loss, l1=metrics.l1,
                        points=int(metrics.num_live),
@@ -114,7 +128,39 @@ def train(args) -> None:
             logger.echo(f"[ITER {iteration}] checkpoint {p}")
     if profiler is not None:
         _stop_profiler(profiler, args.profile_dir, cfg.iterations, logger)
+    if live is not None:
+        live.close()
     logger.close()
+
+
+def live_camera(cam, pose: dict, spatial: float):
+    """The camera the live view asks for: an orbit pose (yaw, pitch in
+    degrees; radius in units of the scene's extent) looking at the origin,
+    with ``cam``'s intrinsics (the JAX CLI's ``train_gs.py:100-118``)."""
+    yaw = math.radians(pose.get("yaw", 0.0))
+    pitch = math.radians(pose.get("pitch", 0.0))
+    radius = pose.get("radius", 1.0) * spatial
+    c = np.array([radius * math.cos(pitch) * math.sin(yaw),
+                  radius * math.sin(pitch),
+                  -radius * math.cos(pitch) * math.cos(yaw)])
+    z = -c / (np.linalg.norm(c) + 1e-9)
+    x = np.cross(np.array([0.0, 1.0, 0.0]), z)
+    x = x / (np.linalg.norm(x) + 1e-9)
+    y = np.cross(z, x)
+    c2w = np.eye(4)
+    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = x, y, z, c
+    return retarget(cam, c2w, inpainted=False)
+
+
+def _publish(live, cam, state, bg, sh_degree, spatial, dev):
+    """Render the requested pose (the current camera when none was
+    posted) and publish it; the one host sync of a live-view iteration."""
+    pose = live.requested_pose()
+    view = live_camera(cam, pose, spatial) if pose else cam
+    with torch.no_grad():
+        out = render(state.params, RenderCamera.from_camera(view, dev), bg,
+                     sh_degree=sh_degree, device=dev)
+    live.publish(out.rgb.cpu().numpy())
 
 
 def _start_profiler(dev):
@@ -172,6 +218,9 @@ def main(argv=None):
     parser.add_argument("--start_checkpoint", type=str, default=None)
     parser.add_argument("--capacity", type=int, default=None)
     parser.add_argument("--log_interval", type=int, default=100)
+    parser.add_argument("--live_view", type=int, default=0,
+                        help="serve a browser live view on this port")
+    parser.add_argument("--live_interval", type=int, default=50)
     parser.add_argument("--detect_anomaly", action="store_true",
                         help="autograd anomaly detection (slow)")
     parser.add_argument("--profile_dir", type=str, default=None,

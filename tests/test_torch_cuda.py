@@ -153,6 +153,70 @@ def test_cuda_composite_backward_matches_plain_k3(tile):
     assert not got[:, 10:].any()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("row0,stride", [(1, 3), (2, 1)])
+def test_cuda_band_mode_k2_k3_match_plain_and_full_frame(row0, stride):
+    """K2 and K3 in band mode (the band's tile rows row0 + l * stride of
+    a 20k-gaussian bench frame) against their plain versions with the
+    same origin, at K2's and K3's bars; the band's K2 tiles bit-equal to
+    the same tiles of the full frame; a band render's rows bit-equal to
+    the full render's and its pairs the band's share of the frame's."""
+    _require_cuda()
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (composite,
+                                                            composite_cuda)
+    big = synthetic.make_big_scene(20_000, device="cuda")
+    cam = RenderCamera.from_camera(synthetic.bench_camera(), "cuda")
+    th = tw = 16
+    tx, ty_total = -(-cam.width // tw), -(-cam.height // th)
+    rows = -(-(ty_total - row0) // stride)
+    with torch.no_grad():
+        proj = api.project(big, cam, 0)
+        packed = composite_cuda.pack_attrs(proj.means2d, proj.conic,
+                                           proj.opacity, proj.color,
+                                           proj.depth)
+        full = binning.bin_gaussians(proj.means2d, proj.radius, proj.depth,
+                                     tx, ty_total, tw, th,
+                                     extent=proj.extent)
+        bins = binning.bin_gaussians(proj.means2d, proj.radius, proj.depth,
+                                     tx, rows, tw, th, extent=proj.extent,
+                                     tile_row0=row0, tiles_y_total=ty_total,
+                                     tile_row_stride=stride)
+        attrs_f = packed[full.order[full.gid_sorted]].contiguous()
+        attrs = packed[bins.order[bins.gid_sorted]].contiguous()
+        args = (attrs, bins.seg_start, bins.counts)
+        size = (tx, rows, th, tw)
+        band = dict(row0=row0, stride=stride)
+        tiles8, state = composite_cuda.composite_fwd(
+            *args, *size, with_state=True, **band)
+        want = composite.composite_segments(*args, *size, **band)
+        whole = composite_cuda.composite_fwd(
+            attrs_f, full.seg_start, full.counts, tx, ty_total, th, tw)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        g = torch.randn(tiles8.shape, generator=gen, device="cuda")
+        g[:, 5:] = 0
+        got = composite_cuda.composite_bwd(*args, tiles8, g, *size, state,
+                                           **band)
+        want_bwd = composite.composite_segments_bwd(*args, tiles8, g, *size,
+                                                    None, **band)
+        out = render(big, cam, BG, band_rows=rows, band_row0=row0,
+                     band_stride=stride, device="cuda")
+        ref = render(big, cam, BG, device="cuda")
+    assert bins.total_pairs > 0
+    err_rgb = (tiles8[:, :3] - want[:, :3]).abs().amax(1)
+    err_d = (tiles8[:, 3] - want[:, 3]).abs()
+    bad = (err_rgb > RGB_TOL) | (err_d > DEPTH_TOL)
+    assert int(bad.sum()) <= 1e-4 * bad.numel()
+    glob = torch.arange(rows, device="cuda") * stride + row0
+    tiles = (glob[:, None] * tx + torch.arange(tx, device="cuda")).reshape(-1)
+    assert torch.equal(tiles8, whole[tiles])
+    assert _k3_bar_share(got[:, :10], want_bwd[:, :10]) <= 1e-4
+    assert not got[:, 10:].any()
+    for l, gy in enumerate(glob.tolist()):
+        lo, hi = gy * th, min((gy + 1) * th, cam.height)
+        assert torch.equal(out.rgb[l * th:l * th + hi - lo], ref.rgb[lo:hi])
+    assert out.pairs == bins.total_pairs < ref.pairs
+
+
 def _state_share(got, want):
     """Share of item-pixels whose carried T or rgb accumulators differ by
     more than 3e-5, or whose depth accumulator differs by more than 3e-4

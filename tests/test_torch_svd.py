@@ -89,6 +89,25 @@ def _batch(seed=80):
                 np.float32)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's many small ops on one intra-op thread: on PyTorch's
+    default threads they thrash when several test workers share the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def conds(engines):
+    """Both engines' conditioning of one batch, computed once for the
+    module (the JAX engine's runs eagerly)."""
+    jeng, state, teng, _, _ = engines
+    return _conds(jeng, state, teng)
+
+
 def _conds(jeng, state, teng):
     b = _batch()
     jb = {k: jnp.asarray(v) for k, v in b.items()}
@@ -102,9 +121,9 @@ def _conds(jeng, state, teng):
     return (jc, juc), (tc, tuc)
 
 
-def test_tiny_engine_conditioning_and_denoiser_match_jax(engines):
+def test_tiny_engine_conditioning_and_denoiser_match_jax(engines, conds):
     jeng, state, teng, _, _ = engines
-    (jc, juc), (tc, tuc) = _conds(jeng, state, teng)
+    (jc, juc), (tc, tuc) = conds
     for k in jc:
         check(tc[k], jc[k], 1e-5, k)
     x = np.random.default_rng(81).normal(size=(T, 8, 6, 4)).astype(
@@ -120,9 +139,9 @@ def test_tiny_engine_conditioning_and_denoiser_match_jax(engines):
     assert float((moved - got).abs().max()) > 1e-4
 
 
-def test_tiny_engine_sample_matches_jax_euler_edm(engines):
+def test_tiny_engine_sample_matches_jax_euler_edm(engines, conds):
     jeng, state, teng, _, _ = engines
-    (jc, juc), (tc, tuc) = _conds(jeng, state, teng)
+    (jc, juc), (tc, tuc) = conds
     noise = np.random.default_rng(82).normal(size=(T, 8, 6, 4)).astype(
         np.float32)
     sigmas = jnp.concatenate([jedm.edm_sigmas(STEPS), jnp.zeros((1,))])

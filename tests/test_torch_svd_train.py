@@ -58,6 +58,17 @@ T, SIZE, LAT = 3, (64, 48), (8, 6)
 COMPONENTS = ("unet", "controlnet", "vae", "clip")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's many small ops on one intra-op thread: on PyTorch's
+    default threads they thrash when several test workers share the
+    cores (the CLI tests took 3-25x longer)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _args(**kw):
     return argparse.Namespace(**dict(dict(
         tiny_model=True, num_frames=T, pose_cond=False, warp_loss=False),
