@@ -104,6 +104,21 @@ non-zero:
     faults (a dropped key tile, a softmax in the wrong exponent base)
     move (relative rms of the difference) and at most a tenth of what a
     change of noise seed moves;
+15s. main path 12 (slice 11) on main path 3's engine: NCCL at world size
+    1 (tcp on localhost); one ``frame_sharded_apply_model`` of the CFG
+    batch of 28 rows against ``engine.apply_model`` (relative rms), its
+    all-to-alls and all-gathers counted with their bytes; the same in f32
+    (the engine cast to f32 at the end, the plain f32 attention in place
+    of K4, which rounds p to bf16), and with two planted faults (the
+    frame index shifted by one, the other video's context), each of which
+    must fail the bf16 or the f32 bar; a 25-step clip through
+    ``make_frame_sharded_denoiser`` against ``engine.sample`` from the
+    same noise (the final latents' relative rms), both timed with their
+    peak memory, K4 launched 350 times;
+15t. once main path 3's engine is freed, the ``svd_test`` CLI with
+    ``--shard_frames`` in one process on main path 3's tree and weights:
+    the "ignored" line, main path 3's 14 frames within 1 uint8 level, K4
+    350;
 15a. main path 10 (slice 9a) begins once main path 3's engine is freed:
     the tiny SVD engine on CUDA against the CPU with phase 13's weights,
     noise and bars, the same draws injected on both: ``sample_blended``
@@ -169,6 +184,13 @@ non-zero:
     checkpoint written and read back equal; step time, peak device memory,
     the checkpoint's save time and the share of ControlNet entries the
     first bf16 Adam step changed;
+19a. main path 12 (c) on main path 4's engine: two ``make_dp_train_step``
+    steps with the EMA over NCCL at world size 1 against two
+    ``make_train_step`` steps with the same draws from the same
+    parameters: the losses within 1e-6 relative, the parameters and the
+    EMA within one spacing of their type where |g| >= 1e-6; ms per step
+    of each, the flat all-reduce buffers' bytes, K5 20 and K4 28
+    launches;
 20. main path 5's workspace (stage 1): the bench COLMAP scene of phase 9,
     the 2M-gaussian PLY, a ``--registry`` JSON (front view view00, the
     bicycle scene's orbit and vis parameters), an insertion box at the
@@ -337,12 +359,14 @@ non-zero:
     at the recomposed PLY's first view; K4 carries ``main_path_10``: its
     launches in 15b, 15c and per demo request, and its records at 15d's
     shapes; K2 and K3 carry ``band``: main path 11's launches and their
-    times and bounds at the band shapes of phases 41 and 42); the last
+    times and bounds at the band shapes of phases 41 and 42; K4 and K5
+    carry ``main_path_12``: its launches in 15s, 15t and 19a); the last
     line is the ``ok`` JSON object.
 
 Build outputs and the scenes go under ``build/`` in the checkout.
 """
 
+import contextlib
 import ctypes
 import dataclasses
 import io
@@ -483,6 +507,35 @@ K5_GRAD_RMS_TOL = 0.012
 # The planted faults of phases 15 and 17 drop the first 64 keys, the tile
 # against which their bars were set, whatever tile the kernels use.
 FAULT_KEYS = 64
+# Main path 12 (slice 11) at world size 1 over NCCL. The frame-sharded
+# forward differs from ``apply_model`` only where its temporal GroupNorms
+# take their statistics in another order (f32, ~1e-7 relative); in bf16
+# some outputs round the other way, and the random bf16 network spreads
+# that to the bf16 floor: relative rms 0.0134 for the forward at a
+# mid-ladder sigma, FS_SIGMA_STEP of 25, and 0.0113 for the 25-step
+# clip's final latents on an H100 (phase 15's sound K4 reads 0.014). The
+# bf16 bars, ~3 and ~4 times those readings, catch gross faults only (on
+# the tiny bf16 engine a frame index shifted by one reads 0.024 against a
+# floor of 0.011). So the forward is compared in f32 too, on the same
+# engine cast to f32 (TF32 off) and with the plain f32 attention (K4
+# rounds p to bf16 even on f32 inputs: with phase 15's q and k gain that
+# alone read 1.1e-4), at FS_F32_RMS_TOL, a bar set before its first
+# reading on the card: 10x above the 1e-5 that the f32 CPU test holds at
+# world size 2, and far below the ~1e-2 that two planted faults move the
+# tiny engine. The forward is correct when both comparisons pass; each
+# planted fault (FS_FAULTS) must fail one of them. The DDP step (two
+# steps, EMA 0.9999, lr DDP_LR) against ``make_train_step`` with the same
+# draws: the losses within 1e-6 relative, the parameters and the EMA
+# within one spacing of their type wherever Adam's first moment is at
+# least 1e-7 (|g| >= 1e-6; below, the step is not sign-like and is
+# counted, not compared).
+FS_FORWARD_RMS_TOL, FS_CLIP_RMS_TOL, FS_SIGMA_STEP = 0.04, 0.05, 12
+FS_F32_RMS_TOL = 1e-4
+# Faults a port of the frame-mixing layers could make that also show at
+# world size 1. (Frame 1's context in place of frame 0's would not: SVD
+# repeats each video's CLIP context over its frames.)
+FS_FAULTS = ("frame index + 1", "the other video's context")
+DDP_LR, DDP_STEPS, DDP_LOSS_REL_TOL = 1e-4, 2, 1e-6
 
 
 # Main path 5 (stage 1) on the 2M-gaussian bench scene, scene id
@@ -2076,6 +2129,246 @@ def phase_svd_eval(torch, card, probe):
              "attention, or the bar does not separate the planted faults")
 
 
+def _counted_collectives(mesh, calls):
+    """Wrappers counting each collective of ``mesh`` (calls, bytes of the
+    tensor handed in) into ``calls``; returns the originals to restore."""
+    real = {n: getattr(mesh, n) for n in ("all_to_all_rows",
+                                          "all_gather_rows")}
+
+    def counted(name):
+        def run(x, *a, **kw):
+            c = calls.setdefault(name, [0, 0])
+            c[0] += 1
+            c[1] += x.numel() * x.element_size()
+            return real[name](x, *a, **kw)
+        return run
+
+    for n in real:
+        setattr(mesh, n, counted(n))
+    return real
+
+
+def phase_frame_sharded(torch, card, probe):
+    """Main path 12 (a), on main path 3's engine (phase 15's q and k
+    scaling kept) and conditioning: NCCL at world size 1 (tcp on
+    localhost); one ``frame_sharded_apply_model`` of svd-clip's CFG batch
+    of 28 rows at 512x384 against ``engine.apply_model``, its collectives
+    counted; then a 25-step clip through ``make_frame_sharded_denoiser``
+    against ``engine.sample`` from the same noise, each timed on the host
+    clock (synchronised) with its peak memory, counters zeroed before the
+    sharded clip; then the forward with each of FS_FAULTS planted, and
+    all of it again on the engine cast to f32 (which frees main path 3's
+    bf16 weights) with ``attention_op``'s K4 call patched to the plain
+    f32 attention, since K4 rounds p to bf16 before p.v whatever the
+    input type. Returns the sharded clip's launches."""
+    import torch.distributed as dist
+
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.diffusion import (attention_op, edm,
+                                                       flash_attention)
+    from multiview_inpaint_tpu_torch.diffusion.engine import SVDEngine
+    from multiview_inpaint_tpu_torch.parallel import mesh
+    from multiview_inpaint_tpu_torch.parallel import (
+        svd_inference_parallel as sp)
+
+    eng = probe.engine
+    cond, uc = probe.conds
+    k4 = attention_op.flash_attention
+    shape = (SVD_FRAMES, SVD_H // 8, SVD_W // 8, 4)
+    noise = torch.randn(shape, generator=torch.Generator(
+        device=DEVICE).manual_seed(31), device=DEVICE)
+    sigma = eng._ladder(SVD_STEPS)[FS_SIGMA_STEP]
+    gx, gs, gc = eng.guider.prepare(noise * sigma, sigma.expand(SVD_FRAMES),
+                                    cond, uc)
+    _, _, c_in, c_noise = edm.SCALINGS[eng.cfg.scaling](gs)
+    xs = gx * c_in.reshape(-1, 1, 1, 1)
+    index, bind = sp.FrameShard.frame_index, sp.FrameShard.bind
+
+    def other_context(self, *a):
+        shard = bind(self, *a)
+        return dataclasses.replace(
+            shard, video_context=shard.video_context.roll(1, 0))
+
+    plant = {
+        "frame index + 1": ("frame_index", lambda self, device: (
+            index(self, device) + 1) % self.frames),
+        "the other video's context": ("bind", other_context),
+    }
+
+    def forward(fault=None):
+        """The sharded forward, ``fault`` planted in ``FrameShard``."""
+        if fault:
+            setattr(sp.FrameShard, *plant[fault])
+        try:
+            with torch.no_grad():
+                return sp.frame_sharded_apply_model(eng, xs, c_noise, gc)
+        finally:
+            sp.FrameShard.frame_index, sp.FrameShard.bind = index, bind
+
+    def readings():
+        """Each planted fault's relative rms against ``apply_model``."""
+        with torch.no_grad():
+            want = eng.apply_model(xs, c_noise, gc)
+        return {f: _rms(forward(f), want) for f in FS_FAULTS}
+
+    def clip(denoise_fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        z = SVDEngine.sample(eng, cond, uc, noise=noise,
+                             num_steps=SVD_STEPS, denoise_fn=denoise_fn)
+        torch.cuda.synchronize()
+        return (z, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    calls = {}
+    t0 = time.perf_counter()
+    mesh.init(0, 1, f"tcp://127.0.0.1:{_free_port()}", DEVICE)
+    init_s = time.perf_counter() - t0
+    try:
+        backend = dist.get_backend()
+        with torch.no_grad():
+            want = eng.apply_model(xs, c_noise, gc)
+        real = _counted_collectives(mesh, calls)
+        try:
+            _kernels.reset_launches()
+            got = forward()
+            torch.cuda.synchronize()
+            fwd_k4 = _kernels.LAUNCHES["flash_attn_fwd"]
+        finally:
+            for n, f in real.items():
+                setattr(mesh, n, f)
+        z_ref, ref_s, ref_gb = clip(None)
+        _kernels.reset_launches()
+        z_fs, fs_s, fs_gb = clip(sp.make_frame_sharded_denoiser(eng))
+        launches = dict(_kernels.LAUNCHES)
+        faults = {"bf16": readings()}
+        eng.unet.float()
+        eng.controlnet.float()
+        eng.compute_dtype = torch.float32
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        attention_op.flash_attention = flash_attention.flash_attention_ref
+        try:
+            with torch.no_grad():
+                want32 = eng.apply_model(xs, c_noise, gc)
+            f32_rms = _rms(forward(), want32)
+            faults["f32"] = readings()
+        finally:
+            attention_op.flash_attention = k4
+        f32_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    fwd_rms, clip_rms = _rms(got, want), _rms(z_fs, z_ref)
+    bars = {"bf16": FS_FORWARD_RMS_TOL, "f32": FS_F32_RMS_TOL}
+    caught = {f: any(faults[k][f] > bars[k] for k in bars)
+              for f in FS_FAULTS}
+    want_k4 = K4_PER_EVAL * SVD_STEPS
+    checks = {
+        "nccl": backend == "nccl",
+        f"forward within {FS_FORWARD_RMS_TOL}": fwd_rms <= FS_FORWARD_RMS_TOL,
+        f"f32 forward within {FS_F32_RMS_TOL}": f32_rms <= FS_F32_RMS_TOL,
+        "each planted fault fails a bar": all(caught.values()),
+        f"clip within {FS_CLIP_RMS_TOL}": clip_rms <= FS_CLIP_RMS_TOL,
+        "finite": bool(torch.isfinite(got).all() and torch.isfinite(
+            z_fs).all() and torch.isfinite(want32).all()),
+        f"K4 {K4_PER_EVAL} per forward": fwd_k4 == K4_PER_EVAL,
+        f"K4 launched {want_k4} times": launches["flash_attn_fwd"] == want_k4,
+    }
+    print(f"[15s frame-sharded] {backend} at world size 1 (init "
+          f"{init_s:.2f} s) on main path 3's engine: one forward of "
+          f"{xs.shape[0]} rows at sigma {float(sigma):.4g}, relative rms "
+          f"against apply_model {fwd_rms:.4g} (max abs "
+          f"{float((got - want).abs().max()):.4g} of max|out| "
+          f"{float(want.abs().max()):.4g}), bar {FS_FORWARD_RMS_TOL}; in "
+          f"f32 {f32_rms:.4g}, bar {FS_F32_RMS_TOL} ({f32_s:.1f} s for the "
+          f"f32 forwards) | planted faults' relative rms "
+          f"{json.dumps(faults)}, each caught {json.dumps(caught)} | "
+          f"collectives per evaluation (calls, bytes handed in): "
+          f"{json.dumps(calls)} | {SVD_STEPS}-step clip: sharded {fs_s:.3f} s "
+          f"(peak {fs_gb:.2f} GB) against engine.sample {ref_s:.3f} s "
+          f"(peak {ref_gb:.2f} GB), ratio {fs_s / ref_s:.4f}; final latents' "
+          f"relative rms {clip_rms:.4g}, bar {FS_CLIP_RMS_TOL} | launches "
+          f"{launches} | {json.dumps(checks)} | {card}", flush=True)
+    if not all(checks.values()):
+        fail(f"main path 12 (frame-sharded sampling) checks failed: "
+             f"{checks}")
+    return dict(launches, forward=fwd_k4, clip_s=fs_s, plain_clip_s=ref_s,
+                collectives=calls)
+
+
+def phase_shard_frames_cli(torch, card):
+    """Main path 12 (b): the ``svd_test`` CLI with ``--shard_frames`` in
+    one process (world size 1) on main path 3's tree, arguments and
+    weights (the same all-zero parameters moved), counters zeroed before:
+    it prints that the flag is ignored, as the JAX CLI on one device, and
+    writes main path 3's 14 frames (each value within 1 uint8 level; how
+    many differ at all is printed), K4 launched 350 times."""
+    from PIL import Image
+
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.pipelines import svd_test
+
+    work = os.path.join(REPO, "build", "smoke_svd")
+    root = os.path.join(work, "gs")
+    out = os.path.join(work, "shard_frames")
+    shutil.rmtree(out, ignore_errors=True)
+    init_engine = svd_test.init_engine
+
+    def init(*a, **kw):
+        eng = init_engine(*a, **kw)
+        perturb_zero_params(torch, eng, 7)
+        return eng
+
+    svd_test.init_engine = init
+    buf = io.StringIO()
+    try:
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            svd_test.main(["--data_root", root, "--logdir",
+                           os.path.join(work, "logs_shard"), "--modes", "x1",
+                           "--num_frames", str(SVD_FRAMES), "--num_steps",
+                           str(SVD_STEPS), "--size", str(SVD_H), str(SVD_W),
+                           "--device", DEVICE, "--shard_frames", "--out",
+                           out])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        svd_test.init_engine = init_engine
+    launches = dict(_kernels.LAUNCHES)
+    text = buf.getvalue()
+    sub = os.path.join("scene_case", "ctrl_0", "x1")
+    want_dir = os.path.join(root, "inpainted", sub)
+    got_dir = os.path.join(out, sub)
+    names = sorted(os.listdir(want_dir))
+    worst, differ = 0, 0
+    got_names = sorted(os.listdir(got_dir)) if os.path.isdir(got_dir) else []
+    for n in names if got_names == names else []:
+        with Image.open(os.path.join(got_dir, n)) as a, \
+                Image.open(os.path.join(want_dir, n)) as b:
+            a, b = (np.asarray(im, np.int16) for im in (a, b))
+        worst = max(worst, int(np.abs(a - b).max()))
+        differ += int((a != b).sum())
+    want_k4 = K4_PER_EVAL * SVD_STEPS
+    checks = {
+        "ignored line": "shard_frames ignored" in text,
+        f"{SVD_FRAMES} frames": len(names) == SVD_FRAMES
+        and got_names == names,
+        "within 1 level of main path 3's": worst <= 1,
+        f"K4 launched {want_k4} times": launches["flash_attn_fwd"] == want_k4,
+    }
+    print(f"[15t svd_test --shard_frames] one process, {cli_s:.1f} s; it "
+          f"printed {text.splitlines()[:1]} | {len(got_names)} frames "
+          f"against main path 3's: max difference {worst} levels, "
+          f"{differ} of {SVD_FRAMES * SVD_H * SVD_W * 3} values differ | "
+          f"launches {launches} | {json.dumps(checks)} | {card}", flush=True)
+    if not all(checks.values()):
+        fail(f"main path 12 (svd_test --shard_frames) checks failed: "
+             f"{checks}")
+    return launches
+
+
 def phase_sampling_engine(torch, card):
     """The tiny SVD engine on DEVICE against the CPU with phase 13's
     weights and bars, main path 10's samplers from the same noise and
@@ -2931,8 +3224,9 @@ def _fingerprints(torch, module):
 
 
 def phase_svd_train(torch, card):
-    """Main path 4: the svd_train CLI at full width, counters zeroed
-    before; returns its launch counts."""
+    """Main path 4: the svd_train CLI at full width (its steps through
+    ``make_dp_train_step`` without a process group), counters zeroed
+    before; returns its launch counts and its engine."""
     from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.diffusion import checkpoint as ckpt
     from multiview_inpaint_tpu_torch.pipelines import svd_train
@@ -2946,7 +3240,8 @@ def phase_svd_train(torch, card):
                              frames=SVD_FRAMES, size=(SVD_H, SVD_W))
     tree_s = time.perf_counter() - t0
     info = {"step_s": [], "save_s": []}
-    init_engine, make_step = svd_train.init_engine, svd_train.make_train_step
+    init_engine = svd_train.init_engine
+    make_step = svd_train.make_dp_train_step
     save_params = ckpt.save_params
 
     def init(*a, **kw):
@@ -2988,7 +3283,7 @@ def phase_svd_train(torch, card):
         save_params(*a, **kw)
         info["save_s"].append(time.perf_counter() - t1)
 
-    svd_train.init_engine, svd_train.make_train_step = init, make
+    svd_train.init_engine, svd_train.make_dp_train_step = init, make
     ckpt.save_params = timed_save
     try:
         _kernels.reset_launches()
@@ -3002,7 +3297,7 @@ def phase_svd_train(torch, card):
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
     finally:
-        svd_train.init_engine, svd_train.make_train_step = init_engine, \
+        svd_train.init_engine, svd_train.make_dp_train_step = init_engine, \
             make_step
         ckpt.save_params = save_params
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3053,7 +3348,110 @@ def phase_svd_train(torch, card):
           f"{json.dumps(checks)} | {card}", flush=True)
     if not all(checks.values()):
         fail(f"main path 4 (svd_train CLI) checks failed: {checks}")
-    return launches
+    return launches, eng
+
+
+def _type_spacing(torch, x):
+    """The spacing of numbers of x's type at each entry of ``x``."""
+    e = torch.frexp(x.float()).exponent
+    return torch.ldexp(torch.full_like(x, torch.finfo(x.dtype).eps,
+                                       dtype=torch.float32), e - 1)
+
+
+def phase_ddp_step(torch, card, eng):
+    """Main path 12 (c), on main path 4's engine: DDP_STEPS
+    ``make_dp_train_step`` steps with the EMA (decay 0.9999) over NCCL at
+    world size 1 against DDP_STEPS ``make_train_step`` steps, both from
+    the same trainable parameters with draws from generators of one seed,
+    on one synthetic video at main path 4's shapes (bars at
+    FS_FORWARD_RMS_TOL's comment); ms per step of each (host clock,
+    synchronised), the flat all-reduce buffers' bytes per type, counters
+    zeroed before the DDP steps. Returns their launches."""
+    import torch.distributed as dist
+
+    from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.parallel import mesh
+    from multiview_inpaint_tpu_torch.parallel import svd_data_parallel as dp
+
+    with torch.no_grad():
+        c = eng.prepare_cond(_svd_batch(torch, SVD_FRAMES, SVD_H, SVD_W,
+                                        DEVICE, 41))
+    cond_b = {k: v[None] for k, v in c.items()}
+    lat = torch.randn((1, SVD_FRAMES, SVD_H // 8, SVD_W // 8, 4),
+                      generator=torch.Generator(device=DEVICE).manual_seed(
+                          42), device=DEVICE)
+    params = dp.trainable_params(eng)
+    p0 = {k: p.detach().clone() for k, p in params.items()}
+
+    def run(make):
+        dp.apply_trainable(params, p0)
+        opt = dp.build_optimizer(DDP_LR)
+        state = opt.init(params)
+        ema = {k: p.detach().clone() for k, p in params.items()}
+        step = make(eng, opt, params, 0.9999)
+        gen = torch.Generator(device=DEVICE).manual_seed(43)
+        losses, ms = [], []
+        for _ in range(DDP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(state, ema, lat, cond_b,
+                                     generator=gen)))
+            torch.cuda.synchronize()
+            ms.append(round((time.perf_counter() - t0) * 1e3, 1))
+        return dict(losses=losses, ms=ms, mu=state["mu"], ema=ema,
+                    params={k: p.detach().clone() for k, p in params.items()})
+
+    ref = run(dp.make_train_step)
+    torch.cuda.reset_peak_memory_stats()
+    mesh.init(0, 1, f"tcp://127.0.0.1:{_free_port()}", DEVICE)
+    try:
+        backend = dist.get_backend()
+        _kernels.reset_launches()
+        got = run(dp.make_dp_train_step)
+        launches = dict(_kernels.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    flat = {}
+    for p in params.values():
+        flat[str(p.dtype)] = flat.get(str(p.dtype), 0) + p.numel() * \
+            p.element_size()
+    worst, small, differ, total = 0.0, 0, 0, 0
+    for k in ref["mu"]:
+        big = ref["mu"][k].abs() >= 1e-7
+        for what in ("params", "ema"):
+            a, b = got[what][k], ref[what][k]
+            r = ((a.float() - b.float()).abs() / _type_spacing(torch, b))
+            worst = max(worst, float(r[big].max()) if big.any() else 0.0)
+            differ += int((a != b).sum())
+        small += int((~big).sum())
+        total += big.numel()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                       ref["losses"]))
+    want_k5, want_k4 = (K5_PER_STEP * DDP_STEPS,
+                        K4_PER_TRAIN_STEP * DDP_STEPS)
+    checks = {
+        "nccl": backend == "nccl",
+        f"losses within {DDP_LOSS_REL_TOL}": loss_rel <= DDP_LOSS_REL_TOL,
+        "params and EMA within one spacing": worst <= 1.0,
+        "finite": all(math.isfinite(x) for x in got["losses"]),
+        f"K5 launched {want_k5} times": launches["flash_attn_bwd"] == want_k5,
+        f"K4 launched {want_k4} times": launches["flash_attn_fwd"] == want_k4,
+    }
+    print(f"[19a ddp step] {backend} at world size 1 on main path 4's "
+          f"engine, {DDP_STEPS} steps of one video ({SVD_FRAMES} frames at "
+          f"{SVD_H}x{SVD_W}), EMA 0.9999, lr {DDP_LR}: make_dp_train_step "
+          f"ms {got['ms']} against make_train_step {ref['ms']}; losses "
+          f"{got['losses']} against {ref['losses']} (worst rel "
+          f"{loss_rel:.3g}) | params and EMA: worst difference "
+          f"{worst:.3g} spacings where |mu| >= 1e-7, {differ} entries "
+          f"differ at all, {small} of {total} entries below counted | flat "
+          f"all-reduce buffers (bytes per type) {json.dumps(flat)} | peak "
+          f"device memory {peak_gb:.2f} GB | launches {launches} | "
+          f"{json.dumps(checks)} | {card}", flush=True)
+    if not all(checks.values()):
+        fail(f"main path 12 (the DDP step) checks failed: {checks}")
+    return dict(launches, ms=got["ms"], plain_ms=ref["ms"])
 
 
 class SeqProbe:
@@ -5720,7 +6118,10 @@ def main():
     phase_svd_engine(torch)
     launches_svd, probe = phase_svd_main(torch, card)
     phase_svd_eval(torch, card, probe)
+    mp12 = {"frame_sharded": phase_frame_sharded(torch, card, probe)}
     del probe   # main path 3's engine
+    torch.cuda.empty_cache()
+    mp12["cli"] = phase_shard_frames_cli(torch, card)
     torch.cuda.empty_cache()
     phase_sampling_engine(torch, card)
     mp10 = {mode: phase_svd_sampling(torch, card, mode)
@@ -5733,7 +6134,10 @@ def main():
     k5 = phase_k5(torch, card)
     phase_k5_grad(torch, card)
     phase_svd_train_step(torch)
-    launches_svd_train = phase_svd_train(torch, card)
+    launches_svd_train, eng = phase_svd_train(torch, card)
+    mp12["ddp"] = phase_ddp_step(torch, card, eng)
+    del eng     # main path 4's engine
+    torch.cuda.empty_cache()
     stage1 = phase_stage1_setup(card)
     phase_gen_seq(torch, card, stage1)
     phase_mask_plain(torch, card, stage1)
@@ -5791,6 +6195,12 @@ def main():
         one kernel at the recomposed PLY's first 1080p view."""
         return dict(launches=cmp["launches"][name], cmp_view=cmp[key])
 
+    def path12(name):
+        """Main path 12's launches of one kernel: the frame-sharded clip,
+        the ``--shard_frames`` CLI and the DDP steps."""
+        return dict(launches={part: mp12[part][name] for part in
+                              ("frame_sharded", "cli", "ddp")})
+
     k1, k2 = frames["big2m"]   # the render main path's scene and shapes
     kernels = [
         dict(name="pair_expand", route="cuda",
@@ -5830,14 +6240,16 @@ def main():
                                demo=[r["launches"]
                                      for r in demo["requests"]]),
                  svd_ds1_batch14=k4_10[0], svd_ds2_batch14=k4_10[1],
-                 unet_ds1_f32=k4_10[2])),
+                 unet_ds1_f32=k4_10[2]),
+             main_path_12=path12("flash_attn_fwd")),
         # K5 at the ds1 shape of main path 4, the path that runs it; one
         # launch is the dk/dv kernel and the dq kernel back to back.
         dict(name="flash_attn_bwd", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/flash_attn_bwd.cu",
              replaces="multiview_inpaint_tpu/diffusion/"
                       "flash_attention.py:117",
-             launches=launches_svd_train["flash_attn_bwd"], **k5),
+             launches=launches_svd_train["flash_attn_bwd"], **k5,
+             main_path_12=path12("flash_attn_bwd")),
     ]
     print(f"[45 done] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

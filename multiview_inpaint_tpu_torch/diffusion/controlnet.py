@@ -50,15 +50,17 @@ class ControlNet(VideoUNet):
 
     def forward(self, x, hint, timesteps, context=None, y=None,
                 num_video_frames: int = 1,
-                image_only_indicator=None) -> List:
+                image_only_indicator=None, frame_shard=None) -> List:
         """x [(b t), h, w, C_in] and hint [(b t), H, W, C_hint] (NHWC);
-        returns the 13 NHWC residuals, the middle one last."""
+        returns the 13 NHWC residuals, the middle one last. With
+        ``frame_shard`` every input is this rank's rows of a frame-sharded
+        forward (``VideoUNet.forward``)."""
         guided = self.input_hint_block(hint.permute(0, 3, 1, 2))
         feats = super().forward(
             x, timesteps, context=context, y=y,
             num_video_frames=num_video_frames,
             image_only_indicator=image_only_indicator, extract_features=True,
-            hint=guided.permute(0, 2, 3, 1))
+            hint=guided.permute(0, 2, 3, 1), frame_shard=frame_shard)
         outs = [zc(f.permute(0, 3, 1, 2))
                 for f, zc in zip(feats[:-1], self.zero_convs)]
         outs.append(self.middle_block_out(feats[-1].permute(0, 3, 1, 2)))

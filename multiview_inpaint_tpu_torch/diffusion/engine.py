@@ -217,15 +217,23 @@ class SVDEngine(nn.Module):
         return functional_call(module, cast, args, kwargs)
 
     def apply_model(self, x: torch.Tensor, t_noise: torch.Tensor,
-                    cond: Dict) -> torch.Tensor:
+                    cond: Dict, frame_shard=None) -> torch.Tensor:
         """x [(b t), h, w, 4] scaled latents; cond holds the per-frame
         crossattn / vector / concat and the control hint (image size).
         Differentiable in the trainable weights; sampling calls it under
-        ``torch.no_grad``."""
-        xc, ctx, vec, kw = self._inputs(x, cond)
+        ``torch.no_grad``.
+
+        ``frame_shard`` (``parallel.svd_inference_parallel.FrameShard``):
+        x, t_noise and cond hold every (b t) row, both networks compute
+        this rank's block of rows, and that block is returned."""
+        xc, t_noise, ctx, vec, kw = self._inputs(x, t_noise, cond,
+                                                 frame_shard)
+        hint = cond["control_hint"]
+        if frame_shard is not None:
+            hint = frame_shard.local(hint)
         control = self._cast_call(
-            self.controlnet, xc, cond["control_hint"].to(self.compute_dtype),
-            t_noise, ctx, vec, **kw)
+            self.controlnet, xc, hint.to(self.compute_dtype), t_noise, ctx,
+            vec, **kw)
         control = [c * self.cfg.control_scales for c in control]
         return self._cast_call(self.unet, xc, t_noise, ctx, vec, **kw,
                                control=control).float()
@@ -234,21 +242,29 @@ class SVDEngine(nn.Module):
                    cond: Dict) -> torch.Tensor:
         """The UNet alone, no ControlNet (``simple_video_sample``'s
         uncontrolled denoiser), inputs as ``apply_model``'s, output f32."""
-        xc, ctx, vec, kw = self._inputs(x, cond)
+        xc, t_noise, ctx, vec, kw = self._inputs(x, t_noise, cond)
         return self._cast_call(self.unet, xc, t_noise, ctx, vec,
                                **kw).float()
 
-    def _inputs(self, x, cond):
+    def _inputs(self, x, t_noise, cond, frame_shard=None):
         """The networks' inputs in the compute type: x ++ concat, the
-        crossattn and vector conditioning, and the frame keywords."""
+        noise levels, the crossattn and vector conditioning, and the frame
+        keywords; with ``frame_shard`` this rank's rows of each, and the
+        shard bound to every row's context, noise level and vector."""
         t = self.cfg.num_frames
         dt = self.compute_dtype
         ind = torch.zeros((x.shape[0] // t, t), device=x.device)
         xc = torch.cat([x, cond["concat"]], dim=-1).to(dt)
         ctx, vec = (None if cond.get(k) is None else cond[k].to(dt)
                     for k in ("crossattn", "vector"))
-        return xc, ctx, vec, dict(num_video_frames=t,
-                                  image_only_indicator=ind)
+        kw = dict(num_video_frames=t, image_only_indicator=ind)
+        if frame_shard is None:
+            return xc, t_noise, ctx, vec, kw
+        shard = frame_shard.bind(ctx, t_noise, vec)
+        kw.update(image_only_indicator=shard.local(ind.reshape(-1))[None],
+                  frame_shard=shard)
+        return (shard.local(xc), shard.local(t_noise), shard.local(ctx),
+                shard.local(vec), kw)
 
     def denoise_fn(self):
         def denoise(x, sigmas, cond):
@@ -278,11 +294,15 @@ class SVDEngine(nn.Module):
                latent_shape: Optional[Tuple[int, ...]] = None,
                noise: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
-               num_steps: Optional[int] = None) -> torch.Tensor:
+               num_steps: Optional[int] = None,
+               denoise_fn=None) -> torch.Tensor:
         """Euler-EDM from ``noise`` (a standard normal of the latent shape;
-        drawn from ``generator`` when not given) to clean latents."""
+        drawn from ``generator`` when not given) to clean latents, through
+        ``denoise_fn`` when given (the frame-sharded denoiser of
+        ``parallel.svd_inference_parallel``), else ``denoise_fn()``."""
         return samplers.euler_edm_sample(
-            self.denoise_fn(), self._noise(latent_shape, noise, generator),
+            denoise_fn or self.denoise_fn(),
+            self._noise(latent_shape, noise, generator),
             cond, uc, self._ladder(num_steps), guider=self.guider,
             generator=generator)
 

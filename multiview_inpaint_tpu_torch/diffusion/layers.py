@@ -37,14 +37,30 @@ def timestep_embedding(t: torch.Tensor, dim: int,
 
 class GroupNorm32(nn.GroupNorm):
     """GroupNorm(min(32, C)) computed in f32 whatever the input type; the
-    output keeps the input type."""
+    output keeps the input type.
+
+    ``share`` (a frame-sharded forward's ``PositionShare``): x [b, C, ...,
+    p] holds this rank's p positions on its last axis, of which the
+    statistics take the real ones of every rank (``share.moments``); x is
+    then normalised as ``F.group_norm`` does, in one fused scale and
+    shift per channel."""
 
     def __init__(self, channels: int, eps: float = 1e-5, **factory):
         super().__init__(min(32, channels), channels, eps=eps, **factory)
 
-    def forward(self, x):
-        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+    def forward(self, x, share=None):
+        if share is None:
+            return F.group_norm(x.float(), self.num_groups,
+                                self.weight.float(), self.bias.float(),
+                                self.eps).to(x.dtype)
+        b, c, g = x.shape[0], x.shape[1], self.num_groups
+        mean, var = share.moments(x.reshape(b, g, -1, x.shape[-1]))
+        scale = (torch.rsqrt(var + self.eps).repeat_interleave(c // g, 1)
+                 * self.weight.float())                       # [b, C]
+        shift = self.bias.float() - mean.repeat_interleave(c // g, 1) * scale
+        aff = (b, c) + (1,) * (x.ndim - 2)
+        return torch.addcmul(shift.reshape(aff), x.float(),
+                             scale.reshape(aff)).to(x.dtype)
 
 
 def zero_(module: nn.Module) -> nn.Module:

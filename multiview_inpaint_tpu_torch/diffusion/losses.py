@@ -56,15 +56,18 @@ def _weights(weighting: str, sigmas, sigma_data: float):
     return WEIGHTINGS[weighting](sigmas)
 
 
-def _draws(n, latents, p_mean, p_std, sigmas, noise, generator):
+def draws(n, shape, dtype, device, p_mean: float = 1.0, p_std: float = 1.6,
+          sigmas=None, noise=None, generator=None):
+    """The loss's random draws, in its order: ``n`` sigmas, then a
+    standard normal ``noise`` of ``shape``, each drawn from ``generator``
+    unless given."""
     if sigmas is None:
         sigmas = edm.edm_sigma_sample((n,), p_mean, p_std,
-                                      generator=generator,
-                                      device=latents.device)
+                                      generator=generator, device=device)
     if noise is None:
-        noise = torch.randn(latents.shape, generator=generator,
-                            device=latents.device, dtype=latents.dtype)
-    return sigmas.to(latents.device), noise.to(latents.device)
+        noise = torch.randn(shape, generator=generator, device=device,
+                            dtype=dtype)
+    return sigmas.to(device), noise.to(device)
 
 
 def standard_diffusion_loss(denoise_fn: Callable, latents: torch.Tensor,
@@ -75,8 +78,9 @@ def standard_diffusion_loss(denoise_fn: Callable, latents: torch.Tensor,
                             noise: Optional[torch.Tensor] = None,
                             generator: Optional[torch.Generator] = None):
     """Per-sample losses ``[B]``; ``sigmas`` ``[B]``."""
-    sigmas, noise = _draws(latents.shape[0], latents, p_mean, p_std, sigmas,
-                           noise, generator)
+    sigmas, noise = draws(latents.shape[0], latents.shape, latents.dtype,
+                          latents.device, p_mean, p_std, sigmas, noise,
+                          generator)
     noised = latents + noise * _bdims(sigmas, latents)
     out = denoise_fn(noised, sigmas, cond)
     w = _weights(weighting, sigmas, sigma_data)
@@ -99,8 +103,8 @@ def inpaint_diffusion_loss(denoise_fn: Callable, latents: torch.Tensor,
     by video."""
     bt = latents.shape[0]
     b = bt // num_video_frames
-    sig_b, noise = _draws(b, latents, p_mean, p_std, sigmas, noise,
-                          generator)
+    sig_b, noise = draws(b, latents.shape, latents.dtype, latents.device,
+                         p_mean, p_std, sigmas, noise, generator)
     sig = torch.repeat_interleave(sig_b, num_video_frames)
     noised = latents + noise * _bdims(sig, latents)
     out = denoise_fn(noised, sig, cond)

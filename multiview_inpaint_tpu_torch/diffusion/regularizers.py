@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .vae import DiagonalGaussian
 
 
@@ -98,14 +99,15 @@ class VectorQuantizer(nn.Module):
 
 def init_ema_codebook(n_codes: int, dim: int,
                       generator: Optional[torch.Generator] = None,
-                      device="cpu", codebook: Optional[torch.Tensor] = None
-                      ) -> Dict:
+                      device=DEFAULT_DEVICE,
+                      codebook: Optional[torch.Tensor] = None) -> Dict:
     """State for ``ema_codebook_update`` (EmbeddingEMA): the codebook (a
-    standard normal draw from ``generator``, or ``codebook`` as given),
-    EMA cluster sizes and EMA embedding sums."""
+    standard normal draw from ``generator`` on ``device``, or ``codebook``
+    as given, on its own device), EMA cluster sizes and EMA embedding
+    sums."""
     if codebook is None:
         codebook = torch.randn((n_codes, dim), generator=generator,
-                               device=device)
+                               device=resolve_device(device))
     return {"codebook": codebook, "cluster_size": torch.zeros(
         n_codes, device=codebook.device), "embed_avg": codebook.clone()}
 

@@ -51,14 +51,27 @@ class ResBlock(nn.Module):
             _conv(dims, channels, out_channels,
                   1 if dims == 2 else (1, 1, 1), **factory))
 
-    def forward(self, x, emb):
-        h = self.in_layers(x)
+    def forward(self, x, emb, share=None):
+        """``share``: the positions of a frame-sharded forward, handed to
+        both GroupNorms (``GroupNorm32``); x then holds this rank's
+        positions on its last axis."""
+        h = _layers(self.in_layers, x, share)
         e = self.emb_layers(emb)
         if self.dims == 2:
             h = h + e[:, :, None, None]
         else:                                   # emb [B, T, C] per frame
             h = h + e.permute(0, 2, 1)[:, :, :, None, None]
-        return self.skip_connection(x) + self.out_layers(h)
+        return self.skip_connection(x) + _layers(self.out_layers, h, share)
+
+
+def _layers(seq, x, share):
+    """``seq(x)``, its GroupNorms over the shared positions when
+    ``share`` is given."""
+    if share is None:
+        return seq(x)
+    for layer in seq:
+        x = layer(x, share) if isinstance(layer, GroupNorm32) else layer(x)
+    return x
 
 
 class VideoResBlock(ResBlock):
@@ -75,11 +88,32 @@ class VideoResBlock(ResBlock):
                                        **factory)
 
     def forward(self, x, emb, num_video_frames: int,
-                image_only_indicator=None):
+                image_only_indicator=None, frame_shard=None):
         x = super().forward(x, emb)                      # [(b t), C, H, W]
+        if frame_shard is not None:
+            h = self._time_stack_sharded(x, frame_shard)
+            return self.time_mixer(x, h, image_only_indicator)
         bt, c, hh, ww = x.shape
         b = bt // num_video_frames
         x5 = x.reshape(b, num_video_frames, c, hh, ww).permute(0, 2, 1, 3, 4)
         h = self.time_stack(x5, emb.reshape(b, num_video_frames, -1))
         h = h.permute(0, 2, 1, 3, 4).reshape(bt, c, hh, ww)
         return self.time_mixer(x, h, image_only_indicator)
+
+    def _time_stack_sharded(self, x, shard):
+        """The temporal stack on this rank's rows x [n, C, H, W] of a
+        frame-sharded forward: swapped to every row at 1/w of the
+        positions, run there as [b, C, t, 1, p] (the (3, 1, 1) conv is
+        local; the GroupNorms reduce over the ranks) with every frame's
+        time embedding (``shard.emb``), and swapped back."""
+        n, c, hh, ww = x.shape
+        s, t = hh * ww, shard.frames
+        b = shard.rows // t
+        pos = shard.to_positions(x.permute(0, 2, 3, 1).reshape(n, s, c))
+        p = pos.shape[1]
+        x5 = pos.reshape(b, t, p, c).permute(0, 3, 1, 2)[:, :, :, None]
+        h = self.time_stack(x5, shard.emb.reshape(b, t, -1),
+                            share=shard.positions(s))
+        h = h[:, :, :, 0].permute(0, 2, 3, 1).reshape(shard.rows, p, c)
+        h = shard.to_rows(h, s)
+        return h.reshape(n, hh, ww, c).permute(0, 3, 1, 2)

@@ -114,7 +114,18 @@ class VideoTransformerBlock(nn.Module):
         self.norm2 = _ln(dim, **factory)
         self.norm3 = _ln(dim, **factory)
 
-    def forward(self, x, context=None, timesteps: int = 1):
+    def forward(self, x, context=None, timesteps: int = 1,
+                frame_shard=None):
+        """x [(b t), s, c]. With ``frame_shard`` x holds this rank's rows:
+        they are swapped for every row at 1/w of the positions, which the
+        block attends over the frames, and swapped back."""
+        if frame_shard is None:
+            return self._temporal(x, context, timesteps)
+        s = x.shape[1]
+        x = self._temporal(frame_shard.to_positions(x), context, timesteps)
+        return frame_shard.to_rows(x, s)
+
+    def _temporal(self, x, context, timesteps):
         b_t, s, c = x.shape
         b = b_t // timesteps
         # (b t) s c -> (b s) t c
@@ -163,25 +174,37 @@ class SpatialVideoTransformer(nn.Module):
         self.proj_out = zero_(nn.Linear(inner, in_channels, **factory))
 
     def forward(self, x, context=None, timesteps: int = 1,
-                image_only_indicator=None):
+                image_only_indicator=None, frame_shard=None):
+        """x [(b t), C, H, W]; with ``frame_shard`` (a frame-sharded
+        forward) this rank's rows of it, and frame 0's context and each
+        row's frame index come from the shard."""
         b_t, c, h, w = x.shape
         x_in = x
         time_context = None
         if self.use_spatial_context and context is not None:
             # The temporal blocks see frame 0's context, once per position.
-            time_context = torch.repeat_interleave(context[::timesteps],
-                                                   h * w, dim=0)
+            if frame_shard is None:
+                time_context = torch.repeat_interleave(context[::timesteps],
+                                                       h * w, dim=0)
+            else:
+                time_context = torch.repeat_interleave(
+                    frame_shard.video_context, frame_shard.span(h * w),
+                    dim=0)
         x = self.norm(x).permute(0, 2, 3, 1).reshape(b_t, h * w, c)
         x = self.proj_in(x)
-        frames = torch.arange(timesteps, device=x.device).repeat(
-            b_t // timesteps)
+        if frame_shard is None:
+            frames = torch.arange(timesteps, device=x.device).repeat(
+                b_t // timesteps)
+        else:
+            frames = frame_shard.frame_index(x.device)
         t_emb = timestep_embedding(frames, self.in_channels,
                                    self.max_time_embed_period).to(x.dtype)
         emb = self.time_pos_embed(t_emb)[:, None, :]
         for block, mix_block in zip(self.transformer_blocks,
                                     self.time_stack):
             x = block(x, context)
-            x_mix = mix_block(x + emb, time_context, timesteps)
+            x_mix = mix_block(x + emb, time_context, timesteps,
+                              frame_shard)
             x = self.time_mixer(x, x_mix, image_only_indicator)
         x = self.proj_out(x)
         return x.reshape(b_t, h, w, c).permute(0, 3, 1, 2) + x_in

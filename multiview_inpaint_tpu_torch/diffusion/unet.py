@@ -81,14 +81,15 @@ class TimestepEmbedSequential(nn.Sequential):
         return layer(*args)
 
     def forward(self, x, emb, context, num_video_frames,
-                image_only_indicator):
+                image_only_indicator, frame_shard=None):
+        shard = () if frame_shard is None else (frame_shard,)
         for layer in self:
             if isinstance(layer, VideoResBlock):
                 x = self._call(layer, x, emb, num_video_frames,
-                               image_only_indicator)
+                               image_only_indicator, *shard)
             elif isinstance(layer, SpatialVideoTransformer):
                 x = self._call(layer, x, context, num_video_frames,
-                               image_only_indicator)
+                               image_only_indicator, *shard)
             else:
                 x = layer(x)
         return x
@@ -182,12 +183,23 @@ class VideoUNet(nn.Module):
                 num_video_frames: int = 1, image_only_indicator=None,
                 control: Optional[List[torch.Tensor]] = None,
                 extract_features: bool = False,
-                hint: Optional[torch.Tensor] = None):
+                hint: Optional[torch.Tensor] = None, frame_shard=None):
         """x [(b t), H, W, C_in] (NHWC); ``hint`` and each ``control``
         residual NHWC as well. Returns [(b t), H, W, C_out], or with
-        ``extract_features`` the list of NHWC hidden states."""
-        emb = self.embed(timesteps, y, x.dtype)
-        args = (emb, context, num_video_frames, image_only_indicator)
+        ``extract_features`` the list of NHWC hidden states.
+
+        ``frame_shard`` (``parallel.svd_inference_parallel.FrameShard``):
+        every input holds this rank's rows of a frame-sharded forward; the
+        shard carries every row's ``timesteps`` and ``y``, from which the
+        time embedding of every frame is computed."""
+        if frame_shard is None:
+            emb = self.embed(timesteps, y, x.dtype)
+        else:
+            frame_shard = frame_shard.with_emb(self.embed(
+                frame_shard.timesteps, frame_shard.y, x.dtype))
+            emb = frame_shard.local(frame_shard.emb)
+        args = (emb, context, num_video_frames, image_only_indicator,
+                frame_shard)
         h = self.input_blocks[0](x.permute(0, 3, 1, 2), *args)
         if hint is not None:
             h = h + hint.permute(0, 3, 1, 2)

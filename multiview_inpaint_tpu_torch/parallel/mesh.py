@@ -10,11 +10,17 @@ modules. ``make_mesh``/``shard_batch``/``replicate`` map onto:
   ``init`` (an explicit address, rank and world size), which create the
   default process group: NCCL for ``cuda``, gloo for ``cpu``;
 - ``world`` and ``rank`` (1 and 0 without a process group, so every
-  parallel function runs on one device as the plain loop does);
+  parallel function runs on one device as the plain loop does), of the
+  default group or of a subgroup (``dist.new_group``) given as ``group``,
+  as the frame-sharded path does;
 - ``shard_batch``: the rank's slice of every tensor's leading dimension;
-- ``replicate``: a broadcast from rank 0 into every tensor, in place.
+- ``replicate``: a broadcast from rank 0 into every tensor, in place;
+- ``all_gather_rows``, ``all_reduce_sum`` and ``all_to_all_rows``: the
+  collectives that XLA's partitioner inserted for the JAX package.
 
-There is no ``Mesh`` object: the default group is the one axis.
+There is no ``Mesh`` object: the default group, or the subgroup passed as
+``group``, is the one axis. Without a process group every helper is the
+identity.
 """
 
 from __future__ import annotations
@@ -63,12 +69,18 @@ def init_from_env(device=DEFAULT_DEVICE) -> torch.device:
     return dev
 
 
-def world() -> int:
-    return dist.get_world_size() if dist.is_initialized() else 1
+def world(group=None) -> int:
+    return dist.get_world_size(group) if dist.is_initialized() else 1
 
 
-def rank() -> int:
-    return dist.get_rank() if dist.is_initialized() else 0
+def rank(group=None) -> int:
+    return dist.get_rank(group) if dist.is_initialized() else 0
+
+
+def frame_devices(t: int, world_size: int) -> int:
+    """The ranks a clip of ``t`` frames is sharded over: the largest
+    divisor of t that is at most the world size (the JAX CLI's rule)."""
+    return max(k for k in range(1, min(t, world_size) + 1) if t % k == 0)
 
 
 def _tree_map(fn, x):
@@ -105,26 +117,28 @@ def shard_batch(x: Any) -> Any:
     return _tree_map(cut, x)
 
 
-def replicate(x: Any) -> Any:
-    """Rank 0's values in every tensor of ``x``, broadcast in place (a
-    no-op without a process group); returns ``x``."""
+def replicate(x: Any, group=None) -> Any:
+    """The values of the group's rank 0 in every tensor of ``x``,
+    broadcast in place (a no-op without a process group); returns ``x``."""
     if dist.is_initialized():
+        src = 0 if group is None else dist.get_global_rank(group, 0)
+
         def bcast(a):
-            dist.broadcast(a, src=0)
+            dist.broadcast(a, src=src, group=group)
             return a
 
         _tree_map(bcast, x)
     return x
 
 
-def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """[world * n, ...]: every rank's [n, ...] in rank order (x itself
     without a process group). Not differentiable."""
     if not dist.is_initialized():
         return x
-    parts = [torch.empty_like(x) for _ in range(world())]
-    dist.all_gather(parts, x.contiguous())
-    return torch.cat(parts)
+    out = x.new_empty((world(group) * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
@@ -133,3 +147,15 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     if dist.is_initialized():
         dist.all_reduce(x, op=dist.ReduceOp.SUM)
     return x
+
+
+def all_to_all_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x [world * m, ...] -> [world * m, ...]: block q of the input goes to
+    rank q, and block q of the output came from rank q (equal sizes; x
+    itself without a process group). Not differentiable."""
+    if not dist.is_initialized():
+        return x
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out

@@ -1,11 +1,18 @@
-"""ControlNet training step for the SVD inpainter: trainable sets, an
-optax-equivalent Adam with its schedules and gradient accumulation, EMA.
+"""Data-parallel ControlNet training for the SVD inpainter: trainable
+sets, an optax-equivalent Adam with its schedules and gradient
+accumulation, EMA, and the step across ranks.
 
-Counterpart of ``multiview_inpaint_tpu/parallel/svd_data_parallel.py`` on
-one card. The JAX step vmaps the per-video loss over a video batch sharded
-on a mesh; here the B videos of a batch go through one ``[(B T)]`` forward
-with one sigma per video, and the loss is the mean over videos (the same
-number). The all-reduce across cards (DDP) is not ported yet.
+Counterpart of ``multiview_inpaint_tpu/parallel/svd_data_parallel.py``.
+The JAX step vmaps the per-video loss over a video batch sharded on a
+mesh; here a rank's videos go through one ``[(B T)]`` forward with one
+sigma per video, and the loss is the mean over videos (the same number).
+``make_train_step`` is the step on one card; ``make_dp_train_step`` runs it
+on each rank's B / w videos (``shard_svd_batch``) and sums the trainable
+gradients over the ranks (DDP), one flat buffer per type, divided by w:
+the gradient of the mean over all B videos, as JAX's ``jnp.mean`` over the
+sharded batch gives. The whole batch's sigmas and noise are drawn on every
+rank from the same generator and each rank keeps its rows, so a step at
+world w equals the step at world 1 up to the all-reduce's rounding.
 
 ``build_optimizer`` reproduces ``optax.adam`` (b1 0.9, b2 0.999, eps 1e-8,
 eps_root 0) step for step, in its order of operations and types: the
@@ -37,7 +44,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..diffusion import losses
 from ..diffusion.checkpoint import PREFIXES
+from . import mesh
 
 B1, B2, EPS, EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
 
@@ -228,7 +237,7 @@ def flatten_videos(latents_b: torch.Tensor, cond_b: Dict):
 
 def make_train_step(engine, optimizer: Optimizer,
                     params: Dict[str, torch.nn.Parameter],
-                    ema_decay: Optional[float] = None):
+                    ema_decay: Optional[float] = None, reduce_grads=None):
     """Returns ``step(opt_state, ema, latents_b, cond_b, sigmas=None,
     noise=None, generator=None) -> loss``.
 
@@ -237,7 +246,8 @@ def make_train_step(engine, optimizer: Optimizer,
     and ``uv_ind`` ``[B, T-1, 4, h*w]`` turn on the warp-consistency
     term). ``sigmas`` ``[B]`` and ``noise`` (the latents' shape) are drawn
     from ``generator`` unless given. The step updates ``params`` (the
-    trainable set) and ``ema`` in place."""
+    trainable set) and ``ema`` in place; ``reduce_grads`` (a list of
+    gradients to a list) runs between the backward pass and Adam."""
     names = list(params)
 
     def step(opt_state, ema, latents_b, cond_b, sigmas=None, noise=None,
@@ -248,9 +258,86 @@ def make_train_step(engine, optimizer: Optimizer,
         loss = engine.loss(lat, cond, warp=warp, sigmas=sigmas, noise=noise,
                            generator=generator)
         grads = torch.autograd.grad(loss, [params[k] for k in names])
+        if reduce_grads is not None:
+            grads = reduce_grads(grads)
         optimizer.step(params, dict(zip(names, grads)), opt_state)
         if ema_decay is not None:
             ema_update(ema, params, ema_decay)
         return loss.detach()
 
     return step
+
+
+def all_reduce_mean_flat(tensors) -> list:
+    """The mean of each tensor over the ranks: one flat buffer per type,
+    all-reduced once and divided by the world size; returns views into
+    the buffers in the order of ``tensors``."""
+    out = list(tensors)
+    w = mesh.world()
+    for dt, idx in _by_dtype(dict(enumerate(tensors))).items():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        mesh.all_reduce_sum(flat).div_(w)
+        for i, part in zip(idx, flat.split([tensors[i].numel()
+                                            for i in idx])):
+            out[i] = part.view(tensors[i].shape)
+    return out
+
+
+def batch_draws(latents_b: torch.Tensor, sigmas=None, noise=None,
+                generator=None):
+    """This rank's sigmas ``[B / w]`` and noise ``[(B / w) T, h, w, c]``
+    out of the whole batch's (B = w times the rank's ``latents_b``
+    videos): drawn on every rank from ``generator`` in the loss's order,
+    or given as ``sigmas`` ``[B]`` and ``noise`` of B videos."""
+    w, r = mesh.world(), mesh.rank()
+    nb, t = latents_b.shape[:2]
+    frame = tuple(latents_b.shape[2:])
+    sigmas, noise = losses.draws(nb * w, (nb * w * t,) + frame,
+                                 latents_b.dtype, latents_b.device,
+                                 sigmas=sigmas, noise=noise,
+                                 generator=generator)
+    noise = noise.reshape((nb * w, t) + frame)[r * nb:(r + 1) * nb]
+    return sigmas[r * nb:(r + 1) * nb], noise.reshape((-1,) + frame)
+
+
+def make_dp_train_step(engine, optimizer: Optimizer,
+                       params: Dict[str, torch.nn.Parameter],
+                       ema_decay: Optional[float] = None):
+    """``make_train_step`` on this rank's videos of a batch sharded over
+    the ranks: returns ``step(opt_state, ema, latents_b, cond_b,
+    sigmas=None, noise=None, generator=None) -> loss``, latents_b and
+    cond_b this rank's B / w videos (``shard_svd_batch``), ``sigmas``
+    ``[B]`` and ``noise`` of the whole batch when given (see
+    ``batch_draws``). The trainable gradients are
+    averaged over the ranks (``all_reduce_mean_flat``) before Adam, so
+    Adam, its accumulation and the EMA run identically on every rank; the
+    loss returned is the mean over all B videos. Without a process group
+    this is ``make_train_step``."""
+    reduce = (all_reduce_mean_flat if torch.distributed.is_initialized()
+              else None)
+    one = make_train_step(engine, optimizer, params, ema_decay, reduce)
+
+    def step(opt_state, ema, latents_b, cond_b, sigmas=None, noise=None,
+             generator=None):
+        sig, eps = batch_draws(latents_b, sigmas, noise, generator)
+        loss = one(opt_state, ema, latents_b, cond_b, sigmas=sig, noise=eps)
+        return mesh.all_reduce_sum(loss.clone()) / mesh.world()
+
+    return step
+
+
+def shard_svd_batch(latents_b, cond_b):
+    """This rank's videos of a batch: the leading video dim B of the
+    latents and of every conditioning leaf cut into w blocks (B must
+    divide by the world size, as the JAX sharding requires)."""
+    return mesh.shard_batch(latents_b), mesh.shard_batch(cond_b)
+
+
+def replicate_state(state):
+    """Rank 0's values in every tensor of ``state`` (a module, or a
+    tensor tree: the optimizer state, the EMA), broadcast in place;
+    returns ``state``."""
+    tensors = (list(state.state_dict().values())
+               if isinstance(state, torch.nn.Module) else state)
+    mesh.replicate(tensors)
+    return state

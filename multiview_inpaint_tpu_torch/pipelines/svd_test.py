@@ -6,6 +6,8 @@ grids.
         [--base_ckpt svd.npz|svd.safetensors|svd.pth] \\
         [--out gs/inpainted] [--sampling plain|blended|inversion] \\
         [--dump_latents DIR] [--device cuda|cpu] [--tiny_model]
+    torchrun --nproc_per_node N -m multiview_inpaint_tpu_torch.pipelines.\\
+        svd_test --data_root gs --shard_frames
 
 Port of ``multiview_inpaint_tpu/pipelines/svd_test.py``: for every
 (scene, ctrl, mode) item of the gs/ directory contract, encode the
@@ -32,9 +34,16 @@ ControlNet) read the JAX package's npz layout through
 without them the weights are random from ``--seed``. Random numbers (the
 initial noise, the conditioning augmentation's noise) come from a
 ``torch.Generator`` seeded with ``--seed``, and so do the blended
-sampler's per-step renoise draws. The JAX CLI's ``--shard_frames``
-(frames sharded over devices) is not offered: it waits for the port's
-multi-GPU slice.
+sampler's per-step renoise draws.
+
+``--shard_frames`` (under torchrun, one card per rank) samples each clip
+frame-sharded (``parallel.svd_inference_parallel``): the network forward
+of the plain sampler runs over n ranks, n the largest divisor of
+``--num_frames`` at most the world size, the first n ranks in a group of
+their own when n is below it (14 frames on 4 cards: 2); the other ranks
+skip the sampler, and rank 0 writes the grid and the frames. With n = 1 or
+another ``--sampling`` it prints that the flag is ignored, as the JAX CLI
+on one device.
 """
 
 from __future__ import annotations
@@ -46,12 +55,16 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.svd_dataset import GSVideoForwardDataset
 from ..diffusion import checkpoint as ckpt
 from ..diffusion.engine import EngineConfig, init_engine
 from ..gs import scene_io
 from ..guidance.sds import resize_nearest
+from ..parallel import mesh
+from ..parallel.svd_inference_parallel import (make_frame_sharded_denoiser,
+                                               replicate_engine_state)
 from ..utils.device import resolve_device
 
 
@@ -96,8 +109,30 @@ def _report(name, report):
               f"unexpected")
 
 
+def _frame_sharding(eng, args):
+    """(the frame-sharded denoiser or None, whether this rank samples)
+    under ``--shard_frames``, by the JAX CLI's rule."""
+    t = args.num_frames
+    n = mesh.frame_devices(t, mesh.world())
+    if n == 1 or args.sampling != "plain":
+        if mesh.rank() == 0:
+            print("shard_frames ignored (one usable device or "
+                  "non-plain sampling)")
+        return None, True
+    # every rank takes part in creating the group of the first n
+    group = (None if n == mesh.world()
+             else dist.new_group(list(range(n))))
+    if mesh.rank() >= n:
+        return None, False
+    replicate_engine_state(eng, group)
+    if mesh.rank() == 0:
+        print(f"sequence-parallel sampling: {t} frames over {n} devices")
+    return make_frame_sharded_denoiser(eng, group), True
+
+
 def run(args):
-    dev = resolve_device(args.device)
+    dev = (mesh.init_from_env(args.device) if args.shard_frames
+           else resolve_device(args.device))
     cfg = _engine_config(args)
     eng = init_engine(cfg, seed=args.seed, device=dev,
                       param_dtype=(None if args.tiny_model
@@ -112,6 +147,10 @@ def run(args):
         sd = {k: v for k, v in sd.items()
               if k.startswith(ckpt.PREFIXES["controlnet"])}
         _report("ctrl ckpt", eng.load_reference_state_dict(sd))
+    sp_denoise, active = (_frame_sharding(eng, args) if args.shard_frames
+                          else (None, True))
+    if not active:
+        return
 
     ds = GSVideoForwardDataset(args.data_root, size=args.size,
                                num_frames=args.num_frames,
@@ -141,7 +180,9 @@ def run(args):
             z = fn(cond, uc, bg_z, m, generator=gen)
         else:
             z = eng.sample(cond, uc, latent_shape=(t, h8, w8, 4),
-                           generator=gen)
+                           generator=gen, denoise_fn=sp_denoise)
+        if mesh.rank() != 0:
+            continue
         frames = eng.decode_first_stage(z, timesteps=t).cpu().numpy()
         name = f"samples_gs-{index:06d}_e-000000_b-{index:06d}.png"
         scene_io.save_image(os.path.join(grid_dir, name), to_grid(frames))
@@ -186,6 +227,10 @@ def main(argv=None):
                    help="debug: write every sampler step's latent as "
                         ".npy under DIR (the reference EDMSampler3's "
                         "np.save affordance, sampling.py:271-354)")
+    p.add_argument("--shard_frames", action="store_true",
+                   help="sequence-parallel sampling: shard the clip's "
+                        "frames over all devices (largest device count "
+                        "dividing num_frames; plain sampling only)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
     if args.dump_latents:

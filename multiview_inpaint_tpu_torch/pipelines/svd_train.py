@@ -6,8 +6,10 @@
         [--accumulate 1] [--schedule constant|linear|warmup_cosine] \\
         [--warp_loss] [--mask_shrink_k 0.4] [--pose_cond] \\
         [--device cuda|cpu] [--tiny_model]
+    torchrun --nproc_per_node N -m multiview_inpaint_tpu_torch.pipelines.\\
+        svd_train --data_root <root> --devices N --batch_size B ...
 
-Port of ``multiview_inpaint_tpu/pipelines/svd_train.py`` on one card:
+Port of ``multiview_inpaint_tpu/pipelines/svd_train.py``:
 ControlNet-only parameters (plus the UNet's label embedding with
 ``--train_label_emb``), the InpaintDiffusionLoss with one sigma per video,
 B videos per step in one forward, Adam as optax computes it with the
@@ -29,9 +31,19 @@ Random numbers come from ``torch.Generator``s seeded from ``--seed`` (the
 JAX CLI derives the same roles from one key): the VAE posterior's and the
 conditioning augmentation's noise per batch slot, and the sigmas and noise
 of the loss. ``--wandb`` mirrors the JSONL rows to a wandb run where the
-package can be imported (``utils.logging``). Not ported yet: more than
-one card (``--devices`` takes 1; the data-parallel all-reduce comes with
-the SVD half of the distributed paths).
+package can be imported (``utils.logging``).
+
+Every step goes through ``parallel.svd_data_parallel.make_dp_train_step``.
+Under torchrun each rank trains on one card (``mesh.init_from_env``): it
+encodes its B / w slots of each batch (``--batch_size`` must divide by the
+world size), draws the whole batch's sigmas and noise and keeps its rows,
+and the gradients are averaged over the ranks, so a run at world size w
+trains the steps of a run at world size 1. ``--devices N`` above the world
+size is capped to it, as the JAX CLI caps it to its device count; below
+it, it is refused (torchrun starts exactly the ranks asked for). Rank 0
+writes the checkpoints, the log and the image grids; the final EMA
+evaluation averages its losses over the ranks. Without torchrun the run is
+one process on one card, whatever ``--devices`` says.
 """
 
 from __future__ import annotations
@@ -50,10 +62,11 @@ from ..data.svd_dataset import (EstSVDForwardDataset,
 from ..diffusion import checkpoint as ckpt
 from ..diffusion.engine import EngineConfig, init_engine
 from ..gs import scene_io
-from ..parallel.svd_data_parallel import (apply_trainable, build_optimizer,
-                                          flatten_videos, make_train_step,
-                                          trainable_params)
-from ..utils.device import resolve_device
+from ..parallel import mesh
+from ..parallel.svd_data_parallel import (apply_trainable, batch_draws,
+                                          build_optimizer, flatten_videos,
+                                          make_dp_train_step,
+                                          replicate_state, trainable_params)
 from ..utils.logging import RunLogger
 
 POSE_KEYS = ("polars_rad", "azimuths_rad", "rad")
@@ -142,11 +155,35 @@ def _dataset(args):
         pose_cond=args.pose_cond)
 
 
+class _Quiet:
+    """The logger of ranks other than 0: they write nothing."""
+
+    def log(self, *a, **kw):
+        pass
+
+    def echo(self, msg):
+        pass
+
+    def close(self):
+        pass
+
+
+def _world(args) -> int:
+    """The data-parallel world: torchrun's ranks, ``--devices`` capped to
+    them and refused below them."""
+    w = mesh.world()
+    if args.devices is not None and args.devices < w:
+        raise ValueError(f"--devices {args.devices} is below the world size "
+                         f"{w}: start {args.devices} ranks instead")
+    if args.batch_size % w:
+        raise ValueError(f"--batch_size {args.batch_size} does not divide "
+                         f"by the world size {w}")
+    return w
+
+
 def train(args):
-    if args.devices not in (None, 1):
-        raise ValueError("--devices: one card only (the data-parallel "
-                         "all-reduce is not ported yet)")
-    dev = resolve_device(args.device)
+    dev = mesh.init_from_env(args.device)
+    world, rank = _world(args), mesh.rank()
     cfg = _engine_config(args)
     eng = init_engine(cfg, seed=args.seed, device=dev,
                       param_dtype=None if args.tiny_model
@@ -155,6 +192,7 @@ def train(args):
         _load_base(eng, args.base_ckpt)
     if args.resume:
         _load_resume(eng, args.resume)
+    replicate_state(eng)
 
     ds = _dataset(args)
     steps_per_epoch = max(1, len(ds) // args.batch_size)
@@ -164,17 +202,19 @@ def train(args):
     params = trainable_params(eng, args.train_label_emb)
     opt_state = optimizer.init(params)
     ema = {k: p.detach().clone() for k, p in params.items()}
-    step_fn = make_train_step(eng, optimizer, params,
-                              ema_decay=args.ema_decay if args.ema else None)
+    step_fn = make_dp_train_step(
+        eng, optimizer, params, ema_decay=args.ema_decay if args.ema else None)
 
     os.makedirs(args.logdir, exist_ok=True)
-    logger = RunLogger(args.logdir, "svd_train",
-                       backend="wandb" if args.wandb else "jsonl",
-                       wandb_project=args.wandb_project,
-                       config=vars(args))
+    logger = (RunLogger(args.logdir, "svd_train",
+                        backend="wandb" if args.wandb else "jsonl",
+                        wandb_project=args.wandb_project, config=vars(args))
+              if rank == 0 else _Quiet())
     heads = cfg.vit.heads
 
     def save(tag):
+        if rank != 0:
+            return
         path = os.path.join(args.logdir, "checkpoints", f"{tag}.npz")
         t0 = time.perf_counter()
         ckpt.save_params(path, _trainable_to_jax(
@@ -191,13 +231,16 @@ def train(args):
     signal.signal(signal.SIGUSR1, lambda *_: save("melk"))
 
     t, h8, w8 = args.num_frames, args.size[0] // 8, args.size[1] // 8
+    slots = args.batch_size // world
 
     def make_batch(items):
-        """Latents (a posterior sample) and per-frame conditioning of each
-        video, stacked to ``[B, T, ...]``; slot i draws its noise from the
-        generator seeded (seed, i), as the JAX CLI folds i into its key."""
+        """Latents (a posterior sample) and per-frame conditioning of this
+        rank's videos, stacked to ``[B / w, T, ...]``; slot i of the batch
+        draws its noise from the generator seeded (seed, i), as the JAX CLI
+        folds i into its key."""
         lat, conds = [], []
-        for i, (_, b) in enumerate(items):
+        mine = list(enumerate(items))[rank * slots:(rank + 1) * slots]
+        for i, (_, b) in mine:
             bt = {k: torch.from_numpy(np.asarray(v)).to(dev)
                   for k, v in b.items() if k != "num_video_frames"}
             gen = torch.Generator(device=dev).manual_seed(
@@ -229,7 +272,7 @@ def train(args):
                 loss = step_fn(opt_state, ema, latents_b, cond_b,
                                generator=gen)
                 gstep += 1
-                if args.log_images_every and \
+                if args.log_images_every and rank == 0 and \
                         gstep % args.log_images_every == 0:
                     _log_images(eng, latents_b, cond_b, gen, args, gstep)
                 if gstep % args.log_interval == 0:
@@ -250,7 +293,8 @@ def train(args):
 
 def _final_ema_eval(eng, params, ema, ds, make_batch, args, logger):
     """End-of-run objective on a fixed batch set under the raw trainable
-    weights and under the EMA: same data, same draws."""
+    weights and under the EMA: same data, same draws (each rank its videos
+    of the batch, the losses averaged over the ranks)."""
     batches, items = [], []
     for it in epoch_iterator(ds, seed=args.seed + 10_000):
         items.append(it)
@@ -269,8 +313,10 @@ def _final_ema_eval(eng, params, ema, ds, make_batch, args, logger):
                 lat, cond, warp = flatten_videos(lb, cb)
                 gen = torch.Generator(device=dev).manual_seed(
                     args.seed + 20_000 + i)
-                tot[name] += float(eng.loss(lat, cond, warp=warp,
-                                            generator=gen))
+                sig, noise = batch_draws(lb, generator=gen)
+                loss = eng.loss(lat, cond, warp=warp, sigmas=sig,
+                                noise=noise)
+                tot[name] += float(mesh.all_reduce_sum(loss) / mesh.world())
     apply_trainable(params, raw)
     n = max(1, len(batches))
     row = {"final_eval_batches": n, "loss_raw": tot["raw"] / n,
@@ -281,15 +327,18 @@ def _final_ema_eval(eng, params, ema, ds, make_batch, args, logger):
 
 def _log_images(eng, latents_b, cond_b, gen, args, gstep):
     """A sample of the current model on the first video of the batch as a
-    4-wide grid under <logdir>/log_img/train (the reference ImageLogger)."""
+    4-wide grid under <logdir>/log_img/train (the reference ImageLogger),
+    drawn from a copy of ``gen``: as the JAX CLI samples from its step key
+    without consuming it, the training draws do not depend on it."""
     from .svd_test import to_grid
     cond = {k: v[0] for k, v in cond_b.items()
             if k not in ("hit_map", "uv_ind")}
     uc = dict(cond, crossattn=torch.zeros_like(cond["crossattn"]),
               concat=torch.zeros_like(cond["concat"]))
     t = args.num_frames
+    copy = torch.Generator(device=gen.device).set_state(gen.get_state())
     z = eng.sample(cond, uc, latent_shape=(t,) + tuple(latents_b.shape[2:]),
-                   generator=gen)
+                   generator=copy)
     frames = eng.decode_first_stage(z, timesteps=t).cpu().numpy()
     scene_io.save_image(os.path.join(args.logdir, "log_img", "train",
                                      f"samples_gs-{gstep:06d}.png"),
@@ -303,10 +352,11 @@ def main(argv=None):
     p.add_argument("--epochs", type=int, default=50)
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--batch_size", type=int, default=1,
-                   help="videos per step (one forward of B*T frames)")
+                   help="videos per step (sharded over the ranks; one "
+                        "forward of B/w*T frames per rank)")
     p.add_argument("--devices", type=int, default=None,
-                   help="cards to train on: 1 (the all-reduce across "
-                        "cards is not ported yet)")
+                   help="cards to train on: torchrun's world size (capped "
+                        "to it; fewer is refused)")
     p.add_argument("--num_frames", type=int, default=14)
     p.add_argument("--size", type=int, nargs=2, default=[512, 384])
     p.add_argument("--cond_aug", type=float, default=0.0)

@@ -2,6 +2,7 @@
 the GPU.
 
     python scripts/port_profile_svd.py [--trace_dir build/profile_svd]
+    python scripts/port_profile_svd.py --step sharded
     python scripts/port_profile_svd.py --step train
 
 Builds the full-width engine as ``chip_smoke.py``'s main path 3 does
@@ -16,6 +17,11 @@ convolutions, layout conversions, normalisation, softmax, copies,
 elementwise, the rest), the top kernels by name, and the card's SM clock,
 power draw and temperature before and after. The chrome trace is
 ``<trace_dir>/trace.json``. Imports the port only (no JAX).
+
+``--step sharded`` traces the same evaluation through
+``make_frame_sharded_denoiser`` over NCCL at world size 1 (main path 12's
+frame-sharded sampling), adds NCCL to the kinds and the host time of the
+collective calls (``c10d``/``nccl`` CPU ops) per evaluation.
 
 ``--step train`` does the same for ``chip_smoke.py``'s main path 4: one
 ControlNet train step of ``svd_train`` at full width (one video of 14
@@ -34,11 +40,13 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EVALS = 3
 # Lower-case kernel-name fragments of each kind, first match wins.
-KINDS = (("K4", ("flash_fwd_kernel",)),
+KINDS = (("nccl", ("nccl",)),
+         ("K4", ("flash_fwd_kernel",)),
          ("K5", ("flash_bwd_",)),
          ("layout", ("nchwtonhwc", "nhwctonchw")),
          ("conv", ("fprop", "conv", "winograd", "implicit_gemm")),
@@ -68,7 +76,8 @@ def main():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--trace_dir",
                    default=os.path.join(REPO, "build", "profile_svd"))
-    p.add_argument("--step", choices=("sample", "train"), default="sample")
+    p.add_argument("--step", choices=("sample", "sharded", "train"),
+                   default="sample")
     args = p.parse_args()
     sys.path.insert(0, REPO)
     sys.path.insert(0, os.path.join(REPO, "scripts"))
@@ -100,9 +109,16 @@ def main():
     x = torch.randn((frames, h // 8, w // 8, 4), generator=gen,
                     device="cuda") * (1 + eng.cfg.sigma_max ** 2) ** 0.5
     extra = {}
-    if args.step == "sample":
+    if args.step in ("sample", "sharded"):
         gx, gs, gc = eng.guider.prepare(x, sigma, cond, uc)
         denoise = eng.denoise_fn()
+        if args.step == "sharded":
+            from multiview_inpaint_tpu_torch.parallel import mesh
+            from multiview_inpaint_tpu_torch.parallel import (
+                svd_inference_parallel as sp)
+            mesh.init(0, 1, f"tcp://127.0.0.1:{chip_smoke._free_port()}",
+                      "cuda")
+            denoise = sp.make_frame_sharded_denoiser(eng)
 
         def step():
             return denoise(gx, gs, gc)
@@ -143,6 +159,12 @@ def main():
     step()                                   # warm-up (cuDNN, cuBLAS)
     before = clocks()
     ms = chip_smoke.cuda_ms(torch, step, EVALS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EVALS):
+        step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / EVALS
     prof_dir = args.trace_dir
     shutil.rmtree(prof_dir, ignore_errors=True)
     os.makedirs(prof_dir)
@@ -159,12 +181,20 @@ def main():
     with open(trace) as f:
         events = json.load(f)["traceEvents"]
     by_kind = collections.Counter()
+    coll_ms = 0.0
     for e in events:
         if e.get("cat") == "kernel" and "dur" in e:
             by_kind[kind(e["name"])] += e["dur"] / 1e3 / EVALS
+        elif (e.get("cat") == "cpu_op" and "dur" in e
+              and e["name"].startswith(("c10d::", "nccl:"))):
+            coll_ms += e["dur"] / 1e3 / EVALS
+    if args.step == "sharded":
+        extra["collective_host_ms_per_eval"] = coll_ms
+        torch.distributed.destroy_process_group()
     print(json.dumps({"card": card, "step": args.step,
                       "sm_clock_power_temp": [before, after],
                       "ms_per_eval_cuda_events": ms,
+                      "ms_per_eval_host_clock": host_ms,
                       "evals_traced": EVALS,
                       "kernel_ms_per_eval_by_kind": dict(by_kind), **extra,
                       **out}))

@@ -920,3 +920,128 @@ def test_cuda_tiny_vae_finetune_step_matches_cpu():
                 torch.all(err[beyond] <= 2 * lr + 1e-6)), k
     finally:
         _restore_tf32(saved)
+
+
+def _nccl_world1():
+    """The default process group over NCCL at world size 1 (tcp on
+    localhost)."""
+    import socket
+
+    from multiview_inpaint_tpu_torch.parallel import mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mesh.init(0, 1, f"tcp://127.0.0.1:{port}", "cuda")
+
+
+def _tiny_svd_on_card(cfg, seed):
+    """The engine of ``cfg`` on the card with every parameter moved."""
+    from multiview_inpaint_tpu_torch.diffusion import engine
+    cpu = _moved(engine.init_engine(cfg, seed=0, device="cpu"), seed)
+    gpu = engine.init_engine(cfg, seed=1, device="cuda")
+    gpu.load_reference_state_dict(cpu.reference_state_dict())
+    return gpu
+
+
+@pytest.mark.cuda
+def test_cuda_frame_sharded_apply_model_world1_matches_apply_model():
+    """``frame_sharded_apply_model`` over NCCL at world size 1 (its
+    all-to-alls, all-reduces and all-gather on the card) against
+    ``apply_model`` on the tiny SVD engine (svd_test --tiny_model, 4 frames
+    at 64x48, f32, TF32 off), the CFG batch of 8 rows: within 1e-5 of
+    max|out| (only the temporal GroupNorms' sums run in another order)."""
+    _require_cuda()
+    import argparse
+
+    import torch.distributed as dist
+
+    from multiview_inpaint_tpu_torch.parallel.svd_inference_parallel import (
+        frame_sharded_apply_model)
+    from multiview_inpaint_tpu_torch.pipelines import svd_test
+    saved = _no_tf32()
+    try:
+        eng = _tiny_svd_on_card(svd_test._engine_config(argparse.Namespace(
+            tiny_model=True, num_frames=4, num_steps=2)), 3)
+        rng = np.random.default_rng(4)
+
+        def t(*shape):
+            return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                                device="cuda")
+        x, tn = t(8, 8, 6, 4), t(8)
+        cond = {"concat": t(8, 8, 6, 4), "crossattn": t(8, 1, 16),
+                "vector": t(8, 768), "control_hint": t(8, 64, 48, 7)}
+        with torch.no_grad():
+            want = eng.apply_model(x, tn, cond)
+        _nccl_world1()
+        try:
+            assert dist.get_backend() == "nccl"
+            got = frame_sharded_apply_model(eng, x, tn, cond)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        _restore_tf32(saved)
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_dp_train_step_world1_matches_train_step():
+    """``make_dp_train_step`` over NCCL at world size 1 (the gradients'
+    flat all-reduce on the card) against ``make_train_step``: one step of
+    2 videos of the tiny SVD engine (svd_train --tiny_model, 3 frames at
+    64x48, f32, TF32 off) from the same parameters and draws, EMA 0.9:
+    the loss within 1e-6 relative, parameters and EMA within 1e-3 lr where
+    |g| >= 1e-6."""
+    _require_cuda()
+    import argparse
+
+    import torch.distributed as dist
+
+    from multiview_inpaint_tpu_torch.parallel import svd_data_parallel as dp
+    from multiview_inpaint_tpu_torch.pipelines import svd_train
+    lr = 1e-4
+    saved = _no_tf32()
+    try:
+        eng = _tiny_svd_on_card(svd_train._engine_config(argparse.Namespace(
+            tiny_model=True, num_frames=3, pose_cond=False,
+            warp_loss=False)), 5)
+        rng = np.random.default_rng(6)
+
+        def t(x):
+            return torch.tensor(x, dtype=torch.float32, device="cuda")
+        cond = {k: t(v) for k, v in {
+            "crossattn": rng.normal(size=(2, 3, 1, 16)),
+            "vector": rng.normal(size=(2, 3, 768)),
+            "concat": rng.normal(size=(2, 3, 8, 6, 4)),
+            "control_hint": rng.uniform(size=(2, 3, 64, 48, 7))}.items()}
+        lat = t(rng.normal(size=(2, 3, 8, 6, 4)))
+        draws = dict(sigmas=t([1.7, 0.4]),
+                     noise=t(rng.normal(size=(2, 3, 8, 6, 4))))
+        params = dp.trainable_params(eng)
+        p0 = {k: p.detach().clone() for k, p in params.items()}
+        runs = []
+        for make in (dp.make_train_step, dp.make_dp_train_step):
+            dp.apply_trainable(params, p0)
+            opt = dp.build_optimizer(lr)
+            state = opt.init(params)
+            ema = {k: p.detach().clone() for k, p in params.items()}
+            if make is dp.make_dp_train_step:
+                _nccl_world1()
+            try:
+                loss = make(eng, opt, params, 0.9)(state, ema, lat, cond,
+                                                   **draws)
+            finally:
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+            runs.append((float(loss), {k: p.detach().clone()
+                                       for k, p in params.items()},
+                         ema, state["mu"]))
+    finally:
+        _restore_tf32(saved)
+    (l0, p_ref, e_ref, mu), (l1, p_dp, e_dp, _) = runs
+    assert abs(l1 - l0) <= 1e-6 * abs(l0)
+    for k in mu:
+        big = mu[k].abs() >= 1e-7
+        for got, want in ((p_dp, p_ref), (e_dp, e_ref)):
+            err = (got[k] - want[k]).abs()[big]
+            assert err.numel() == 0 or float(err.max()) <= 1e-3 * lr, k

@@ -45,7 +45,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "pipelines.divide_test", "pipelines.simple_video_sample",
             "pipelines.demo_app", "parallel.mesh", "parallel.render_parallel",
             "parallel.gs_data_parallel", "parallel.gs_band_train",
-            "utils.live_view", "data.native_io")}
+            "utils.live_view", "data.native_io",
+            "parallel.svd_inference_parallel")}
         print(len(mods), bad, sorted(slices - set(mods)))
         sys.exit(1 if bad or len(mods) < 35 or not slices <= set(mods)
                  else 0)
@@ -108,11 +109,13 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
 
 
 def _loaders():
-    from multiview_inpaint_tpu_torch.diffusion import api
+    from multiview_inpaint_tpu_torch.diffusion import api, regularizers
     from multiview_inpaint_tpu_torch.metrics import lpips, musiq, wadiqam
     from multiview_inpaint_tpu_torch.models import dpt
     pipe = api.SamplingPipeline(lambda x, s, c: x)
     return {"MUSIQScorer": lambda: musiq.MUSIQScorer({}),
+            "init_ema_codebook": lambda: regularizers.init_ema_codebook(
+                16, 3),
             "WaDIQaMScorer": lambda: wadiqam.WaDIQaMScorer({}),
             "load_lpips_npz": lambda: lpips.load_lpips_npz("lpips.npz"),
             "load_dpt_torch": lambda: dpt.load_dpt_torch("dpt.pt"),

@@ -20,6 +20,18 @@ M = c.ITEM_PAIRS
 TILE = 16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's many small ops on one intra-op thread: on PyTorch's
+    default threads they thrash when several test workers share the
+    cores (this file took 20-50x longer in the 6-worker Tier-1 run than
+    alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_item_constants_match_the_kernels():
     src = (c.__file__.rsplit("/ops/", 1)[0]
            + "/csrc/composite_common.cuh")

@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from multiview_inpaint_tpu.gs import checkpoint as jckpt
 from multiview_inpaint_tpu.gs import gaussians as jgaussians
@@ -17,6 +18,18 @@ from multiview_inpaint_tpu_torch.gs import checkpoint as tckpt
 from multiview_inpaint_tpu_torch.gs import gaussians as tgaussians
 from multiview_inpaint_tpu_torch.pipelines import train_gs
 from multiview_inpaint_tpu_torch.utils import synthetic
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's many small ops on one intra-op thread: on PyTorch's
+    default threads they thrash when several test workers share the
+    cores (this file took 20-50x longer in the 6-worker Tier-1 run than
+    alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
