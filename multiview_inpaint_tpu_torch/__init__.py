@@ -17,6 +17,8 @@ of a port tensor is row i of the reference array:
                   ``svd_train``).
 - ``utils``     — SH, schedules, graphics, synthetic scenes.
 - ``kernels``   — builds, binds and counts the CUDA kernels of ``csrc/``.
+- ``telemetry`` — spans and counters of the layers (off by default), on
+                  the clock of ``torch.profiler``'s trace.
 
 The port imports ``torch`` and never ``jax``. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; on a CPU tensor each

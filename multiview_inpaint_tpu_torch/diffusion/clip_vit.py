@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import telemetry
+
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 LN_EPS = 1e-6
@@ -190,8 +192,9 @@ class CLIPVisionTower(nn.Module):
         cfg = self.cfg
         b, dt = x.shape[0], x.dtype
         x = resize_bicubic((x + 1.0) / 2.0, (cfg.image_size, cfg.image_size))
-        mean = torch.tensor(CLIP_MEAN, dtype=dt, device=x.device)
-        std = torch.tensor(CLIP_STD, dtype=dt, device=x.device)
+        with telemetry.host_read():     # blocking copies to the card
+            mean = torch.tensor(CLIP_MEAN, dtype=dt, device=x.device)
+            std = torch.tensor(CLIP_STD, dtype=dt, device=x.device)
         x = ((x - mean) / std).permute(0, 3, 1, 2)
         h = F.conv2d(x, self.conv1.weight.to(dt),
                      stride=cfg.patch_size).flatten(2).transpose(1, 2)

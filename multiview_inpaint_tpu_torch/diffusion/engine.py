@@ -54,6 +54,7 @@ from torch import nn
 
 from torch.func import functional_call
 
+from .. import telemetry
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from . import edm, losses, samplers
 from .checkpoint import PREFIXES
@@ -189,7 +190,10 @@ class SVDEngine(nn.Module):
 
     @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor, timesteps: int = 1):
-        return self.vae.decode(z.float() / SCALE_FACTOR, timesteps)
+        """Scaled latents -> frames in [-1, 1]: the span
+        ``engine.decode``."""
+        with telemetry.span("engine.decode"):
+            return self.vae.decode(z.float() / SCALE_FACTOR, timesteps)
 
     @torch.no_grad()
     def clip_embed(self, frames: torch.Tensor) -> torch.Tensor:
@@ -225,18 +229,22 @@ class SVDEngine(nn.Module):
 
         ``frame_shard`` (``parallel.svd_inference_parallel.FrameShard``):
         x, t_noise and cond hold every (b t) row, both networks compute
-        this rank's block of rows, and that block is returned."""
-        xc, t_noise, ctx, vec, kw = self._inputs(x, t_noise, cond,
-                                                 frame_shard)
-        hint = cond["control_hint"]
-        if frame_shard is not None:
-            hint = frame_shard.local(hint)
-        control = self._cast_call(
-            self.controlnet, xc, hint.to(self.compute_dtype), t_noise, ctx,
-            vec, **kw)
-        control = [c * self.cfg.control_scales for c in control]
-        return self._cast_call(self.unet, xc, t_noise, ctx, vec, **kw,
-                               control=control).float()
+        this rank's block of rows, and that block is returned.
+
+        One call is one span ``engine.eval`` (in sampling, one guided
+        evaluation of the CFG batch)."""
+        with telemetry.span("engine.eval"):
+            xc, t_noise, ctx, vec, kw = self._inputs(x, t_noise, cond,
+                                                     frame_shard)
+            hint = cond["control_hint"]
+            if frame_shard is not None:
+                hint = frame_shard.local(hint)
+            control = self._cast_call(
+                self.controlnet, xc, hint.to(self.compute_dtype), t_noise,
+                ctx, vec, **kw)
+            control = [c * self.cfg.control_scales for c in control]
+            return self._cast_call(self.unet, xc, t_noise, ctx, vec, **kw,
+                                   control=control).float()
 
     def apply_unet(self, x: torch.Tensor, t_noise: torch.Tensor,
                    cond: Dict) -> torch.Tensor:
@@ -360,13 +368,15 @@ class SVDEngine(nn.Module):
     def prepare_cond(self, batch: Dict, aug_noise=None,
                      unconditional: bool = False) -> Dict:
         """Per-video batch -> per-frame conditioning with the control
-        hint."""
-        c = self.conditioner()(batch, force_zero=unconditional,
-                               aug_noise=aug_noise)
-        c = repeat_cond_per_frame(c, self.cfg.num_frames,
-                                  keys=("crossattn", "concat", "vector"))
-        c["control_hint"] = batch["control_hint"]   # already per frame
-        return c
+        hint: the span ``engine.cond``."""
+        with telemetry.span("engine.cond"):
+            c = self.conditioner()(batch, force_zero=unconditional,
+                                   aug_noise=aug_noise)
+            c = repeat_cond_per_frame(c, self.cfg.num_frames,
+                                      keys=("crossattn", "concat",
+                                            "vector"))
+            c["control_hint"] = batch["control_hint"]   # already per frame
+            return c
 
 
 def init_engine(cfg: EngineConfig = EngineConfig(), seed: int = 0,

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels as _kernels
+from .. import telemetry
 
 BLOCK = 128                      # T must be a multiple of this
 HEAD_DIMS = tuple(range(16, 129, 16))
@@ -151,7 +152,7 @@ def _launch(q, k, v, heads: int, scale: float, save_lse: bool):
         int(q.dtype == torch.float32), n, heads, t, d, t * hd, hd, d,
         float(scale), _kernels.stream_ptr(q.device))
     _kernels.check(rc, "flash_attn_fwd")
-    _kernels.LAUNCHES["flash_attn_fwd"] += 1
+    telemetry.count("launch.flash_attn_fwd")
     return out, lse
 
 
@@ -186,7 +187,7 @@ def _launch_bwd(q, k, v, o, lse, do, heads: int, scale: float):
         dv.data_ptr(), int(q.dtype == torch.float32), n, heads, t, d,
         t * hd, hd, d, float(scale), _kernels.stream_ptr(q.device))
     _kernels.check(rc, "flash_attn_bwd")
-    _kernels.LAUNCHES["flash_attn_bwd"] += 1
+    telemetry.count("launch.flash_attn_bwd")
     return dq, dk, dv
 
 

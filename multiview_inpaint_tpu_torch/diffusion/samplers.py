@@ -50,6 +50,7 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import telemetry
 from .guiders import IdentityGuider
 
 Draws = Optional[Sequence[torch.Tensor]]
@@ -131,13 +132,15 @@ def gammas(n: int, sigmas, s_churn: float, s_tmin: float,
     """Per-step churn gamma for an ``n``-step ladder, each a 0-dim f32
     tensor on the host (read without a device sync, and a scalar to the
     ladder's device): min(s_churn / max(n - 1, 1), sqrt 2 - 1) in f32 as
-    JAX computes it, 0 outside [s_tmin, s_tmax]."""
+    JAX computes it, 0 outside [s_tmin, s_tmax]. Reading the ladder is
+    one host read (a ``host_read`` span)."""
     g = torch.minimum(torch.tensor(s_churn, dtype=torch.float32)
                       / max(n - 1, 1),
                       torch.tensor(2 ** 0.5 - 1, dtype=torch.float32))
     zero = torch.zeros((), dtype=torch.float32)
-    return [g if s_tmin <= float(s) <= s_tmax else zero
-            for s in sigmas[:-1].tolist()]
+    with telemetry.host_read():
+        ladder = sigmas[:-1].tolist()
+    return [g if s_tmin <= float(s) <= s_tmax else zero for s in ladder]
 
 
 def _churn(x, sigma, gamma, draws, i, generator, s_noise):

@@ -17,6 +17,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..ops.knn import knn_mean_sq_dist
 from ..utils import sh as sh_utils
 from ..utils.device import DEFAULT_DEVICE, resolve_device
@@ -74,8 +75,10 @@ class GaussianParams:
         # schedules; the clamp saturates far above any physical scale.
         # ``minimum`` (not ``clamp``) keeps JAX's gradient: a NaN log-scale
         # gets a NaN gradient, which the train step zeroes and counts.
-        return torch.exp(torch.minimum(self.scaling, torch.tensor(
-            20.0, device=self.scaling.device)))
+        # The bound's copy to the card blocks the host: a host read.
+        with telemetry.host_read():
+            bound = torch.tensor(20.0, device=self.scaling.device)
+        return torch.exp(torch.minimum(self.scaling, bound))
 
     def act_rotation(self) -> torch.Tensor:
         norm = torch.sqrt(torch.sum(self.rotation * self.rotation, dim=-1,

@@ -18,7 +18,8 @@ at run time through ``cudaGetDriverEntryPoint``, so nothing links against
 beside the library as ``<source>.ptxas.txt``; ``ptxas_report`` reads it.
 
 ``LAUNCHES`` counts kernel launches by name: each wrapper adds one where
-it launches its kernel, and nowhere else.
+it launches its kernel, and nowhere else. It is a view of the
+``launch.<kernel>`` counters of ``telemetry``, not a count of its own.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ from pathlib import Path
 
 import torch
 
+from . import telemetry
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -45,8 +48,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 PTXAS_VERBOSE = ("-Xptxas", "-v")   # compile step only
 
-LAUNCHES = {"pair_expand": 0, "composite": 0, "composite_bwd": 0,
-            "flash_attn_fwd": 0, "flash_attn_bwd": 0}
+LAUNCHES = telemetry.LAUNCHES
+reset_launches = telemetry.reset_launches
+LAUNCHES.update(dict.fromkeys(("pair_expand", "composite", "composite_bwd",
+                               "flash_attn_fwd", "flash_attn_bwd"), 0))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -85,11 +90,6 @@ _SIGNATURES = {
 }
 
 _lib = None
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def nvcc_path() -> str:

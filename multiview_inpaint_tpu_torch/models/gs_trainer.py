@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import telemetry
 from ..gs import densify as densify_mod
 from ..gs.densify import DensifyStats
 from ..gs.gaussians import PARAM_FIELDS, GaussianParams
@@ -207,16 +208,18 @@ def apply_adam(state: TrainState, grads: dict, g_offset: torch.Tensor,
     (``g_offset``, the ``means2d_offset`` gradient, with the render's
     ``radii`` and ``visibility``); returns the new state and the count of
     non-finite gradient entries."""
-    p = state.params
-    step = state.step + 1
-    fields = {f: getattr(p, f) for f in PARAM_FIELDS}
-    new_fields, new_mu, new_nu, nonfinite = adam_fields(
-        fields, state.mu, state.nu, grads, p.live, step, cfg,
-        spatial_lr_scale)
-    stats, off_bad = update_stats(state.stats, g_offset, radii, visibility)
-    return TrainState(params=GaussianParams(live=p.live, **new_fields),
-                      mu=new_mu, nu=new_nu, stats=stats,
-                      step=step), nonfinite + off_bad
+    with telemetry.span("trainer.adam"):
+        p = state.params
+        step = state.step + 1
+        fields = {f: getattr(p, f) for f in PARAM_FIELDS}
+        new_fields, new_mu, new_nu, nonfinite = adam_fields(
+            fields, state.mu, state.nu, grads, p.live, step, cfg,
+            spatial_lr_scale)
+        stats, off_bad = update_stats(state.stats, g_offset, radii,
+                                      visibility)
+        return TrainState(params=GaussianParams(live=p.live, **new_fields),
+                          mu=new_mu, nu=new_nu, stats=stats,
+                          step=step), nonfinite + off_bad
 
 
 def train_step(state: TrainState, camera: RenderCamera,
@@ -230,22 +233,31 @@ def train_step(state: TrainState, camera: RenderCamera,
       - "full": photometric on the whole frame;
       - "background": both pred and gt multiplied by (1 - mask)
         (SDS background preservation).
+
+    Spans (``telemetry``): ``trainer.step`` around it all, inside it
+    ``render``, ``trainer.loss``, ``trainer.backward`` and
+    ``trainer.adam``.
     """
-    p = state.params
-    fields, offset = leaves(p)
-    out = render(GaussianParams(live=p.live, **fields), camera, bg_color,
-                 sh_degree=sh_degree, means2d_offset=offset,
-                 device=p.xyz.device)
-    loss, l1 = loss_terms(out.rgb, gt_image, cfg, mask, loss_mode)
-    *g_fields, g_offset = torch.autograd.grad(
-        loss, [fields[f] for f in PARAM_FIELDS] + [offset])
-    new_state, nonfinite = apply_adam(state,
-                                      dict(zip(PARAM_FIELDS, g_fields)),
-                                      g_offset, out.radii, out.visibility,
-                                      cfg, spatial_lr_scale)
-    return new_state, StepMetrics(loss=loss.detach(), l1=l1.detach(),
-                                  num_live=p.live.sum(), pairs=out.pairs,
-                                  nonfinite_grads=nonfinite)
+    with telemetry.span("trainer.step"):
+        p = state.params
+        fields, offset = leaves(p)
+        out = render(GaussianParams(live=p.live, **fields), camera,
+                     bg_color, sh_degree=sh_degree, means2d_offset=offset,
+                     device=p.xyz.device)
+        with telemetry.span("trainer.loss"):
+            loss, l1 = loss_terms(out.rgb, gt_image, cfg, mask, loss_mode)
+        with telemetry.span("trainer.backward"):
+            *g_fields, g_offset = torch.autograd.grad(
+                loss, [fields[f] for f in PARAM_FIELDS] + [offset])
+        new_state, nonfinite = apply_adam(state,
+                                          dict(zip(PARAM_FIELDS, g_fields)),
+                                          g_offset, out.radii,
+                                          out.visibility, cfg,
+                                          spatial_lr_scale)
+        return new_state, StepMetrics(loss=loss.detach(), l1=l1.detach(),
+                                      num_live=p.live.sum(),
+                                      pairs=out.pairs,
+                                      nonfinite_grads=nonfinite)
 
 
 def zero_moments(state: TrainState, row_mask: torch.Tensor,

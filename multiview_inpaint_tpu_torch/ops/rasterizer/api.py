@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ... import telemetry
 from ...gs.gaussians import GaussianParams
 from ...utils.device import DEFAULT_DEVICE, resolve_device
 from . import binning, composite, geometry
@@ -115,47 +116,60 @@ def render(params: GaussianParams, camera: RenderCamera,
     rgb, depth and alpha hold its ``band_rows * tile_h`` rows in local
     order (the caller stitches the bands and crops to the frame), and
     ``pairs`` counts the band's pairs; radii and visibility come from the
-    full projection."""
-    dev = resolve_device(device)
-    params = params.to(dev)
-    camera = camera.to(dev)
-    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
-    if means2d_offset is not None:
-        means2d_offset = means2d_offset.to(dev)
-    tile_h, tile_w = tile
-    tiles_x = -(-camera.width // tile_w)
-    tiles_y_total = -(-camera.height // tile_h)
-    if band_rows is None:
-        tiles_y, row0, stride, out_h = tiles_y_total, None, 1, camera.height
-    else:
-        tiles_y, stride = int(band_rows), int(band_stride)
-        row0 = 0 if band_row0 is None else int(band_row0)
-        out_h = tiles_y * tile_h
+    full projection.
 
-    proj = project(params, camera, sh_degree, scaling_modifier,
-                   means2d_offset)
-    bins = binning.bin_gaussians(
-        proj.means2d.detach(), proj.radius, proj.depth.detach(), tiles_x,
-        tiles_y, tile_w, tile_h, extent=proj.extent, tile_row0=row0,
-        tiles_y_total=tiles_y_total, tile_row_stride=stride)
-    packed = pack_attrs(proj.means2d, proj.conic, proj.opacity, proj.color,
-                        proj.depth)
-    attrs = packed[bins.order[bins.gid_sorted]]            # [P, 16]
-    tiles8 = composite_tiles(attrs, bins.seg_start, bins.counts, tiles_x,
-                             tiles_y, tile_h, tile_w, row0=row0 or 0,
-                             stride=stride)                # [T, 8, PIX]
+    Spans (``telemetry``): ``render`` around it all, inside it
+    ``render.project``, ``render.bin`` (rects, K1, the key sort,
+    segments), ``render.gather`` (the packed attributes in pair order)
+    and ``render.composite`` (K2, background, assembly)."""
+    with telemetry.span("render"):
+        dev = resolve_device(device)
+        params = params.to(dev)
+        camera = camera.to(dev)
+        bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
+        if means2d_offset is not None:
+            means2d_offset = means2d_offset.to(dev)
+        tile_h, tile_w = tile
+        tiles_x = -(-camera.width // tile_w)
+        tiles_y_total = -(-camera.height // tile_h)
+        if band_rows is None:
+            tiles_y, row0, stride = tiles_y_total, None, 1
+            out_h = camera.height
+        else:
+            tiles_y, stride = int(band_rows), int(band_stride)
+            row0 = 0 if band_row0 is None else int(band_row0)
+            out_h = tiles_y * tile_h
 
-    t_fin = tiles8[:, 4, :]
-    tile_rgb = torch.stack([tiles8[:, c, :] + t_fin * bg[c]
-                            for c in range(3)], dim=-1)
-    tile_depth = tiles8[:, 3, :] + t_fin * composite.DEPTH_EMPTY
-    tile_alpha = 1.0 - t_fin
-    size = (tiles_x, tiles_y, tile_w, tile_h, camera.width, out_h)
-    return RenderOutput(rgb=assemble(tile_rgb, *size),
-                        depth=assemble(tile_depth, *size),
-                        alpha=assemble(tile_alpha, *size),
-                        radii=proj.radius, visibility=proj.radius > 0,
-                        pairs=bins.total_pairs)
+        with telemetry.span("render.project"):
+            proj = project(params, camera, sh_degree, scaling_modifier,
+                           means2d_offset)
+        with telemetry.span("render.bin"):
+            bins = binning.bin_gaussians(
+                proj.means2d.detach(), proj.radius, proj.depth.detach(),
+                tiles_x, tiles_y, tile_w, tile_h, extent=proj.extent,
+                tile_row0=row0, tiles_y_total=tiles_y_total,
+                tile_row_stride=stride)
+        with telemetry.span("render.gather"):
+            packed = pack_attrs(proj.means2d, proj.conic, proj.opacity,
+                                proj.color, proj.depth)
+            attrs = packed[bins.order[bins.gid_sorted]]        # [P, 16]
+        with telemetry.span("render.composite"):
+            tiles8 = composite_tiles(attrs, bins.seg_start, bins.counts,
+                                     tiles_x, tiles_y, tile_h, tile_w,
+                                     row0=row0 or 0,
+                                     stride=stride)            # [T, 8, PIX]
+            t_fin = tiles8[:, 4, :]
+            tile_rgb = torch.stack([tiles8[:, c, :] + t_fin * bg[c]
+                                    for c in range(3)], dim=-1)
+            tile_depth = tiles8[:, 3, :] + t_fin * composite.DEPTH_EMPTY
+            tile_alpha = 1.0 - t_fin
+            size = (tiles_x, tiles_y, tile_w, tile_h, camera.width, out_h)
+            return RenderOutput(rgb=assemble(tile_rgb, *size),
+                                depth=assemble(tile_depth, *size),
+                                alpha=assemble(tile_alpha, *size),
+                                radii=proj.radius,
+                                visibility=proj.radius > 0,
+                                pairs=bins.total_pairs)
 
 
 def render_views(params: GaussianParams, cameras, bg_color,

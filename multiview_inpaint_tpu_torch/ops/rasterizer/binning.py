@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ... import telemetry
 from .pair_expand import KEY_SHIFT, expand_keys
 
 
@@ -64,7 +65,9 @@ def compact_rects(means2d: torch.Tensor, radius: torch.Tensor,
                   tiles_y_total: Optional[int] = None,
                   tile_row_stride: int = 1) -> Rects:
     """Steps 1-3 up to K1's inputs. One host sync reads the pair total
-    and the active count (the keys are allocated exactly).
+    and the active count (the keys are allocated exactly): a
+    ``host_read`` span, and the total is added to the ``render.pairs``
+    counter.
 
     With ``tile_row0`` the frame has ``tiles_y_total`` tile rows and the
     rects are cut to the band of ``tiles_y`` rows ``tile_row0 + l *
@@ -101,8 +104,12 @@ def compact_rects(means2d: torch.Tensor, radius: torch.Tensor,
     order = torch.sort(sort_key, stable=True).indices
     count = count[order].to(torch.int64)
     ends = torch.cumsum(count, dim=0)
-    total, n_active = (torch.stack([ends[-1], (count > 0).sum()]).tolist()
-                       if count.numel() else (0, 0))
+    total, n_active = 0, 0
+    if count.numel():
+        with telemetry.host_read():
+            total, n_active = torch.stack([ends[-1],
+                                           (count > 0).sum()]).tolist()
+    telemetry.count("render.pairs", int(total))
     return Rects(order=order, x0=x0[order].contiguous(),
                  y0=y0[order].contiguous(), w=rect_w[order].contiguous(),
                  count=count, starts=ends - count, n_active=int(n_active),
@@ -110,8 +117,11 @@ def compact_rects(means2d: torch.Tensor, radius: torch.Tensor,
 
 
 def segments_from_keys(keys_sorted: torch.Tensor, num_tiles: int):
-    """(counts [T], seg_start [T]) int64 from the sorted pair keys."""
-    counts = torch.bincount(keys_sorted >> KEY_SHIFT, minlength=num_tiles)
+    """(counts [T], seg_start [T]) int64 from the sorted pair keys.
+    ``bincount`` reads the keys' range on the host: a host read."""
+    tiles = keys_sorted >> KEY_SHIFT
+    with telemetry.host_read():
+        counts = torch.bincount(tiles, minlength=num_tiles)
     return counts, torch.cumsum(counts, dim=0) - counts
 
 

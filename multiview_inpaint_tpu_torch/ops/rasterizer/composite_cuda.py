@@ -39,6 +39,7 @@ import functools
 import torch
 
 from ... import kernels as _kernels
+from ... import telemetry
 from .composite import (CHUNK, NROWS, OUT_ROWS, STATE_ROWS, alpha_gate,
                         composite_segments, composite_segments_bwd,
                         item_ends, max_items)
@@ -150,7 +151,7 @@ def _launch(attrs, seg_start, counts, tiles_x, tiles_y, tile_h, tile_w,
                            row0, stride, float(box_shrink),
                            _kernels.stream_ptr(attrs.device))
     _kernels.check(rc, "composite")
-    _kernels.LAUNCHES["composite"] += 1
+    telemetry.count("launch.composite")
     return (out, state) if with_state else out
 
 
@@ -178,7 +179,7 @@ def _launch_bwd(attrs, seg_start, counts, tiles8, g_tiles8, tiles_x,
                                row0, stride,
                                _kernels.stream_ptr(attrs.device))
     _kernels.check(rc, "composite_bwd")
-    _kernels.LAUNCHES["composite_bwd"] += 1
+    telemetry.count("launch.composite_bwd")
     return d_attrs
 
 

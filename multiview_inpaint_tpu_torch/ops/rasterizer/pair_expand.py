@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ... import kernels as _kernels
+from ... import telemetry
 
 KEY_SHIFT = 32  # tile id in the high word, depth rank in the low word
 
@@ -74,5 +75,5 @@ def expand_keys(starts: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
                              tiles_x, keys.data_ptr(),
                              _kernels.stream_ptr(dev))
     _kernels.check(rc, "pair_expand")
-    _kernels.LAUNCHES["pair_expand"] += 1
+    telemetry.count("launch.pair_expand")
     return keys

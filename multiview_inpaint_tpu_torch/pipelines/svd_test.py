@@ -5,7 +5,8 @@ grids.
         --data_root gs [--ctrl_ckpt ctrl.npz|ctrl.pth] \\
         [--base_ckpt svd.npz|svd.safetensors|svd.pth] \\
         [--out gs/inpainted] [--sampling plain|blended|inversion] \\
-        [--dump_latents DIR] [--device cuda|cpu] [--tiny_model]
+        [--dump_latents DIR] [--profile_dir DIR] [--device cuda|cpu] \\
+        [--tiny_model]
     torchrun --nproc_per_node N -m multiview_inpaint_tpu_torch.pipelines.\\
         svd_test --data_root gs --shard_frames
 
@@ -25,7 +26,14 @@ step, into the latents outside its masks (resized to the latent grid by
 inverts those latents up the ladder first and blends the inverted latent
 of each step in, each evaluation one batch of 14 frames (c only).
 ``--dump_latents DIR`` writes every sampler step's latent as ``.npy``
-(``samplers.latent_dump``).
+(``samplers.latent_dump``). ``--profile_dir DIR`` profiles the last item,
+after the others have built and warmed the kernels: its conditioning,
+sampling and decode run under ``torch.profiler`` with the program's spans
+on (``telemetry``: ``engine.cond``, one ``engine.eval`` per guided
+evaluation, ``engine.decode``, and ``host_read`` where the host waits),
+written to ``DIR/trace.json``, the chrome trace, and ``DIR/spans.json``,
+their sums per name (``snapshot``) and the spans one by one
+(``records``).
 
 Weights: ``--base_ckpt`` (UNet, VAE, CLIP) and ``--ctrl_ckpt`` (the
 ControlNet) read the JAX package's npz layout through
@@ -57,6 +65,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import telemetry
 from ..data.svd_dataset import GSVideoForwardDataset
 from ..diffusion import checkpoint as ckpt
 from ..diffusion.engine import EngineConfig, init_engine
@@ -162,6 +171,8 @@ def run(args):
     h8, w8 = args.size[0] // 8, args.size[1] // 8
     for index in range(len(ds)):
         t0 = time.perf_counter()
+        profiler = (telemetry.start_profile(dev) if args.profile_dir
+                    and index == len(ds) - 1 and mesh.rank() == 0 else None)
         scene, ctrl, mode = ds.meta(index)
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in ds[index].items() if k != "num_video_frames"}
@@ -184,6 +195,10 @@ def run(args):
         if mesh.rank() != 0:
             continue
         frames = eng.decode_first_stage(z, timesteps=t).cpu().numpy()
+        if profiler is not None:
+            path = telemetry.write_profile(profiler, args.profile_dir)
+            print(f"profiler trace and spans of item {index + 1} -> {path}, "
+                  f"spans.json", flush=True)
         name = f"samples_gs-{index:06d}_e-000000_b-{index:06d}.png"
         scene_io.save_image(os.path.join(grid_dir, name), to_grid(frames))
         ctrl_name = os.path.splitext(ctrl)[0]
@@ -227,6 +242,9 @@ def main(argv=None):
                    help="debug: write every sampler step's latent as "
                         ".npy under DIR (the reference EDMSampler3's "
                         "np.save affordance, sampling.py:271-354)")
+    p.add_argument("--profile_dir", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the last item's "
+                        "clip, with the program's spans, to DIR")
     p.add_argument("--shard_frames", action="store_true",
                    help="sequence-parallel sampling: shard the clip's "
                         "frames over all devices (largest device count "

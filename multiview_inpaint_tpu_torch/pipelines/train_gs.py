@@ -13,7 +13,10 @@ plus full-state npz (``--checkpoint_iterations`` /
 ``--start_checkpoint``), in the JAX package's npz layout.
 
 ``--profile_dir`` writes a ``torch.profiler`` chrome trace of iterations
-100-109; ``--detect_anomaly`` turns on autograd's anomaly detection.
+100-109 (``trace.json``) with the program's spans on (``telemetry``), so
+that the trace shows them, and ``spans.json`` beside it: their sums per
+name (``snapshot``) and the spans one by one (``records``).
+``--detect_anomaly`` turns on autograd's anomaly detection.
 ``--live_view PORT`` serves a browser live view (``utils.live_view``):
 every ``--live_interval`` iterations the current camera, or the pose the
 browser posted, is rendered and published; other iterations add no host
@@ -34,6 +37,7 @@ import time
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..gs import checkpoint as ckpt_mod
 from ..gs.scene import Scene
 from ..models import gs_trainer
@@ -94,7 +98,7 @@ def train(args) -> None:
             rng.shuffle(stack)
         cam = stack.pop()
         if args.profile_dir and iteration == PROFILE_FROM:
-            profiler = _start_profiler(dev)
+            profiler = telemetry.start_profile(dev)
         if profiler is not None and iteration == PROFILE_TO:
             _stop_profiler(profiler, args.profile_dir, iteration - 1, logger)
             profiler = None
@@ -163,24 +167,10 @@ def _publish(live, cam, state, bg, sh_degree, spatial, dev):
     live.publish(out.rgb.cpu().numpy())
 
 
-def _start_profiler(dev):
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
-    prof.start()
-    return prof
-
-
 def _stop_profiler(prof, profile_dir, last, logger):
-    prof.stop()
-    os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, "trace.json")
-    prof.export_chrome_trace(path)
-    logger.echo(f"profiler trace of iterations {PROFILE_FROM}-{last} -> "
-                f"{path}")
+    path = telemetry.write_profile(prof, profile_dir)
+    logger.echo(f"profiler trace and spans of iterations {PROFILE_FROM}-"
+                f"{last} -> {path}, spans.json")
 
 
 def _report(scene, state, bg, sh_degree, iteration, logger, dev):
