@@ -12,9 +12,10 @@ non-zero:
    phase 7 puts them back to PyTorch's defaults for its own checks);
 2. build the CUDA kernels from ``multiview_inpaint_tpu_torch/csrc``, and
    print each flash kernel's registers, spills (ptxas) and dynamic shared
-   memory, and any ptxas warning or performance note about them, K2's
-   and K3's registers, spills and static shared memory (ptxas), K2's
-   blocks per SM, and K3's blocks per SM and splats per warp reduction;
+   memory, and any ptxas warning or performance note about them, K2's,
+   K3's and K6's registers, spills and static shared memory (ptxas),
+   K2's blocks per SM, and K3's blocks per SM and splats per warp
+   reduction;
 3. K1 (pair keys) against its plain version, bit for bit, on the 1080p
    bench frames of the 100k bench ball and the 2M-gaussian scene;
 4. K2 (composite) against its plain version on the same frames: max
@@ -34,6 +35,13 @@ non-zero:
    per-gaussian gradients after the gather's backward, every pair and
    gaussian within the flip allowance, rows 10-15 exactly 0, bit-equal
    on a second run;
+5b. K6 (the gradient-free projection) on the 2M-gaussian scene in the
+    1080p bench view against its plain version on the card, at SH degree
+    0 (main path 1's params and degree) and at degree 3 (the same with
+    seeded rest coefficients): radius, extent and visibility equal on
+    every row, means2d zero on culled rows, every float within 1e-6
+    relative; kernel and plain ms beside its bytes bound (109 and 289 B
+    a splat);
 6. the port's whole render path on CUDA against its CPU path on a small
    scene, 16x16 and 8x16 tiles: images (rgb 3e-5, depth 3e-4) and the
    gradients of a loss on them, means2d_offset's included (through K3 on
@@ -768,7 +776,7 @@ def phase_build():
         for line in (log.read_text().splitlines() if log.exists() else ()):
             if "warning" in line.lower() or "Performance" in line:
                 print(f"[2 build] {src}: {line.strip()}", flush=True)
-    for src in ("composite.cu", "composite_bwd.cu"):
+    for src in ("composite.cu", "composite_bwd.cu", "project.cu"):
         for name, regs, st, ld, sm in _kernels.ptxas_report(src):
             print(f"[2 build] {name}: {regs} registers, {sm} bytes static "
                   f"shared memory, spill stores {st} B, spill loads {ld} B",
@@ -1143,6 +1151,87 @@ def k3_fault(torch, card, label, k3_args, gid, n_gauss):
              f"against {passed}")
 
 
+def k6_bytes_per_splat(sh_degree):
+    """K6's bytes a splat: xyz 12, the (d+1)^2 SH coefficients used (12
+    each), opacity 4, scale 12, rotation 16 and live 1 read; means2d 8,
+    conic 12, depth 4, radius 4, colour 12, opacity 4 and extent 8
+    written (109 B at degree 0, 289 B at degree 3)."""
+    return (12 + 12 * (sh_degree + 1) ** 2 + 4 + 12 + 16 + 1
+            + 8 + 12 + 4 + 4 + 12 + 4 + 8)
+
+
+K6_REL_TOL = 1e-6
+# Phase 5b's degrees: 0 is main path 1's (the render CLI's default on the
+# big2m PLY, which has no rest coefficients), 3 the full SH stack.
+K6_DEGREES = (0, 3)
+
+
+def k6_verdict(torch, got, want):
+    """K6's ``ProjectedGaussians`` against the plain version's: the rows
+    whose radius, extent or visibility differ, whether means2d is zero on
+    every culled row, and the largest relative error of each float field
+    (0 where equal, NaN where only one side is NaN)."""
+    vis = want.radius > 0
+    rows = {"radius": int((got.radius != want.radius).sum()),
+            "extent": int((got.extent != want.extent).any(-1).sum()),
+            "visible": int(((got.radius > 0) != vis).sum())}
+    rel = {}
+    for f in ("means2d", "conic", "depth", "color", "opacity"):
+        a, b = getattr(got, f), getattr(want, f)
+        same = (a == b) | (a.isnan() & b.isnan())
+        rel[f] = float(torch.where(same, 0.0, (a - b).abs() / b.abs()).max())
+    culled_zero = not bool(got.means2d[~vis].any())
+    return rows, culled_zero, rel
+
+
+def phase_project(torch, card):
+    """Phase 5b: K6 on the 2M-gaussian scene in the 1080p bench view
+    against its plain version on the card, then both timed (CUDA events)
+    beside K6's bytes bound, at each of ``K6_DEGREES``: degree 0 on main
+    path 1's own params (no rest coefficients), degree 3 on the same with
+    seeded rest coefficients. Returns K6's record of the kernels line:
+    the degree-0 numbers at the top, as the launches filled in later are
+    main path 1's at degree 0, and the degree-3 ones under ``sh3``."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (RenderCamera,
+                                                            project_cuda)
+    from multiview_inpaint_tpu_torch.utils import synthetic
+    base = synthetic.make_big_scene(BIG_N, device=DEVICE)
+    cam = RenderCamera.from_camera(synthetic.bench_camera(), DEVICE)
+    records = {}
+    for sh in K6_DEGREES:
+        params = synthetic.with_sh_rest(base, sh) if sh else base
+        with torch.no_grad():
+            got = project_cuda.project(params, cam, sh)
+            want = project_cuda.project_ref(params, cam, sh)
+        rows, culled_zero, rel = k6_verdict(torch, got, want)
+        visible = int((want.radius > 0).sum())
+        del got, want
+        k6_ms = cuda_ms(torch, lambda: project_cuda.project(params, cam, sh),
+                        50)
+        with torch.no_grad():
+            plain_ms = cuda_ms(
+                torch, lambda: project_cuda.project_ref(params, cam, sh), 5)
+        per_splat = k6_bytes_per_splat(sh)
+        bound_ms = BIG_N * per_splat / HBM_BYTES_PER_S * 1e3
+        print(f"[5b K6 big2m SH {sh}] n={BIG_N}, "
+              f"{params.features_rest.shape[1]} rest coefficients, "
+              f"1920x1080, {visible} visible: rows differing {rows} | "
+              f"means2d zero on culled rows {culled_zero} | max relative "
+              f"error {rel} | kernel {k6_ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes, "
+              f"{per_splat} B a splat: {bound_ms / k6_ms:.1%} of HBM) | "
+              f"{card}", flush=True)
+        if any(rows.values()) or not culled_zero or not all(
+                e <= K6_REL_TOL for e in rel.values()):
+            fail(f"K6 disagrees with its plain version on big2m at SH "
+                 f"degree {sh}")
+        records[sh] = dict(max_abs_err=None, max_rel_err=max(rel.values()),
+                           ms=k6_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by="bytes", library_ms=None)
+        del params
+    return dict(sh_degree=0, **records[0], sh3=records[3])
+
+
 def _small_scene(device):
     from multiview_inpaint_tpu_torch.utils import synthetic
     return synthetic.make_gt_gaussians(300, seed=3, spread=1.0,
@@ -1322,9 +1411,7 @@ def phase_main(torch, card):
     cli_s = time.perf_counter() - t0
     launches = dict(_kernels.LAUNCHES)
     n_views = len(names)
-    if launches != {"pair_expand": n_views, "composite": n_views,
-                    "composite_bwd": 0, "flash_attn_fwd": 0,
-                    "flash_attn_bwd": 0}:
+    if launches != _forward_launches(n_views):
         fail(f"main path 1 launches {launches}, expected {n_views} each "
              f"of the forward kernels")
     out_dir = os.path.join(model, "train", "ours_1", "renders")
@@ -1601,6 +1688,7 @@ def phase_train(torch, card, iterations=TRAIN_ITERS, extra=()):
         "K3 once per step": launches["composite_bwd"] == iterations,
         "K1, K2 once per render": launches["composite"]
         == launches["pair_expand"] == iterations + n_eval,
+        "K6 once per evaluation render": launches["project"] == n_eval,
     }
     densify = [{k: r[k] for k in ("step", "cloned", "split", "pruned",
                                   "wanted", "granted")} for r in densified]
@@ -3592,8 +3680,9 @@ def _png_array(path):
 
 
 def _forward_launches(n):
+    """n gradient-free renders: K1, K2 and K6 n times each."""
     return {"pair_expand": n, "composite": n, "composite_bwd": 0,
-            "flash_attn_fwd": 0, "flash_attn_bwd": 0}
+            "flash_attn_fwd": 0, "flash_attn_bwd": 0, "project": n}
 
 
 def phase_gen_seq(torch, card, s):
@@ -3619,7 +3708,7 @@ def phase_gen_seq(torch, card, s):
                             "ours_1")
 
     center = obb.load_obb(s["box"]).center
-    checks = {f"K1 and K2 launched {want} times, K3-K5 0":
+    checks = {f"K1, K2 and K6 launched {want} times, K3-K5 0":
               launches == _forward_launches(want)}
     cover = {}
     for mode in SEQ_MODES:
@@ -3856,7 +3945,7 @@ def phase_stage1_clis(torch, card, s):
         pngs = [os.path.join(d, n) for d in dirs
                 for n in sorted(os.listdir(d))]
         arrs = [_png_array(p) for p in pngs]
-        checks = {f"K1 and K2 launched {want} times, K3-K5 0":
+        checks = {f"K1, K2 and K6 launched {want} times, K3-K5 0":
                   launches == _forward_launches(want),
                   f"{want} PNGs at {shape}": len(arrs) == want and all(
                       a.shape == shape for a in arrs),
@@ -4402,10 +4491,10 @@ def phase_inpaint_rec(torch, card, s, threshold):
     loss_first = statistics.mean(seq_loss[:n]) if seq_loss else 0.0
     loss_last = statistics.mean(seq_loss[-n:]) if seq_loss else 0.0
     checks = {
-        "K1, K2, K3 once per step": launches == {
+        "K1, K2, K3 once per step, K6 never": launches == {
             "pair_expand": REC_ITERS, "composite": REC_ITERS,
             "composite_bwd": REC_ITERS, "flash_attn_fwd": 0,
-            "flash_attn_bwd": 0},
+            "flash_attn_bwd": 0, "project": 0},
         "every step probed": len(probe.steps) == REC_ITERS,
         "seq views' loss falls (first vs last 20)": loss_last < loss_first,
         f"densify ran at {list(range(first, until, every))}":
@@ -4776,10 +4865,10 @@ def phase_sds_step(torch, card, s, sw):
     checks = {
         f"{len(YAWS)} SDS cameras (bds_train views with box masks)":
         len(cams) == len(YAWS),
-        "K1, K2, K3 once, K4 10 times, K5 never":
+        "K1, K2, K3 once, K4 10 times, K5 and K6 never":
         launches == {"pair_expand": 1, "composite": 1, "composite_bwd": 1,
                      "flash_attn_fwd": K4_PER_UNET2D_EVAL,
-                     "flash_attn_bwd": 0},
+                     "flash_attn_bwd": 0, "project": 0},
         "loss finite, no non-finite gradient": bool(
             torch.isfinite(m.loss)) and int(m.nonfinite_grads) == 0,
         "SDS image gradient finite": bool(torch.isfinite(g).all()),
@@ -4861,11 +4950,11 @@ def phase_sds_train(torch, card, s, sw, threshold):
     bg = [r["bg"] for r in steps]
     n = 20
     checks = {
-        "K1-K3 once, K4 10 times per step, K5 never": launches == {
+        "K1-K3 once, K4 10 times per step, K5 and K6 never": launches == {
             "pair_expand": SDS_ITERS, "composite": SDS_ITERS,
             "composite_bwd": SDS_ITERS,
             "flash_attn_fwd": K4_PER_UNET2D_EVAL * SDS_ITERS,
-            "flash_attn_bwd": 0},
+            "flash_attn_bwd": 0, "project": 0},
         "every step logged": len(steps) == SDS_ITERS == len(ms),
         f"background loss falls (steps 1-{n} vs the {n} before the "
         f"densification at {SDS_DENSIFY})": statistics.mean(
@@ -5013,13 +5102,13 @@ def phase_sds_depth(torch, card, s, sds_out):
     pixels = frames * ORBIT_H * ORBIT_W
     checks = {
         "DPT run on every frame": len(dpt_ms) == n,
-        f"gen_seq --sds: K1, K2 {n} times": launches["gen_seq --sds"]
+        f"gen_seq --sds: K1, K2, K6 {n} times": launches["gen_seq --sds"]
         == _forward_launches(n),
         "gen_seq --sds renders not constant": seq_varied,
-        f"gen_depth --dpt_ckpt: K1, K2 {n} times": launches[
+        f"gen_depth --dpt_ckpt: K1, K2, K6 {n} times": launches[
             "gen_depth --dpt_ckpt"] == _forward_launches(n),
         "DPT depth PNGs not constant": dpt_varied,
-        f"gen_depth: K1, K2 {n} times": launches["gen_depth"]
+        f"gen_depth: K1, K2, K6 {n} times": launches["gen_depth"]
         == _forward_launches(n),
         f"disparity equal to the plain K2 route's on all but "
         f"{BAD_FRACTION} of pixels, by at most 1 level": frames == n and (
@@ -5125,7 +5214,7 @@ def phase_ctrl_inpaint(torch, card, s, sw):
         checks[f"{sampler}: K4 {k4} times ({K4_PER_CTRL_EVAL} per "
                f"evaluation), no other kernel"] = r["launches"] == {
             "pair_expand": 0, "composite": 0, "composite_bwd": 0,
-            "flash_attn_fwd": k4, "flash_attn_bwd": 0}
+            "flash_attn_fwd": k4, "flash_attn_bwd": 0, "project": 0}
         checks[f"{sampler}: {r['n']} PNGs at {SDS_SIZE}^2, not constant"] = \
             r["ok"]
     print(f"[35 main ctrl_inpaint] ctrl_inpaint CLI at full width "
@@ -5609,8 +5698,7 @@ def phase_band_frame(torch, card, params):
     del bands
     band_ms = [statistics.median(times[d]) for d in range(BANDS)]
     full_ms = statistics.median(times["full"])
-    want = {"pair_expand": BANDS, "composite": BANDS, "composite_bwd": 0,
-            "flash_attn_fwd": 0, "flash_attn_bwd": 0}
+    want = _forward_launches(BANDS)
     print(f"[41 band frame] big2m ({BIG_N} gaussians) 1920x1080 as "
           f"{BANDS} interleaved bands of {rows} tile rows (stride {stride}):"
           f" stitched equal to the full frame bit for bit {equal} | pairs "
@@ -5781,7 +5869,7 @@ def phase_band_step(torch, card, cell):
     pairs = [b.pairs for b in per]
     want_l = {"pair_expand": BANDS, "composite": BANDS,
               "composite_bwd": BANDS, "flash_attn_fwd": 0,
-              "flash_attn_bwd": 0}
+              "flash_attn_bwd": 0, "project": 0}
 
     times = {"full": []} | {d: [] for d in range(BANDS)}
     for _ in range(3):                      # in turns: full step, bands
@@ -6108,6 +6196,7 @@ def main():
         n = BALL_N if name == "ball100k" else BIG_N
         frames[name] = phase_kernels(torch, card, name,
                                      make(n, device=DEVICE))
+    k6 = phase_project(torch, card)
     phase_path(torch)
     phase_ssim(torch)
     phase_step(torch)
@@ -6227,6 +6316,11 @@ def main():
              launches=launches_train["composite_bwd"], **k3,
              main_path_6=path6("composite_bwd", "K3"),
              main_path_7=path7("composite_bwd", "K3"), band=band_k3),
+        # K6 at big2m in the bench view, SH 0 (main path 1's degree,
+        # whose launches these are) with SH 3 under "sh3".
+        dict(name="project", route="cuda",
+             source="multiview_inpaint_tpu_torch/csrc/project.cu",
+             replaces=None, launches=launches["project"], **k6),
         # K4 at the ds1 shape of main path 3, the path that runs it.
         dict(name="flash_attn_fwd", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/flash_attn_fwd.cu",

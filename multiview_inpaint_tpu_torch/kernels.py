@@ -9,13 +9,15 @@ of the checkout, which is then loaded with ``ctypes``. A stamp of the
 sources, the header and the flags lets later processes reuse the library.
 Every pointer and the stream pass as ``c_void_p``; each C function
 returns ``cudaGetLastError()`` (or an argument error) and ``check`` raises
-on anything but 0. The rasterizer (K1-K3) and the diffusion stack (K4,
-K5; ``flash_attn_common.cuh`` holds their TMA, mbarrier and wgmma
-helpers) share this one build. The flash kernels' TMA tensor maps are
-encoded on the host with the driver's ``cuTensorMapEncodeTiled``, fetched
-at run time through ``cudaGetDriverEntryPoint``, so nothing links against
-``libcuda``. Each source's ``ptxas`` report (registers, spills) is kept
-beside the library as ``<source>.ptxas.txt``; ``ptxas_report`` reads it.
+on anything but 0. The rasterizer (K1-K3), the projection (K6, built with
+``-fmad=false``: ``SOURCE_FLAGS`` holds a source's own flags) and the
+diffusion stack (K4, K5; ``flash_attn_common.cuh`` holds their TMA,
+mbarrier and wgmma helpers) share this one build. The flash kernels' TMA
+tensor maps are encoded on the host with the driver's
+``cuTensorMapEncodeTiled``, fetched at run time through
+``cudaGetDriverEntryPoint``, so nothing links against ``libcuda``. Each
+source's ``ptxas`` report (registers, spills) is kept beside the library
+as ``<source>.ptxas.txt``; ``ptxas_report`` reads it.
 
 ``LAUNCHES`` counts kernel launches by name: each wrapper adds one where
 it launches its kernel, and nowhere else. It is a view of the
@@ -41,17 +43,21 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIB_NAME = "libmvi_kernels.so"
 SOURCES = ("pair_expand.cu", "composite.cu", "composite_bwd.cu",
-           "flash_attn_fwd.cu", "flash_attn_bwd.cu")
+           "flash_attn_fwd.cu", "flash_attn_bwd.cu", "project.cu")
 HEADERS = ("composite_common.cuh", "flash_attn_common.cuh")
 # No --use_fast_math: __expf/__logf would break the 3e-5 parity bar.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+# Flags of one source's compile step. K6 rounds every operation as the
+# plain path's PyTorch ops do, so no multiply and add may fuse.
+SOURCE_FLAGS = {"project.cu": ("-fmad=false",)}
 PTXAS_VERBOSE = ("-Xptxas", "-v")   # compile step only
 
 LAUNCHES = telemetry.LAUNCHES
 reset_launches = telemetry.reset_launches
 LAUNCHES.update(dict.fromkeys(("pair_expand", "composite", "composite_bwd",
-                               "flash_attn_fwd", "flash_attn_bwd"), 0))
+                               "flash_attn_fwd", "flash_attn_bwd",
+                               "project"), 0))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -87,6 +93,12 @@ _SIGNATURES = {
     # K3 at threads per block, int[2] out: blocks per SM, splats per warp
     # reduction
     "mvi_composite_bwd_residency": (_I, _P),
+    # xyz, features_dc, features_rest, opacity, scaling, rotation, live,
+    # world_view, full_proj, campos, n, rest floats a row, SH degree,
+    # width, height, focal x, y, 1.3 tan_fov x, y, scaling modifier;
+    # means2d, conic, depth, radius, color, opacity, extent out; stream
+    "mvi_project": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                    _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P),
 }
 
 _lib = None
@@ -105,6 +117,7 @@ def nvcc_path() -> str:
 
 def _stamp() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for src in SOURCES + HEADERS:
         h.update((CSRC / src).read_bytes())
     return h.hexdigest()
@@ -129,8 +142,8 @@ def build() -> Path:
             obj = os.path.join(work, Path(src).stem + ".o")
             objs.append(obj)
             procs.append(subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, *PTXAS_VERBOSE, "-c", str(CSRC / src),
-                 "-o", obj],
+                [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src, ()),
+                 *PTXAS_VERBOSE, "-c", str(CSRC / src), "-o", obj],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
         errors = []

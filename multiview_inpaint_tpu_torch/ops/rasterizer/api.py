@@ -11,7 +11,9 @@ kernel wrapper takes its plain version, on ``cuda`` it launches its
 kernel. The render is differentiable on both devices: the composite's
 backward is K3 (its plain version on ``cpu``), the gather of the packed
 attributes reduces the pair gradients to gaussians, and autograd carries
-them through the projection (``means2d_offset`` included).
+them through the projection (``means2d_offset`` included), which then
+runs as plain ops. Without a gradient the projection on ``cuda`` is one
+launch of K6 (``project_cuda``).
 
 Band mode (``band_rows``) renders only the tile rows ``band_row0 + l *
 band_stride`` of the frame, l = 0..band_rows-1, for single-frame
@@ -31,9 +33,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from ... import telemetry
-from ...gs.gaussians import GaussianParams
+from ...gs.gaussians import PARAM_FIELDS, GaussianParams
 from ...utils.device import DEFAULT_DEVICE, resolve_device
-from . import binning, composite, geometry
+from . import binning, composite, project_cuda
 from .composite_cuda import composite as composite_tiles
 from .composite_cuda import pack_attrs
 
@@ -88,16 +90,35 @@ def assemble(tiles: torch.Tensor, tiles_x: int, tiles_y: int, tile_w: int,
     return img[:height, :width]
 
 
+def gradient_free(params: GaussianParams, camera: RenderCamera,
+                  means2d_offset: Optional[torch.Tensor] = None) -> bool:
+    """Whether the projection needs no gradient and adds no offset:
+    autograd is off, or no parameter and no camera tensor requires a
+    gradient; and ``means2d_offset`` is None."""
+    if means2d_offset is not None:
+        return False
+    if not torch.is_grad_enabled():
+        return True
+    return not any(t.requires_grad for t in (
+        *(getattr(params, f) for f in PARAM_FIELDS), camera.world_view,
+        camera.full_proj, camera.campos))
+
+
 def project(params: GaussianParams, camera: RenderCamera, sh_degree: int,
             scaling_modifier: float = 1.0,
             means2d_offset: Optional[torch.Tensor] = None):
-    """Activate the params and project them for ``camera``."""
-    return geometry.project_gaussians(
-        params.xyz, params.features(), params.act_opacity()[:, 0],
-        params.act_scaling(), params.act_rotation(), params.live,
-        camera.world_view, camera.full_proj, camera.campos,
-        camera.tan_fovx, camera.tan_fovy, camera.width, camera.height,
-        sh_degree, scaling_modifier, means2d_offset)
+    """Activate the params and project them for ``camera``.
+
+    Where ``gradient_free`` holds, the K6 wrapper
+    (``project_cuda.project``: one launch on CUDA tensors, counted
+    ``launch.project``); otherwise the plain ops, differentiable. Every
+    projection through the plain ops is counted ``project.plain``."""
+    if gradient_free(params, camera, means2d_offset):
+        return project_cuda.project(params, camera, sh_degree,
+                                    scaling_modifier)
+    telemetry.count("project.plain")
+    return project_cuda.project_ref(params, camera, sh_degree,
+                                    scaling_modifier, means2d_offset)
 
 
 def render(params: GaussianParams, camera: RenderCamera,

@@ -20,7 +20,9 @@ its name, so the chrome trace shows it.
 ``count(name, n)`` adds to a counter whether telemetry is on or not. The
 CUDA kernel wrappers count their launches as ``launch.<kernel>``
 (``kernels.LAUNCHES`` is the same table keyed by kernel name); the
-rasterizer counts the pairs it bins as ``render.pairs``.
+rasterizer counts the pairs it bins as ``render.pairs`` and the
+projections it runs as plain ops, where K6 does not engage, as
+``project.plain``.
 
 ``host_read`` spans mark where the host waits for the device: a read of a
 device value (``.tolist()``, ``float(tensor)``) or a blocking copy to the

@@ -8,6 +8,7 @@ packages build the same gaussians; ``device`` says where the tensors go.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -163,6 +164,18 @@ def make_big_scene(n: int, seed: int = 0, scale_lo: float = 0.0015,
     return gaussians.from_arrays(
         xyz, dc, np.zeros((n, 0, 3), np.float32), _logit32(op),
         np.log(scales), _identity_rots(n), device=device)
+
+
+def with_sh_rest(params: gaussians.GaussianParams, degree: int = 3,
+                 seed: int = 1, scale: float = 0.05):
+    """``params`` with seeded SH rest coefficients up to ``degree``
+    (``scale`` times a normal draw on the params' device), so that a
+    projection at that degree has view-dependent colours to evaluate."""
+    dev = params.xyz.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = (degree + 1) ** 2 - 1
+    return dataclasses.replace(params, features_rest=scale * torch.randn(
+        (params.capacity, m, 3), generator=g, device=dev))
 
 
 def make_bench_ball(n: int = 100_000, seed: int = 0, capacity=None,

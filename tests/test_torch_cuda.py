@@ -7,10 +7,14 @@ runs on its own:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+import projection_cases as cases
+from multiview_inpaint_tpu_torch import telemetry
 from multiview_inpaint_tpu_torch.diffusion import flash_attention as fa
 from multiview_inpaint_tpu_torch.gs import cameras, gaussians
 from multiview_inpaint_tpu_torch.ops.rasterizer import (RenderCamera, api,
@@ -75,6 +79,96 @@ def test_cuda_pair_keys_bit_exact():
     assert r.total > 0
     assert torch.equal(pair_expand.expand_keys(*args),
                        pair_expand.expand_keys_ref(*args))
+
+
+def _assert_k6_matches_plain(got, want):
+    """radius, extent and visibility equal; means2d zero on culled rows;
+    the floats within 1e-6 relative (NaN where the plain path has NaN)."""
+    vis = want.radius > 0
+    assert torch.equal(got.radius, want.radius)
+    assert torch.equal(got.extent, want.extent)
+    assert torch.equal(got.radius > 0, vis)
+    assert not got.means2d[~vis].any()
+    for f in ("means2d", "conic", "depth", "color", "opacity"):
+        torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                   rtol=1e-6, atol=0, equal_nan=True,
+                                   msg=f"field {f}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaling_modifier", [1.0, 0.6])
+@pytest.mark.parametrize("sh_degree,max_sh_degree",
+                         [(0, 0), (0, 3), (1, 3), (2, 3), (3, 3)])
+def test_cuda_project_matches_plain(sh_degree, max_sh_degree,
+                                    scaling_modifier):
+    """K6 on the rows of every branch (behind the camera, at the near
+    plane, at the fov clamp, dead, NaN, infinite, log-scale above 20)
+    against its plain version on the card."""
+    _require_cuda()
+    from multiview_inpaint_tpu_torch.ops.rasterizer import project_cuda
+    p = cases.hard_scene(n=5000, max_sh_degree=max_sh_degree,
+                         device="cuda")
+    cam = RenderCamera.from_camera(cases.camera(), "cuda")
+    with torch.no_grad():
+        got = project_cuda.project(p, cam, sh_degree, scaling_modifier)
+        want = project_cuda.project_ref(p, cam, sh_degree, scaling_modifier)
+    assert bool((want.radius > 0).any())
+    _assert_k6_matches_plain(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_project_matches_plain_on_a_bench_frame():
+    """K6 on 200k splats of the bench scene at SH degree 3, 1080p."""
+    _require_cuda()
+    from multiview_inpaint_tpu_torch.ops.rasterizer import project_cuda
+    p = synthetic.with_sh_rest(
+        synthetic.make_big_scene(200_000, device="cuda"), 3)
+    cam = RenderCamera.from_camera(synthetic.bench_camera(), "cuda")
+    with torch.no_grad():
+        got = project_cuda.project(p, cam, 3)
+        want = project_cuda.project_ref(p, cam, 3)
+    _assert_k6_matches_plain(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [False, True], ids=["frame", "band"])
+def test_cuda_render_through_k6_matches_plain_projection(band, monkeypatch):
+    _require_cuda()
+    from multiview_inpaint_tpu_torch.ops.rasterizer import project_cuda
+    p = cases.hard_scene(n=5000, device="cuda")
+    cam = RenderCamera.from_camera(cases.camera(), "cuda")
+    kw = dict(band_rows=2, band_row0=1, band_stride=2) if band else {}
+    with torch.no_grad():
+        a = render(p, cam, BG, sh_degree=3, device="cuda", **kw)
+        monkeypatch.setattr(api, "project", project_cuda.project_ref)
+        b = render(p, cam, BG, sh_degree=3, device="cuda", **kw)
+    assert a.pairs == b.pairs > 0
+    assert torch.equal(a.radii, b.radii)
+    np.testing.assert_allclose(a.rgb.cpu().numpy(), b.rgb.cpu().numpy(),
+                               atol=RGB_TOL)
+    np.testing.assert_allclose(a.depth.cpu().numpy(),
+                               b.depth.cpu().numpy(), atol=DEPTH_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_render_launches_k6_only_without_gradient():
+    _require_cuda()
+    p = cases.hard_scene(n=2000, device="cuda")
+    cam = RenderCamera.from_camera(cases.camera(), "cuda")
+    telemetry.reset()
+    with torch.no_grad():
+        render(p, cam, BG, sh_degree=3, device="cuda")
+    counters = telemetry.snapshot()["counters"]
+    assert counters["launch.project"] == 1
+    assert counters.get("project.plain", 0) == 0
+    telemetry.reset()
+    leaf = dataclasses.replace(p, xyz=p.xyz.clone().requires_grad_(True))
+    out = render(leaf, cam, BG, sh_degree=3, device="cuda")
+    assert out.rgb.requires_grad
+    counters = telemetry.snapshot()["counters"]
+    assert counters["project.plain"] == 1
+    assert counters["launch.project"] == 0
+    telemetry.reset()
 
 
 @pytest.mark.cuda

@@ -45,11 +45,13 @@ def _require_cuda():
 @pytest.fixture(params=[False, True], ids=["spans_off", "spans_on"])
 def audit(request, monkeypatch):
     """``audit(fn)``: ``fn()`` once, then again under the sync debug mode
-    with the mode lifted inside ``host_read`` spans."""
+    with the mode lifted inside ``host_read`` spans; ``audit.reads`` is
+    the number of ``host_read`` spans the audited call entered."""
     _require_cuda()
 
     @contextlib.contextmanager
     def lifted():
+        run.reads += 1
         torch.cuda.set_sync_debug_mode(0)
         try:
             yield
@@ -64,6 +66,7 @@ def audit(request, monkeypatch):
     def run(fn):
         fn()
         torch.cuda.synchronize()
+        run.reads = 0
         torch.cuda.set_sync_debug_mode("error")
         try:
             return fn()
@@ -71,6 +74,7 @@ def audit(request, monkeypatch):
             torch.cuda.set_sync_debug_mode(0)
             torch.cuda.synchronize()
 
+    run.reads = 0
     yield run
     telemetry.disable()
     telemetry.reset()
@@ -105,6 +109,9 @@ def test_render_waits_only_in_host_reads(splats, audit):
         out = audit(lambda: api.render(p, cam, bg, sh_degree=SH_DEGREE,
                                        device="cuda"))
     assert out.pairs > 0
+    # The binning's two (the pair total, the tile histogram's range); the
+    # projection, one K6 launch, waits for nothing.
+    assert audit.reads == 2
 
 
 @pytest.mark.cuda
