@@ -17,7 +17,6 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from .. import telemetry
 from ..ops.knn import knn_mean_sq_dist
 from ..utils import sh as sh_utils
 from ..utils.device import DEFAULT_DEVICE, resolve_device
@@ -75,9 +74,9 @@ class GaussianParams:
         # schedules; the clamp saturates far above any physical scale.
         # ``minimum`` (not ``clamp``) keeps JAX's gradient: a NaN log-scale
         # gets a NaN gradient, which the train step zeroes and counts.
-        # The bound's copy to the card blocks the host: a host read.
-        with telemetry.host_read():
-            bound = torch.tensor(20.0, device=self.scaling.device)
+        # The bound is filled on the device: a host value copied to the
+        # card would make the host wait for the queue to drain.
+        bound = self.scaling.new_full((), 20.0)
         return torch.exp(torch.minimum(self.scaling, bound))
 
     def act_rotation(self) -> torch.Tensor:

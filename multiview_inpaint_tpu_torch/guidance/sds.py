@@ -22,6 +22,12 @@ self-attention takes the flash-attention forward without its backward.
 The draws come from a ``torch.Generator`` (JAX's ``jax.random`` keys
 cannot be reproduced); ``train_step`` takes ``t`` and ``noise`` as given
 instead, so that tests can pass JAX's draws in.
+
+Spans (``telemetry``): ``sds.encode`` around each of the step's two
+encodes (the differentiable one and the masked one), ``sds.prior``
+around each CFG evaluation (``_eps_cfg``, counted as
+``sds.prior_evals``), and ``host_read`` where, on a device's first
+step, the schedule is copied to the card.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from .. import telemetry
 from ..diffusion.edm import ddpm_alphas_cumprod
 
 
@@ -56,12 +63,15 @@ def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
     """[..., H, W] -> [..., h, w] as ``jax.image.resize(..., "nearest")``:
     output pixel i samples input floor((i + 0.5) in / out), computed in
     f32 as JAX computes it (half-pixel centres, torch's
-    ``nearest-exact``)."""
+    ``nearest-exact``). The indices are made on ``x``'s device, so the
+    host waits on no copy; ``n`` divides as a tensor, since CUDA turns a
+    division by a host scalar into a product with its reciprocal."""
     for axis, n in ((-2, size[0]), (-1, size[1])):
         m = x.shape[axis]
         if m != n:
-            idx = torch.floor((torch.arange(n, dtype=torch.float32) + 0.5)
-                              * m / n).long().to(x.device)
+            i = torch.arange(n, dtype=torch.float32, device=x.device)
+            den = torch.full((), n, dtype=torch.float32, device=x.device)
+            idx = torch.floor((i + 0.5) * m / den).long()
             x = torch.index_select(x, x.dim() + axis, idx)
     return x
 
@@ -88,18 +98,21 @@ class SDSGuidance:
     def acp(self, device) -> torch.Tensor:
         device = torch.device(device)
         if device not in self._acp:
-            self._acp[device] = self.cfg.schedule.alphas_cumprod(device)
+            with telemetry.host_read():  # the first call's copy to the card
+                self._acp[device] = self.cfg.schedule.alphas_cumprod(device)
         return self._acp[device]
 
     def _eps_cfg(self, x9, t, text_embs):
         """text_embs [2, L, D] = (uncond, cond); CFG at guidance_scale."""
-        b = x9.shape[0]
-        x2 = torch.cat([x9, x9], dim=0)
-        t2 = torch.cat([t, t], dim=0)
-        emb = torch.cat([text_embs[0:1].expand(b, -1, -1),
-                         text_embs[1:2].expand(b, -1, -1)], dim=0)
-        eps_u, eps_c = self.eps_model(x2, t2, emb).chunk(2, dim=0)
-        return eps_u + self.cfg.guidance_scale * (eps_c - eps_u)
+        telemetry.count("sds.prior_evals")
+        with telemetry.span("sds.prior"):
+            b = x9.shape[0]
+            x2 = torch.cat([x9, x9], dim=0)
+            t2 = torch.cat([t, t], dim=0)
+            emb = torch.cat([text_embs[0:1].expand(b, -1, -1),
+                             text_embs[1:2].expand(b, -1, -1)], dim=0)
+            eps_u, eps_c = self.eps_model(x2, t2, emb).chunk(2, dim=0)
+            return eps_u + self.cfg.guidance_scale * (eps_c - eps_u)
 
     def t_bounds(self) -> Tuple[int, int]:
         n = self.cfg.schedule.num_steps
@@ -119,11 +132,12 @@ class SDSGuidance:
         gradient."""
         dev = image.device
         img = image[None]
-        latents = self.vae_encode(img)
+        with telemetry.span("sds.encode"):
+            latents = self.vae_encode(img)
         h, w = latents.shape[1:3]
         mask_l = resize_nearest(mask, (h, w))[None, :, :, None]
         keep = 1.0 - mask[None, ..., None]
-        with torch.no_grad():
+        with torch.no_grad(), telemetry.span("sds.encode"):
             masked_latents = self.vae_encode(img * keep)
         if t is None:
             tmin, tmax = self.t_bounds()

@@ -14,6 +14,10 @@ and the VAE encoder. Then the grouped Adam of ``gs_trainer`` (eps
 The Adam update is ``gs_trainer.apply_adam``: the JAX step repeats the
 same Adam inline, except that it does not zero and count non-finite
 gradient entries; the two agree whenever the gradients are finite.
+
+Spans (``telemetry``): ``sds.step`` around it all; inside it ``render``,
+the guidance's ``sds.encode`` (twice) and ``sds.prior``, ``sds.backward``
+around ``torch.autograd.grad`` and ``sds.adam`` around ``apply_adam``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import telemetry
 from ..diffusion.clip_vit import resize_bilinear
 from ..gs.gaussians import PARAM_FIELDS, GaussianParams
 from ..guidance.sds import resize_nearest
@@ -51,25 +56,28 @@ def sds_train_step(state: TrainState, camera: RenderCamera,
     ``mask`` [H, W] (1 = the object's region); ``guidance`` an
     ``SDSGuidance``; its draws come from ``generator`` unless ``t`` and
     ``noise`` are given."""
-    p = state.params
-    fields, offset = leaves(p)
-    out = render(GaussianParams(live=p.live, **fields), camera, bg_color,
-                 sh_degree=sh_degree, means2d_offset=offset,
-                 device=p.xyz.device)
-    bg, _ = loss_terms(out.rgb, gt_image, cfg, mask, "background")
-    zero = torch.zeros((), device=out.rgb.device)
-    clipped = torch.minimum(torch.maximum(out.rgb, zero), zero + 1.0)
-    img = resize_bilinear(clipped[None], (sds_size, sds_size))[0]
-    mask_s = resize_nearest(mask, (sds_size, sds_size))
-    sds = guidance.train_step(img, mask_s, text_embs, generator=generator,
-                              t=t, noise=noise)
-    total = bg + sds_weight * sds
-    *g_fields, g_offset = torch.autograd.grad(
-        total, [fields[f] for f in PARAM_FIELDS] + [offset])
-    new_state, nonfinite = apply_adam(state,
-                                      dict(zip(PARAM_FIELDS, g_fields)),
-                                      g_offset, out.radii, out.visibility,
-                                      cfg, spatial_lr_scale)
-    return new_state, SDSMetrics(loss=total.detach(), bg_loss=bg.detach(),
-                                 sds_loss=sds.detach(), pairs=out.pairs,
-                                 nonfinite_grads=nonfinite)
+    with telemetry.span("sds.step"):
+        p = state.params
+        fields, offset = leaves(p)
+        out = render(GaussianParams(live=p.live, **fields), camera, bg_color,
+                     sh_degree=sh_degree, means2d_offset=offset,
+                     device=p.xyz.device)
+        bg, _ = loss_terms(out.rgb, gt_image, cfg, mask, "background")
+        zero = torch.zeros((), device=out.rgb.device)
+        clipped = torch.minimum(torch.maximum(out.rgb, zero), zero + 1.0)
+        img = resize_bilinear(clipped[None], (sds_size, sds_size))[0]
+        mask_s = resize_nearest(mask, (sds_size, sds_size))
+        sds = guidance.train_step(img, mask_s, text_embs,
+                                  generator=generator, t=t, noise=noise)
+        total = bg + sds_weight * sds
+        with telemetry.span("sds.backward"):
+            *g_fields, g_offset = torch.autograd.grad(
+                total, [fields[f] for f in PARAM_FIELDS] + [offset])
+        with telemetry.span("sds.adam"):
+            new_state, nonfinite = apply_adam(
+                state, dict(zip(PARAM_FIELDS, g_fields)), g_offset,
+                out.radii, out.visibility, cfg, spatial_lr_scale)
+        return new_state, SDSMetrics(loss=total.detach(),
+                                     bg_loss=bg.detach(),
+                                     sds_loss=sds.detach(), pairs=out.pairs,
+                                     nonfinite_grads=nonfinite)

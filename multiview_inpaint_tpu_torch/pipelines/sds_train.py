@@ -22,6 +22,13 @@ trains the background loss alone.
         -m output_sds/<scene>_<case> --bg_model output/<scene> \\
         --sd_ckpt sd2_inpaint.ckpt --text_embs embs.npy [--device cuda|cpu]
 
+``--profile_dir DIR`` writes a ``torch.profiler`` chrome trace of
+iterations 100-109 (``trace.json``) with the program's spans on
+(``telemetry``: ``sds.step`` and inside it ``render``, ``sds.encode``
+twice, ``sds.prior``, ``sds.backward``, ``sds.adam``), and
+``spans.json`` beside it: their sums per name (``snapshot``) and the
+spans one by one (``records``).
+
 The JAX CLI's TPU knobs (``--backend``, ``--max_per_tile``,
 ``--pair_budget_mult``) and its pair-budget growth are gone, as in the
 port's ``train_gs``: the port's pair count is exact. The box samples, the
@@ -37,6 +44,7 @@ import random
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..diffusion import checkpoint
 from ..gs import gaussians as g_mod
 from ..gs import obb as obb_mod
@@ -50,15 +58,14 @@ from ..utils.logging import RunLogger
 from . import common
 
 LATENT_SCALE = 0.18215
+PROFILE_FROM, PROFILE_TO = 100, 110
 
 
 def build_guidance(args, device):
     """``SDSGuidance`` on the SD-2-inpainting UNet2D and the 2D VAE (f32,
-    on ``device``, no gradients kept for their weights) with the weights
-    of ``--sd_ckpt``."""
+    on ``device``) with the weights of ``--sd_ckpt``."""
     from ..diffusion.unet2d import UNet2D, UNet2DConfig
     from ..diffusion.vae import AutoencoderKL, VAEConfig
-    from ..guidance.sds import SDSConfig, SDSGuidance
 
     unet = UNet2D(UNet2DConfig(), device=device)
     vae = AutoencoderKL(VAEConfig(), video_decoder=False, device=device)
@@ -69,6 +76,16 @@ def build_guidance(args, device):
                                          checkpoint.PREFIXES["vae"])
     del sd
     print(f"sd import: unet missing {len(m1)}, vae missing {len(m2)}")
+    return make_guidance(unet, vae, args.guidance_scale)
+
+
+def make_guidance(unet, vae, guidance_scale: float):
+    """``SDSGuidance`` on ``unet`` (the eps model) and ``vae`` (images in
+    [0, 1] mapped to [-1, 1], the posterior's mode scaled by
+    ``LATENT_SCALE``), both set to eval with no gradients kept for their
+    weights."""
+    from ..guidance.sds import SDSConfig, SDSGuidance
+
     unet.eval().requires_grad_(False)
     vae.eval().requires_grad_(False)
 
@@ -82,7 +99,7 @@ def build_guidance(args, device):
         return (vae.decode(z / LATENT_SCALE) + 1) / 2
 
     return SDSGuidance(eps_model, vae_encode, vae_decode,
-                       SDSConfig(guidance_scale=args.guidance_scale))
+                       SDSConfig(guidance_scale=guidance_scale))
 
 
 def _tensor(a, dev) -> torch.Tensor:
@@ -118,11 +135,17 @@ def train(args):
     sds_gen = torch.Generator(device=dev).manual_seed(1)
     rng = random.Random(0)
     stack = []
+    profiler = None
     for iteration in range(1, cfg.iterations + 1):
         if not stack:
             stack = list(cams)
             rng.shuffle(stack)
         cam = stack.pop()
+        if args.profile_dir and iteration == PROFILE_FROM:
+            profiler = telemetry.start_profile(dev)
+        if profiler is not None and iteration == PROFILE_TO:
+            _stop_profiler(profiler, args.profile_dir, iteration - 1, logger)
+            profiler = None
         rcam = RenderCamera.from_camera(cam, dev)
         gt = _tensor(cam.image, dev)
         m = _tensor(cam.mask, dev)
@@ -155,7 +178,15 @@ def train(args):
                                 "point_cloud.ply")
             g_mod.save_ply(state.params, path)
             logger.echo(f"[ITER {iteration}] saved {path}")
+    if profiler is not None:
+        _stop_profiler(profiler, args.profile_dir, cfg.iterations, logger)
     logger.close()
+
+
+def _stop_profiler(prof, profile_dir, last, logger):
+    path = telemetry.write_profile(prof, profile_dir)
+    logger.echo(f"profiler trace and spans of iterations {PROFILE_FROM}-"
+                f"{last} -> {path}, spans.json")
 
 
 def main(argv=None):
@@ -178,6 +209,10 @@ def main(argv=None):
     parser.add_argument("--save_iterations", nargs="+", type=int,
                         default=[5000])
     parser.add_argument("--log_interval", type=int, default=50)
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help=f"write a torch.profiler trace of iterations "
+                             f"{PROFILE_FROM}-{PROFILE_TO - 1} to this "
+                             f"directory")
     common.add_device_arg(parser)
     args = parser.parse_args(argv)
     common.apply_registry(args)

@@ -1,4 +1,4 @@
-"""Every host wait on the device along the three hot program paths sits
+"""Every host wait on the device along the four hot program paths sits
 in a ``host_read`` span, so that span's host time is all of the host's
 waiting there.
 
@@ -15,7 +15,11 @@ lifted only inside ``telemetry.host_read`` spans:
 - a clip of the SVD-XT engine with its ControlNet at full width, weights
   in bfloat16 and computing in bfloat16: 14 frames at 512x384, the
   conditioning of c and uc, two Euler steps at the CFG batch of 28 with
-  K4 on the long self-attention, and the temporal decode.
+  K4 on the long self-attention, and the temporal decode;
+- an SDS step (``sds_trainer.sds_train_step``) on those splats in that
+  view, with the SD-2-inpainting prior at full width in float32 (the
+  UNet2D at the CFG batch of 2 with K4, the KL encoder forward and
+  backward at 512x512), its draws from a generator as ``sds_train``'s.
 
 Each unit runs once before it is audited (kernel build, first
 allocations), and with telemetry off and on (device events). Marked
@@ -129,6 +133,8 @@ def test_train_step_waits_only_in_host_reads(splats, audit):
         return m
 
     assert audit(step).pairs > 0
+    # the binning's two; the clamp bound of the scales is made on the card
+    assert audit.reads == 2
 
 
 @pytest.fixture(scope="module")
@@ -169,3 +175,42 @@ def test_svd_clip_waits_only_in_host_reads(svd_engine, audit):
         frames = audit(clip)
     assert frames.shape == (t, h, w, 3)
     assert torch.isfinite(frames).all()
+
+
+@pytest.fixture(scope="module")
+def sds_prior():
+    _require_cuda()
+    from multiview_inpaint_tpu_torch.diffusion.unet2d import (UNet2D,
+                                                              UNet2DConfig)
+    from multiview_inpaint_tpu_torch.diffusion.vae import (AutoencoderKL,
+                                                           VAEConfig)
+    from multiview_inpaint_tpu_torch.pipelines.sds_train import make_guidance
+    torch.manual_seed(0)
+    return make_guidance(UNet2D(UNet2DConfig(), device="cuda"),
+                         AutoencoderKL(VAEConfig(), video_decoder=False,
+                                       device="cuda"), 100.0)
+
+
+@pytest.mark.cuda
+def test_sds_step_waits_only_in_host_reads(splats, sds_prior, audit):
+    from multiview_inpaint_tpu_torch.models import sds_trainer
+    p, cam = splats
+    bg = torch.zeros(3, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    gt = torch.rand((HEIGHT, WIDTH, 3), generator=g, device="cuda")
+    mask = torch.zeros((HEIGHT, WIDTH), device="cuda")
+    mask[340:740, 760:1160] = 1.0
+    embs = torch.randn((2, 77, 1024), generator=g, device="cuda")
+    state = {"s": gs_trainer.init_state(p)}
+
+    def step():
+        state["s"], m = sds_trainer.sds_train_step(
+            state["s"], cam, gt, mask, bg, gs_trainer.INPAINT_OPT,
+            sds_prior, embs, spatial_lr_scale=3.0, sh_degree=SH_DEGREE,
+            generator=g)
+        return m
+
+    assert audit(step).pairs > 0
+    # the render's two (the pair total, the tile histogram's range); the
+    # mask's nearest resizes make their indices on the card
+    assert audit.reads == 2

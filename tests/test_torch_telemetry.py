@@ -22,9 +22,9 @@ from multiview_inpaint_tpu_torch.ops.rasterizer import RenderCamera, render
 BG = [0.1, 0.2, 0.3]
 RENDER_PARTS = ["render.project", "render.bin", "render.gather",
                 "render.composite"]
-# The spans of a render's host waits: the clamp bound's copy to the card
-# (``act_scaling``), the pair total and active count, the tile histogram.
-HOST_READS = ["render.project", "render.bin", "render.bin"]
+# The spans of a render's host waits: the pair total and active count,
+# the tile histogram.
+HOST_READS = ["render.bin", "render.bin"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -243,6 +243,52 @@ def test_sample_gives_one_eval_per_step():
     assert snap["spans"]["engine.eval"]["count"] == steps
     assert snap["spans"]["engine.eval"]["read_ms"] == 0.0
     assert snap["units"] == len(roots)
+
+
+def test_sds_step_gives_its_layers():
+    """A tiny SDS step: one ``sds.step`` holding the render, the two
+    encodes, one CFG evaluation (counted), the backward and Adam."""
+    from multiview_inpaint_tpu_torch.diffusion.unet2d import (UNet2D,
+                                                              UNet2DConfig)
+    from multiview_inpaint_tpu_torch.diffusion.vae import (AutoencoderKL,
+                                                           VAEConfig)
+    from multiview_inpaint_tpu_torch.models import sds_trainer
+    from multiview_inpaint_tpu_torch.pipelines.sds_train import make_guidance
+    torch.manual_seed(0)
+    guidance = make_guidance(
+        UNet2D(UNet2DConfig(model_channels=32, num_res_blocks=1,
+                            attention_resolutions=(1,), channel_mult=(1, 2),
+                            num_head_channels=16, context_dim=16)),
+        AutoencoderKL(VAEConfig(ch=16, num_res_blocks=1),
+                      video_decoder=False), 100.0)
+    g = torch.Generator().manual_seed(4)
+    gt = torch.rand(48, 64, 3, generator=g)
+    mask = torch.zeros(48, 64)
+    mask[12:36, 16:48] = 1.0
+    state = gs_trainer.init_state(_scene())
+    telemetry.enable()
+    state, m = sds_trainer.sds_train_step(
+        state, _camera(), gt, mask, BG, gs_trainer.INPAINT_OPT, guidance,
+        torch.randn(2, 5, 16, generator=g), sds_size=32, generator=g)
+    recs = telemetry.records()
+    roots = [i for i, r in enumerate(recs) if r["parent"] == -1]
+    assert [recs[i]["name"] for i in roots] == ["sds.step"]
+    # a host read on the first step alone: the schedule's copy to the
+    # device
+    assert _children(recs, roots[0]) == [
+        "render", "sds.encode", "sds.encode", "host_read", "sds.prior",
+        "sds.backward", "sds.adam"]
+    adam = next(i for i, r in enumerate(recs) if r["name"] == "sds.adam")
+    assert _children(recs, adam) == ["trainer.adam"]
+    snap = telemetry.snapshot()
+    counts = {k: v["count"] for k, v in snap["spans"].items()}
+    assert {k: counts[k] for k in ("sds.step", "sds.encode", "sds.prior",
+                                   "sds.backward", "sds.adam")} == {
+        "sds.step": 1, "sds.encode": 2, "sds.prior": 1, "sds.backward": 1,
+        "sds.adam": 1}
+    assert snap["counters"]["sds.prior_evals"] == 1
+    assert snap["units"] == 1
+    assert torch.isfinite(m.loss) and float(m.sds_loss) > 0
 
 
 def test_launches_are_the_launch_counters():
