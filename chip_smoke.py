@@ -13,7 +13,7 @@ non-zero:
 2. build the CUDA kernels from ``multiview_inpaint_tpu_torch/csrc``, and
    print each flash kernel's registers, spills (ptxas) and dynamic shared
    memory, and any ptxas warning or performance note about them, K2's,
-   K3's and K6's registers, spills and static shared memory (ptxas),
+   K3's, K6's and K7's registers, spills and static shared memory (ptxas),
    K2's blocks per SM, and K3's blocks per SM and splats per warp
    reduction;
 3. K1 (pair keys) against its plain version, bit for bit, on the 1080p
@@ -42,6 +42,13 @@ non-zero:
     every row, means2d zero on culled rows, every float within 1e-6
     relative; kernel and plain ms beside its bytes bound (109 and 289 B
     a splat);
+5c. K7 (the projection's backward) on that scene and view at SH degree
+    3, its cotangents columns of one packed [N, 16] gradient, against
+    its plain version on the card: culled rows 0, NaN where the plain
+    version has NaN, every finite gradient within 1e-5 of its field's
+    largest; kernel and plain ms beside its bytes bound (524 B a splat),
+    and the projection's forward and backward through the plain ops with
+    autograd (the grad path before K7) against K6 and K7;
 6. the port's whole render path on CUDA against its CPU path on a small
    scene, 16x16 and 8x16 tiles: images (rgb 3e-5, depth 3e-4) and the
    gradients of a loss on them, means2d_offset's included (through K3 on
@@ -72,8 +79,8 @@ non-zero:
     ``train_gs`` CLI for 60 iterations in a
     buffer a little larger than the init, counters zeroed before and read
     after: loss falls, densify ran twice and wrote rows, the capacity
-    grew, PLY and npz written, no non-finite gradient, K3 launched once
-    per step;
+    grew, PLY and npz written, no non-finite gradient, K3 and K7 launched
+    once per step, K6 once per step and per evaluation render;
 11. the train step at full width: the 2M-gaussian bench ball in a
     2,097,152-row buffer at 512x384, median ms/step over 10 steps after
     2 warm-up steps (CUDA events), the split of the real step into render
@@ -257,8 +264,8 @@ non-zero:
     split and peak memory; the 51 cameras per epoch; the densification
     threshold (a quantile of the seq step's screen-space gradients);
 29. the ``inpaint_rec`` CLI, 400 steps with densification at steps 50,
-    100 and 150, counters zeroed before and read after: K1, K2 and K3
-    launched once per step, the inpainted views' loss falls (first vs
+    100 and 150, counters zeroed before and read after: K1, K2, K3, K6
+    and K7 launched once per step, the inpainted views' loss falls (first vs
     last 20 of them), densify wrote rows, no non-finite gradient, the PLY
     written and loaded, the masked PSNR of the seq views inside the SAM
     masks above the initial state's by 1 dB; median step ms per view kind
@@ -278,15 +285,15 @@ non-zero:
     its plain version under the step's own cotangent (the background
     loss's plus the SDS gradient through the VAE encoder and the 1080p ->
     512^2 resize), K1 and K2 with the per-item state against theirs,
-    K1-K3 once and K4 10 times and K5 never, the SDS image gradient
+    K1-K3, K6 and K7 once, K4 10 times and K5 never, the SDS image gradient
     finite and non-zero inside the mask, peak memory, and the step's
     device ms beside its parts run alone (``sds_split``: render forward,
     VAE encode forward and backward, CFG UNet, Adam; the rest is the
     render backward, the losses and resizes); the densification
     threshold (a quantile of this step's gradients);
 33. the ``sds_train`` CLI with the ``.ckpt`` and the embeddings, 60 steps
-    on the 4 bds_train views, densifying at step 50: K1-K3 once and K4 10
-    times per step, K5 never, the background loss of the 20 steps before
+    on the 4 bds_train views, densifying at step 50: K1-K3, K6 and K7 once
+    and K4 10 times per step, K5 never, the background loss of the 20 steps before
     the densification below the first 20's and finite after it, no
     non-finite gradient, the PLY written and loaded, median step ms and
     peak memory;
@@ -776,7 +783,8 @@ def phase_build():
         for line in (log.read_text().splitlines() if log.exists() else ()):
             if "warning" in line.lower() or "Performance" in line:
                 print(f"[2 build] {src}: {line.strip()}", flush=True)
-    for src in ("composite.cu", "composite_bwd.cu", "project.cu"):
+    for src in ("composite.cu", "composite_bwd.cu", "project.cu",
+                "project_bwd.cu"):
         for name, regs, st, ld, sm in _kernels.ptxas_report(src):
             print(f"[2 build] {name}: {regs} registers, {sm} bytes static "
                   f"shared memory, spill stores {st} B, spill loads {ld} B",
@@ -1230,6 +1238,106 @@ def phase_project(torch, card):
                            bound_by="bytes", library_ms=None)
         del params
     return dict(sh_degree=0, **records[0], sh3=records[3])
+
+
+def k7_bytes_per_splat(sh_degree):
+    """K7's bytes a splat: the parameters K6 reads less live (xyz 12,
+    the (d+1)^2 SH coefficients used 12 each, opacity 4, scale 12,
+    rotation 16), the radius 4 and the 10 cotangents 40 read; their
+    gradients and the offset's 8 written (524 B at degree 3)."""
+    params = 12 + 12 * (sh_degree + 1) ** 2 + 4 + 12 + 16
+    return params + 4 + 40 + params + 8
+
+
+# K7 against its plain version: every finite entry of a visible row
+# within K7_RTOL of its own size plus K7_ATOL of its field's largest.
+K7_RTOL = 1e-4
+K7_ATOL = 1e-5
+K7_DEGREE = 3
+
+
+def phase_project_bwd(torch, card):
+    """Phase 5c: K7 on the 2M-gaussian scene in the 1080p bench view at
+    SH degree 3, its rotations seeded normal quaternions and its
+    log-scales spread by seeded normal draws (so that every term of the
+    rotation and scale chains is live), the cotangents columns of one
+    seeded packed gradient, against its plain version on the card; culled
+    rows zero, NaN where the plain version's, finite entries within
+    K7_RTOL plus K7_ATOL of the field's largest; K7 and the plain version
+    timed (CUDA events) beside K7's bytes bound; then the projection's
+    forward and backward through the plain ops with autograd against K6
+    and K7 (``project_grad``). Returns K7's record of the kernels line."""
+    from multiview_inpaint_tpu_torch.gs.gaussians import PARAM_FIELDS
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (RenderCamera,
+                                                            project_cuda)
+    from multiview_inpaint_tpu_torch.utils import synthetic
+    sh = K7_DEGREE
+    params = synthetic.with_sh_rest(synthetic.make_big_scene(
+        BIG_N, device=DEVICE), sh)
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    params = dataclasses.replace(
+        params, rotation=torch.randn((BIG_N, 4), generator=g,
+                                     device=DEVICE),
+        scaling=params.scaling + 0.5 * torch.randn(
+            (BIG_N, 3), generator=g, device=DEVICE))
+    cam = RenderCamera.from_camera(synthetic.bench_camera(), DEVICE)
+    with torch.no_grad():
+        proj = project_cuda.project(params, cam, sh)
+    vis = proj.radius > 0
+    packed = torch.randn((BIG_N, 16), generator=g, device=DEVICE) \
+        * vis[:, None]
+    cots = [packed[:, 0:2], packed[:, 2:5], packed[:, 9], packed[:, 6:9],
+            packed[:, 5]]
+    args = (params, cam, sh, 1.0, proj.radius, cots)
+    got = project_cuda.project_bwd(*args)
+    want = project_cuda.project_bwd_ref(*args)
+    rel, culled_zero, nan_same, close = {}, True, True, True
+    for f, a, b in zip(got._fields, got, want):
+        culled_zero = culled_zero and not a[~vis].any()
+        nan_same = nan_same and torch.equal(a.isnan(), b.isnan())
+        rows = vis.reshape((BIG_N,) + (1,) * (b.dim() - 1))
+        fin = torch.isfinite(b) & rows
+        x, y = a[fin], b[fin]
+        top = y.abs().max().clamp(min=1e-30)
+        rel[f] = float((x - y).abs().max() / top)
+        close = close and bool(((x - y).abs()
+                                <= K7_RTOL * y.abs() + K7_ATOL * top).all())
+    del got, want
+    k7_ms = cuda_ms(torch, lambda: project_cuda.project_bwd(*args), 50)
+    plain_ms = cuda_ms(torch, lambda: project_cuda.project_bwd_ref(*args),
+                       5)
+
+    def forward_backward(project):
+        leaves = {f: getattr(params, f).detach().requires_grad_(True)
+                  for f in PARAM_FIELDS}
+        offset = torch.zeros((BIG_N, 2), device=DEVICE, requires_grad=True)
+        out = project(dataclasses.replace(params, **leaves), cam, sh, 1.0,
+                      offset)
+        torch.autograd.grad([out.means2d, out.conic, out.depth, out.color,
+                             out.opacity], [*leaves.values(), offset], cots)
+
+    autograd_ms = cuda_ms(torch, lambda: forward_backward(
+        project_cuda.project_ref), 5)
+    fused_ms = cuda_ms(torch, lambda: forward_backward(
+        project_cuda.project_grad), 20)
+    per_splat = k7_bytes_per_splat(sh)
+    bound_ms = BIG_N * per_splat / HBM_BYTES_PER_S * 1e3
+    print(f"[5c K7 big2m SH {sh}] n={BIG_N}, 1920x1080, {int(vis.sum())} "
+          f"visible: culled rows zero {culled_zero} | NaN where the plain "
+          f"version's {nan_same} | within {K7_RTOL} relative plus "
+          f"{K7_ATOL} of the field's largest {close} | max error over the "
+          f"field's largest {rel} | kernel {k7_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms (bytes, {per_splat} B a splat: "
+          f"{bound_ms / k7_ms:.1%} of HBM) | projection forward and "
+          f"backward: plain ops with autograd {autograd_ms:.3f} ms, K6 + "
+          f"K7 {fused_ms:.3f} ms | {card}", flush=True)
+    if not (culled_zero and nan_same and close):
+        fail(f"K7 disagrees with its plain version on big2m at SH degree "
+             f"{sh}")
+    return dict(sh_degree=sh, max_abs_err=None,
+                max_rel_err=max(rel.values()), ms=k7_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+                autograd_path_ms=autograd_ms, k6_k7_path_ms=fused_ms)
 
 
 def _small_scene(device):
@@ -1688,7 +1796,9 @@ def phase_train(torch, card, iterations=TRAIN_ITERS, extra=()):
         "K3 once per step": launches["composite_bwd"] == iterations,
         "K1, K2 once per render": launches["composite"]
         == launches["pair_expand"] == iterations + n_eval,
-        "K6 once per evaluation render": launches["project"] == n_eval,
+        "K6 once per step and evaluation render, K7 once per step":
+        launches["project"] == iterations + n_eval
+        and launches["project_bwd"] == iterations,
     }
     densify = [{k: r[k] for k in ("step", "cloned", "split", "pruned",
                                   "wanted", "granted")} for r in densified]
@@ -3682,7 +3792,8 @@ def _png_array(path):
 def _forward_launches(n):
     """n gradient-free renders: K1, K2 and K6 n times each."""
     return {"pair_expand": n, "composite": n, "composite_bwd": 0,
-            "flash_attn_fwd": 0, "flash_attn_bwd": 0, "project": n}
+            "flash_attn_fwd": 0, "flash_attn_bwd": 0, "project": n,
+            "project_bwd": 0}
 
 
 def phase_gen_seq(torch, card, s):
@@ -4491,10 +4602,11 @@ def phase_inpaint_rec(torch, card, s, threshold):
     loss_first = statistics.mean(seq_loss[:n]) if seq_loss else 0.0
     loss_last = statistics.mean(seq_loss[-n:]) if seq_loss else 0.0
     checks = {
-        "K1, K2, K3 once per step, K6 never": launches == {
+        "K1, K2, K3, K6, K7 once per step": launches == {
             "pair_expand": REC_ITERS, "composite": REC_ITERS,
             "composite_bwd": REC_ITERS, "flash_attn_fwd": 0,
-            "flash_attn_bwd": 0, "project": 0},
+            "flash_attn_bwd": 0, "project": REC_ITERS,
+            "project_bwd": REC_ITERS},
         "every step probed": len(probe.steps) == REC_ITERS,
         "seq views' loss falls (first vs last 20)": loss_last < loss_first,
         f"densify ran at {list(range(first, until, every))}":
@@ -4865,10 +4977,10 @@ def phase_sds_step(torch, card, s, sw):
     checks = {
         f"{len(YAWS)} SDS cameras (bds_train views with box masks)":
         len(cams) == len(YAWS),
-        "K1, K2, K3 once, K4 10 times, K5 and K6 never":
+        "K1, K2, K3, K6, K7 once, K4 10 times, K5 never":
         launches == {"pair_expand": 1, "composite": 1, "composite_bwd": 1,
                      "flash_attn_fwd": K4_PER_UNET2D_EVAL,
-                     "flash_attn_bwd": 0, "project": 0},
+                     "flash_attn_bwd": 0, "project": 1, "project_bwd": 1},
         "loss finite, no non-finite gradient": bool(
             torch.isfinite(m.loss)) and int(m.nonfinite_grads) == 0,
         "SDS image gradient finite": bool(torch.isfinite(g).all()),
@@ -4950,11 +5062,12 @@ def phase_sds_train(torch, card, s, sw, threshold):
     bg = [r["bg"] for r in steps]
     n = 20
     checks = {
-        "K1-K3 once, K4 10 times per step, K5 and K6 never": launches == {
+        "K1-K3, K6, K7 once, K4 10 times per step, K5 never": launches == {
             "pair_expand": SDS_ITERS, "composite": SDS_ITERS,
             "composite_bwd": SDS_ITERS,
             "flash_attn_fwd": K4_PER_UNET2D_EVAL * SDS_ITERS,
-            "flash_attn_bwd": 0, "project": 0},
+            "flash_attn_bwd": 0, "project": SDS_ITERS,
+            "project_bwd": SDS_ITERS},
         "every step logged": len(steps) == SDS_ITERS == len(ms),
         f"background loss falls (steps 1-{n} vs the {n} before the "
         f"densification at {SDS_DENSIFY})": statistics.mean(
@@ -5214,7 +5327,8 @@ def phase_ctrl_inpaint(torch, card, s, sw):
         checks[f"{sampler}: K4 {k4} times ({K4_PER_CTRL_EVAL} per "
                f"evaluation), no other kernel"] = r["launches"] == {
             "pair_expand": 0, "composite": 0, "composite_bwd": 0,
-            "flash_attn_fwd": k4, "flash_attn_bwd": 0, "project": 0}
+            "flash_attn_fwd": k4, "flash_attn_bwd": 0, "project": 0,
+            "project_bwd": 0}
         checks[f"{sampler}: {r['n']} PNGs at {SDS_SIZE}^2, not constant"] = \
             r["ok"]
     print(f"[35 main ctrl_inpaint] ctrl_inpaint CLI at full width "
@@ -5869,7 +5983,7 @@ def phase_band_step(torch, card, cell):
     pairs = [b.pairs for b in per]
     want_l = {"pair_expand": BANDS, "composite": BANDS,
               "composite_bwd": BANDS, "flash_attn_fwd": 0,
-              "flash_attn_bwd": 0, "project": 0}
+              "flash_attn_bwd": 0, "project": BANDS, "project_bwd": BANDS}
 
     times = {"full": []} | {d: [] for d in range(BANDS)}
     for _ in range(3):                      # in turns: full step, bands
@@ -6197,6 +6311,7 @@ def main():
         frames[name] = phase_kernels(torch, card, name,
                                      make(n, device=DEVICE))
     k6 = phase_project(torch, card)
+    k7 = phase_project_bwd(torch, card)
     phase_path(torch)
     phase_ssim(torch)
     phase_step(torch)
@@ -6321,6 +6436,11 @@ def main():
         dict(name="project", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/project.cu",
              replaces=None, launches=launches["project"], **k6),
+        # K7 at big2m in the bench view, SH 3; the launches of main path
+        # 2, one a step.
+        dict(name="project_bwd", route="cuda",
+             source="multiview_inpaint_tpu_torch/csrc/project_bwd.cu",
+             replaces=None, launches=launches_train["project_bwd"], **k7),
         # K4 at the ds1 shape of main path 3, the path that runs it.
         dict(name="flash_attn_fwd", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/flash_attn_fwd.cu",

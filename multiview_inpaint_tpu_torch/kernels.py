@@ -9,15 +9,15 @@ of the checkout, which is then loaded with ``ctypes``. A stamp of the
 sources, the header and the flags lets later processes reuse the library.
 Every pointer and the stream pass as ``c_void_p``; each C function
 returns ``cudaGetLastError()`` (or an argument error) and ``check`` raises
-on anything but 0. The rasterizer (K1-K3), the projection (K6, built with
-``-fmad=false``: ``SOURCE_FLAGS`` holds a source's own flags) and the
-diffusion stack (K4, K5; ``flash_attn_common.cuh`` holds their TMA,
-mbarrier and wgmma helpers) share this one build. The flash kernels' TMA
-tensor maps are encoded on the host with the driver's
-``cuTensorMapEncodeTiled``, fetched at run time through
-``cudaGetDriverEntryPoint``, so nothing links against ``libcuda``. Each
-source's ``ptxas`` report (registers, spills) is kept beside the library
-as ``<source>.ptxas.txt``; ``ptxas_report`` reads it.
+on anything but 0. The rasterizer (K1-K3), the projection (K6 and its
+backward K7, built with ``-fmad=false``: ``SOURCE_FLAGS`` holds a
+source's own flags) and the diffusion stack (K4, K5;
+``flash_attn_common.cuh`` holds their TMA, mbarrier and wgmma helpers)
+share this one build. The flash kernels' TMA tensor maps are encoded on
+the host with the driver's ``cuTensorMapEncodeTiled``, fetched at run
+time through ``cudaGetDriverEntryPoint``, so nothing links against
+``libcuda``. Each source's ``ptxas`` report (registers, spills) is kept
+beside the library as ``<source>.ptxas.txt``; ``ptxas_report`` reads it.
 
 ``LAUNCHES`` counts kernel launches by name: each wrapper adds one where
 it launches its kernel, and nowhere else. It is a view of the
@@ -43,21 +43,25 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIB_NAME = "libmvi_kernels.so"
 SOURCES = ("pair_expand.cu", "composite.cu", "composite_bwd.cu",
-           "flash_attn_fwd.cu", "flash_attn_bwd.cu", "project.cu")
+           "flash_attn_fwd.cu", "flash_attn_bwd.cu", "project.cu",
+           "project_bwd.cu")
 HEADERS = ("composite_common.cuh", "flash_attn_common.cuh")
 # No --use_fast_math: __expf/__logf would break the 3e-5 parity bar.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # Flags of one source's compile step. K6 rounds every operation as the
-# plain path's PyTorch ops do, so no multiply and add may fuse.
-SOURCE_FLAGS = {"project.cu": ("-fmad=false",)}
+# plain path's PyTorch ops do, so no multiply and add may fuse; K7
+# recomputes K6's forward to the bit, so that its clamps and the
+# colour's cut at 0 take the sides the forward took.
+SOURCE_FLAGS = {"project.cu": ("-fmad=false",),
+                "project_bwd.cu": ("-fmad=false",)}
 PTXAS_VERBOSE = ("-Xptxas", "-v")   # compile step only
 
 LAUNCHES = telemetry.LAUNCHES
 reset_launches = telemetry.reset_launches
 LAUNCHES.update(dict.fromkeys(("pair_expand", "composite", "composite_bwd",
                                "flash_attn_fwd", "flash_attn_bwd",
-                               "project"), 0))
+                               "project", "project_bwd"), 0))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -99,6 +103,15 @@ _SIGNATURES = {
     # means2d, conic, depth, radius, color, opacity, extent out; stream
     "mvi_project": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                     _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P),
+    # xyz, features_dc, features_rest, opacity, scaling, rotation, radius,
+    # world_view, full_proj, campos, then mvi_project's n .. scaling
+    # modifier; the cotangents of means2d, conic, depth, color and
+    # opacity, each (or NULL) with its row stride in floats; the
+    # gradients of the six fields and of means2d_offset (or NULL) out;
+    # stream
+    "mvi_project_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _F, _F, _F, _F, _F, _F, _F, _P, _L, _P, _L, _P, _L,
+                        _P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P),
 }
 
 _lib = None

@@ -11,9 +11,11 @@ kernel wrapper takes its plain version, on ``cuda`` it launches its
 kernel. The render is differentiable on both devices: the composite's
 backward is K3 (its plain version on ``cpu``), the gather of the packed
 attributes reduces the pair gradients to gaussians, and autograd carries
-them through the projection (``means2d_offset`` included), which then
-runs as plain ops. Without a gradient the projection on ``cuda`` is one
-launch of K6 (``project_cuda``).
+them through the projection (``means2d_offset`` included). On ``cuda``
+the projection is one launch of K6 (``project_cuda``) and its backward
+one launch of K7; on ``cpu`` both run their plain versions. A camera's
+gradient, which K7 does not write, is taken on ``cpu`` alone, through
+the plain ops.
 
 Band mode (``band_rows``) renders only the tile rows ``band_row0 + l *
 band_stride`` of the frame, l = 0..band_rows-1, for single-frame
@@ -33,7 +35,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ... import telemetry
-from ...gs.gaussians import PARAM_FIELDS, GaussianParams
+from ...gs.gaussians import GaussianParams
 from ...utils.device import DEFAULT_DEVICE, resolve_device
 from . import binning, composite, project_cuda
 from .composite_cuda import composite as composite_tiles
@@ -90,18 +92,10 @@ def assemble(tiles: torch.Tensor, tiles_x: int, tiles_y: int, tile_w: int,
     return img[:height, :width]
 
 
-def gradient_free(params: GaussianParams, camera: RenderCamera,
-                  means2d_offset: Optional[torch.Tensor] = None) -> bool:
-    """Whether the projection needs no gradient and adds no offset:
-    autograd is off, or no parameter and no camera tensor requires a
-    gradient; and ``means2d_offset`` is None."""
-    if means2d_offset is not None:
-        return False
-    if not torch.is_grad_enabled():
-        return True
-    return not any(t.requires_grad for t in (
-        *(getattr(params, f) for f in PARAM_FIELDS), camera.world_view,
-        camera.full_proj, camera.campos))
+def camera_grad(camera: RenderCamera) -> bool:
+    """Whether autograd is on and a camera tensor requires a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in (
+        camera.world_view, camera.full_proj, camera.campos))
 
 
 def project(params: GaussianParams, camera: RenderCamera, sh_degree: int,
@@ -109,16 +103,24 @@ def project(params: GaussianParams, camera: RenderCamera, sh_degree: int,
             means2d_offset: Optional[torch.Tensor] = None):
     """Activate the params and project them for ``camera``.
 
-    Where ``gradient_free`` holds, the K6 wrapper
-    (``project_cuda.project``: one launch on CUDA tensors, counted
-    ``launch.project``); otherwise the plain ops, differentiable. Every
-    projection through the plain ops is counted ``project.plain``."""
-    if gradient_free(params, camera, means2d_offset):
-        return project_cuda.project(params, camera, sh_degree,
-                                    scaling_modifier)
-    telemetry.count("project.plain")
-    return project_cuda.project_ref(params, camera, sh_degree,
-                                    scaling_modifier, means2d_offset)
+    ``project_cuda.project_grad``: K6 forward (counted ``launch.project``)
+    and, where the params or ``means2d_offset`` need a gradient, K7
+    backward (counted ``launch.project_bwd``) on CUDA tensors; their plain
+    versions on CPU tensors (counted ``project.plain``). K7 writes no
+    gradient for the camera: where a camera tensor requires one, CPU
+    tensors take the plain ops, differentiable (counted
+    ``project.plain``), and any other device raises."""
+    if camera_grad(camera):
+        if params.xyz.device.type != "cpu":
+            raise ValueError(
+                "project: a camera tensor requires a gradient, which K7 "
+                f"does not write; on {params.xyz.device} detach the "
+                "camera, or project on the CPU")
+        telemetry.count("project.plain")
+        return project_cuda.project_ref(params, camera, sh_degree,
+                                        scaling_modifier, means2d_offset)
+    return project_cuda.project_grad(params, camera, sh_degree,
+                                     scaling_modifier, means2d_offset)
 
 
 def render(params: GaussianParams, camera: RenderCamera,

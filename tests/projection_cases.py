@@ -3,13 +3,17 @@ that hold the projection kernel (K6) against its plain version: rows in
 front of the camera and behind it, at the near plane, beyond the 1.3
 tan-fov clamp and in the camera's plane, dead rows, rows with NaN or
 infinite parameters (the non-finite quarantine), log-scales above the
-clamp at 20, a zero quaternion and opacities at both ends. Imports torch
-and the port only.
+clamp at 20, a zero quaternion and opacities at both ends; and, for the
+tests of the projection's backward (K7), that scene with a log-scale at
+the clamp's bound exactly and seeded cotangents on its visible rows.
+Imports torch and the port only.
 """
 
 import numpy as np
+import torch
 
 from multiview_inpaint_tpu_torch.gs import cameras, gaussians
+from multiview_inpaint_tpu_torch.ops.rasterizer import project_cuda
 
 WIDTH, HEIGHT = 96, 64
 
@@ -54,3 +58,36 @@ def hard_scene(n=2000, max_sh_degree=3, seed=0, device="cpu"):
         capacity=n + 16, device=device)
     p.live[13] = False                      # a dead row among live ones
     return p
+
+
+def grad_scene(n=500, max_sh_degree=3, seed=0, device="cpu"):
+    """``hard_scene`` with a log-scale at the clamp's bound, 20, where
+    ``torch.minimum`` splits its gradient in halves: on row 15, whose
+    long axis points along the view a hair off its centre line, so that
+    it covers about a pixel and its covariance stays well conditioned,
+    and on row 16, among random rows; and row 17 at view depth 1 with
+    x / z on the 1.3 tan-fov clamp's bound exactly, where
+    ``torch.clamp`` passes the gradient."""
+    p = hard_scene(n=n, max_sh_degree=max_sh_degree, seed=seed,
+                   device=device)
+    p.xyz[15] = torch.tensor([1e-9, 0.0, 0.0])
+    p.scaling[15] = torch.tensor([-3.0, -3.0, 20.0])
+    p.rotation[15] = torch.tensor([1.0, 0.0, 0.0, 0.0])
+    p.scaling[16, 0] = 20.0
+    p.xyz[17] = torch.tensor([float(np.float32(
+        1.3 * camera().tan_half_fovx)), 0.1, -3.0])
+    return p
+
+
+def cotangents(proj, seed=0):
+    """Seeded normal cotangents of (means2d, conic, depth, color,
+    opacity), zero on the rows the projection culled: the render gives
+    those no cotangent."""
+    vis = proj.radius > 0
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for _, k in project_cuda.COTANGENTS:
+        shape = (vis.shape[0], k) if k > 1 else (vis.shape[0],)
+        c = torch.randn(shape, generator=g).to(vis.device)
+        out.append(c * (vis[:, None] if k > 1 else vis))
+    return out

@@ -152,6 +152,9 @@ def test_cuda_render_through_k6_matches_plain_projection(band, monkeypatch):
 
 @pytest.mark.cuda
 def test_cuda_render_launches_k6_only_without_gradient():
+    """K6 once in every render on the card, K7 once in a backward, never
+    the plain ops; a camera tensor that needs a gradient, which K7 does
+    not write, is refused."""
     _require_cuda()
     p = cases.hard_scene(n=2000, device="cuda")
     cam = RenderCamera.from_camera(cases.camera(), "cuda")
@@ -165,10 +168,124 @@ def test_cuda_render_launches_k6_only_without_gradient():
     leaf = dataclasses.replace(p, xyz=p.xyz.clone().requires_grad_(True))
     out = render(leaf, cam, BG, sh_degree=3, device="cuda")
     assert out.rgb.requires_grad
+    out.rgb.sum().backward()
     counters = telemetry.snapshot()["counters"]
-    assert counters["project.plain"] == 1
-    assert counters["launch.project"] == 0
+    assert counters.get("project.plain", 0) == 0
+    assert counters["launch.project"] == counters["launch.project_bwd"] == 1
     telemetry.reset()
+    moving = dataclasses.replace(
+        cam, world_view=cam.world_view.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="camera tensor requires"):
+        render(leaf, moving, BG, sh_degree=3, device="cuda")
+    counters = telemetry.snapshot()["counters"]
+    assert counters.get("project.plain", 0) == 0
+    assert counters.get("launch.project", 0) == 0
+    telemetry.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [False, True], ids=["plain", "offset"])
+def test_cuda_render_frame_bit_equal_with_and_without_gradient(offset):
+    """The grad path's forward is K6's launch: a render with leaves (and a
+    zero offset) gives the gradient-free frame bit for bit."""
+    _require_cuda()
+    p = synthetic.with_sh_rest(
+        synthetic.make_big_scene(200_000, device="cuda"), 3)
+    cam = RenderCamera.from_camera(synthetic.bench_camera(), "cuda")
+    with torch.no_grad():
+        want = render(p, cam, BG, sh_degree=3, device="cuda")
+    leaf = dataclasses.replace(p, **{
+        f: getattr(p, f).clone().requires_grad_(True)
+        for f in ("xyz", "features_rest", "scaling")})
+    off = (torch.zeros((p.capacity, 2), device="cuda", requires_grad=True)
+           if offset else None)
+    got = render(leaf, cam, BG, sh_degree=3, means2d_offset=off,
+                 device="cuda")
+    assert got.pairs == want.pairs > 0
+    for f in ("rgb", "depth", "alpha", "radii"):
+        assert torch.equal(getattr(got, f).detach(), getattr(want, f)), f
+
+
+def _packed_cotangents(proj, seed=0):
+    """The cotangents as column views of one [N, 16] buffer, as the packed
+    attributes' gradient hands them to the projection."""
+    g = torch.Generator(device=proj.radius.device).manual_seed(seed)
+    vis = (proj.radius > 0)[:, None]
+    buf = torch.randn((proj.radius.shape[0], 16), generator=g,
+                      device=proj.radius.device) * vis
+    return [buf[:, 0:2], buf[:, 2:5], buf[:, 9], buf[:, 6:9], buf[:, 5]]
+
+
+def _assert_k7_matches_plain(got, want, vis, apart=()):
+    """Culled rows 0; NaN where the plain version has NaN; finite entries
+    within 1e-5 of the field's largest and 1e-4 relative, the rows
+    ``apart`` (``grad_scene``'s row at a scale of e^20) each held to its
+    own largest entry."""
+    alone = torch.zeros_like(vis)
+    alone[list(apart)] = True
+    groups = [vis & ~alone] + [vis & (torch.arange(vis.shape[0],
+                                                   device=vis.device) == r)
+                               for r in apart]
+    for f, a, b in zip(got._fields, got, want):
+        if b is None:
+            assert a is None, f
+            continue
+        assert not a[~vis].any() and not b[~vis].any(), f
+        for rows in groups:
+            x, y = a[rows], b[rows]
+            assert torch.equal(torch.isnan(x), torch.isnan(y)), f
+            fin = torch.isfinite(y)
+            if y.numel() == 0 or not fin.any():
+                continue
+            bar = 1e-5 * float(y[fin].abs().max())
+            torch.testing.assert_close(x[fin], y[fin], rtol=1e-4, atol=bar,
+                                       msg=f"field {f}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["own", "packed"])
+@pytest.mark.parametrize("scaling_modifier", [1.0, 0.6])
+@pytest.mark.parametrize("sh_degree,max_sh_degree",
+                         [(0, 0), (0, 3), (1, 3), (2, 3), (3, 3)])
+def test_cuda_project_bwd_matches_plain(sh_degree, max_sh_degree,
+                                        scaling_modifier, packed):
+    """K7 on the rows of every branch (``projection_cases.grad_scene``)
+    against its plain version on the card, the cotangents in tensors of
+    their own or as strided columns of the packed gradient."""
+    _require_cuda()
+    from multiview_inpaint_tpu_torch.ops.rasterizer import project_cuda
+    p = cases.grad_scene(n=5000, max_sh_degree=max_sh_degree,
+                         device="cuda")
+    cam = RenderCamera.from_camera(cases.camera(), "cuda")
+    with torch.no_grad():
+        proj = project_cuda.project(p, cam, sh_degree, scaling_modifier)
+    cots = _packed_cotangents(proj) if packed else cases.cotangents(proj)
+    args = (p, cam, sh_degree, scaling_modifier, proj.radius, cots)
+    got = project_cuda.project_bwd(*args)
+    want = project_cuda.project_bwd_ref(*args)
+    vis = proj.radius > 0
+    assert bool(vis[[15, 17]].all())
+    _assert_k7_matches_plain(got, want, vis, apart=(15,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,sh_degree", [(2_000_000, 3), (100_000, 0)],
+                         ids=["big2m_sh3", "100k_sh0"])
+def test_cuda_project_bwd_matches_plain_on_a_bench_frame(n, sh_degree):
+    """K7 on the bench scene in its 1080p view, with the offset's
+    gradient, against its plain version."""
+    _require_cuda()
+    from multiview_inpaint_tpu_torch.ops.rasterizer import project_cuda
+    p = synthetic.make_big_scene(n, device="cuda")
+    if sh_degree:
+        p = synthetic.with_sh_rest(p, sh_degree)
+    cam = RenderCamera.from_camera(synthetic.bench_camera(), "cuda")
+    with torch.no_grad():
+        proj = project_cuda.project(p, cam, sh_degree)
+    args = (p, cam, sh_degree, 1.0, proj.radius, _packed_cotangents(proj))
+    got = project_cuda.project_bwd(*args)
+    want = project_cuda.project_bwd_ref(*args)
+    _assert_k7_matches_plain(got, want, proj.radius > 0)
 
 
 @pytest.mark.cuda
@@ -455,6 +572,110 @@ def test_cuda_train_step_matches_cpu_train_step():
     assert float((b.stats.grad_accum.cpu() - a.stats.grad_accum)
                  .abs().max()) <= bar
     assert torch.equal(b.stats.max_radii2d.cpu(), a.stats.max_radii2d)
+
+
+def _grad_step_inputs(device):
+    """An SH-3 scene of 2,000 anisotropic, rotated splats, a 96x64 view
+    and its target, the first step's state."""
+    from multiview_inpaint_tpu_torch.models import gs_trainer
+    scene = synthetic.with_sh_rest(synthetic.make_gt_gaussians(
+        2000, seed=3, spread=1.0, device=device), 3)
+    g = torch.Generator(device=device).manual_seed(4)
+    scene = dataclasses.replace(
+        scene, rotation=torch.randn(scene.rotation.shape, generator=g,
+                                    device=device),
+        scaling=scene.scaling + 0.5 * torch.randn(
+            scene.scaling.shape, generator=g, device=device))
+    cam = cameras.make_camera(0, np.eye(3), np.array([0.0, 0.0, 3.0]),
+                              fovx=0.9, fovy=0.7, width=96, height=64)
+    gt = torch.rand((64, 96, 3), generator=g, device=device)
+    return (gs_trainer.init_state(scene), RenderCamera.from_camera(cam,
+                                                                  device),
+            gt)
+
+
+def _steps_through_k7_and_plain(monkeypatch, step):
+    """``step()`` with the projection through K6 and K7, then through the
+    plain ops on the card; each with its counters."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import project_cuda
+
+    def plain(*args):
+        telemetry.count("project.plain")
+        return project_cuda.project_ref(*args)
+
+    runs = []
+    for kernel in (True, False):
+        if not kernel:
+            monkeypatch.setattr(project_cuda, "project_grad", plain)
+        telemetry.reset()
+        runs.append((*step(), telemetry.snapshot()["counters"]))
+    telemetry.reset()
+    (fused, m_fused, c_fused), (plain, m_plain, c_plain) = runs
+    assert c_fused["launch.project_bwd"] == 1
+    assert c_fused.get("project.plain", 0) == 0
+    assert c_plain["project.plain"] == 1
+    assert c_plain.get("launch.project_bwd", 0) == 0
+    assert float(m_fused.loss) == float(m_plain.loss)
+    assert int(m_fused.nonfinite_grads) <= int(m_plain.nonfinite_grads)
+    for f in ("xyz", "features_dc", "features_rest", "opacity", "scaling",
+              "rotation"):
+        a, b = fused.mu[f] / 0.1, plain.mu[f] / 0.1   # the gradients
+        fin = torch.isfinite(b)
+        bar = 1e-5 * float(b[fin].abs().max())
+        assert float((a - b)[fin].abs().max()) <= bar, f
+    bar = 1e-5 * float(plain.stats.grad_accum.abs().max())
+    assert float((fused.stats.grad_accum - plain.stats.grad_accum)
+                 .abs().max()) <= bar
+    assert torch.equal(fused.stats.max_radii2d, plain.stats.max_radii2d)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_through_k7_matches_plain_projection(monkeypatch):
+    _require_cuda()
+    from multiview_inpaint_tpu_torch.models import gs_trainer
+    state, cam, gt = _grad_step_inputs("cuda")
+    bg = torch.tensor(BG, device="cuda")
+    _steps_through_k7_and_plain(monkeypatch, lambda: gs_trainer.train_step(
+        state, cam, gt, bg, gs_trainer.OptimizationConfig(), 1.0,
+        sh_degree=3))
+
+
+@pytest.mark.cuda
+def test_cuda_sds_step_through_k7_matches_plain_projection(monkeypatch):
+    """The SDS step with a prior of an identity VAE and an eps of a point
+    mass at a disk (no network), its draws fixed."""
+    _require_cuda()
+    from multiview_inpaint_tpu_torch.guidance import sds
+    from multiview_inpaint_tpu_torch.models import gs_trainer, sds_trainer
+    state, cam, gt = _grad_step_inputs("cuda")
+    size = 32
+    yy, xx = torch.meshgrid(torch.arange(size), torch.arange(size),
+                            indexing="ij")
+    disk = (((yy - size / 2) ** 2 + (xx - size / 2) ** 2)
+            < (size * 0.3) ** 2).float().cuda()
+    latent = torch.cat([torch.stack([disk] * 3, -1) * 0.9 + 0.05,
+                        torch.zeros((size, size, 1), device="cuda")], -1)
+    acp = sds.DDPMSchedule().alphas_cumprod().cuda()
+
+    def eps(x9, t, emb):
+        a = acp[t.long()].reshape(-1, 1, 1, 1)
+        return (x9[..., :4] - torch.sqrt(a) * latent) / torch.sqrt(1.0 - a)
+
+    guidance = sds.SDSGuidance(
+        eps, lambda img: torch.cat([img, img[..., :1] * 0], -1),
+        lambda z: z[..., :3], sds.SDSConfig(guidance_scale=100.0))
+    mask = torch.zeros((64, 96), device="cuda")
+    mask[16:48, 24:72] = 1.0
+    g = torch.Generator(device="cuda").manual_seed(5)
+    t = torch.tensor([500], device="cuda")
+    noise = torch.randn((1, size, size, 4), generator=g, device="cuda")
+    _steps_through_k7_and_plain(
+        monkeypatch, lambda: sds_trainer.sds_train_step(
+            state, cam, gt, mask, torch.tensor(BG, device="cuda"),
+            gs_trainer.INPAINT_OPT, guidance, torch.zeros((2, 1, 8),
+                                                          device="cuda"),
+            spatial_lr_scale=1.3, sh_degree=3, sds_weight=2e-3,
+            sds_size=size, t=t, noise=noise))
 
 
 @pytest.mark.cuda

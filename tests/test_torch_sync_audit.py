@@ -133,7 +133,8 @@ def test_train_step_waits_only_in_host_reads(splats, audit):
         return m
 
     assert audit(step).pairs > 0
-    # the binning's two; the clamp bound of the scales is made on the card
+    # the binning's two; the projection (K6, then K7 in the backward)
+    # waits for nothing
     assert audit.reads == 2
 
 

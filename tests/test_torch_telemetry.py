@@ -295,7 +295,7 @@ def test_launches_are_the_launch_counters():
     assert kernels.LAUNCHES is telemetry.LAUNCHES
     assert dict(kernels.LAUNCHES) == dict.fromkeys(
         ("pair_expand", "composite", "composite_bwd", "flash_attn_fwd",
-         "flash_attn_bwd", "project"), 0)
+         "flash_attn_bwd", "project", "project_bwd"), 0)
     telemetry.count("launch.composite", 2)
     kernels.LAUNCHES["flash_attn_fwd"] += 1
     assert kernels.LAUNCHES["composite"] == 2

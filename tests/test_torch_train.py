@@ -36,6 +36,7 @@ from multiview_inpaint_tpu_torch.gs import densify as tdensify
 from multiview_inpaint_tpu_torch.gs import gaussians as tgaussians
 from multiview_inpaint_tpu_torch.models import gs_trainer as ttrainer
 from multiview_inpaint_tpu_torch.ops import rasterizer as tr
+from multiview_inpaint_tpu_torch.ops.rasterizer import project_cuda
 
 FIELDS = ("xyz", "features_dc", "features_rest", "opacity", "scaling",
           "rotation")
@@ -226,15 +227,19 @@ def _jax_and_port_steps(jp, loss_mode="full", spatial=1.3):
     return (jnew, jm), (tnew, tm)
 
 
-def _assert_step_matches(jax_step, port_step, spatial=1.3):
+def _assert_step_matches(jax_step, port_step, spatial=1.3,
+                         same_nonfinite=True):
     """Loss, counts, moments, params and densify statistics at the bars of
-    the module docstring. A NaN param entry must be NaN in both."""
+    the module docstring. A NaN param entry must be NaN in both. With
+    ``same_nonfinite`` False the non-finite gradient counts are left to
+    the caller."""
     (jnew, jm), (tnew, tm) = jax_step, port_step
     assert abs(float(tm.loss) - float(jm.loss)) <= 1e-5 * abs(float(jm.loss))
     assert abs(float(tm.l1) - float(jm.l1)) <= 1e-5 * abs(float(jm.l1))
     assert tm.pairs == int(jm.pairs) > 0
     assert int(tm.num_live) == int(jm.num_live)
-    assert int(tm.nonfinite_grads) == int(jm.nonfinite_grads)
+    if same_nonfinite:
+        assert int(tm.nonfinite_grads) == int(jm.nonfinite_grads)
     assert tnew.step == int(jnew.step) == 1
 
     lrs = jtrainer._group_lrs(jtrainer.OptimizationConfig(), jnp.int32(1),
@@ -266,28 +271,42 @@ def _assert_step_matches(jax_step, port_step, spatial=1.3):
 
 
 @pytest.mark.parametrize("loss_mode", ["full", "background"])
-def test_train_step_matches_jax(loss_mode):
+def test_train_step_matches_jax(loss_mode, monkeypatch):
+    """Also: the port's step projects through the projection's autograd
+    Function, whose backward on the CPU is K7's plain version."""
+    calls = []
+
+    def bwd_ref(*args):
+        calls.append(1)
+        return project_cuda.project_bwd_ref(*args)
+
+    monkeypatch.setattr(project_cuda, "project_bwd", bwd_ref)
     jax_step, port_step = _jax_and_port_steps(_train_scene(), loss_mode)
+    assert len(calls) == 1
     _assert_step_matches(jax_step, port_step)
     assert int(port_step[1].num_live) == 120
     assert int(port_step[1].nonfinite_grads) == 0
 
 
 def test_train_step_zeroes_and_counts_nonfinite_gradients():
-    """A NaN row stays quarantined: its gradient entries are zeroed and
-    counted as JAX counts them, and the moments stay finite (the
-    reference's 5413b48 fix)."""
+    """A NaN row stays quarantined: its gradients are zero, the moments
+    stay finite (the reference's 5413b48 fix) and every other number is
+    JAX's. JAX's projection gives the culled row non-finite xyz, scaling
+    and rotation gradients (3 + 3 + 4), which its step zeroes and counts;
+    the port's projection backward gives a culled row exact zeros, so
+    there are none to count."""
     jp = _train_scene(n=40, capacity=48, seed=4)
     jp = dataclasses.replace(jp, scaling=jp.scaling.at[5].set(jnp.nan))
     jax_step, port_step = _jax_and_port_steps(jp)
-    _assert_step_matches(jax_step, port_step)
+    _assert_step_matches(jax_step, port_step, same_nonfinite=False)
+    assert int(jax_step[1].nonfinite_grads) == 10
     new, m = port_step
-    # The NaN row's xyz, scaling and rotation gradients: 3 + 3 + 4.
-    assert int(m.nonfinite_grads) == 10
+    assert int(m.nonfinite_grads) == 0
     assert torch.isfinite(m.loss)
     for f in FIELDS:
         assert torch.isfinite(new.mu[f]).all() and \
             torch.isfinite(new.nu[f]).all(), f
+        assert not new.mu[f][5].any() and not new.nu[f][5].any(), f
 
 
 # --- checkpoints -----------------------------------------------------------
