@@ -5,7 +5,14 @@
 
 Drives ``multiview_inpaint_tpu_torch`` only (never JAX, never the JAX
 package), phase by phase, one line each; any failure raises and exits
-non-zero:
+non-zero. It checks the port; it times nothing of it but each kernel
+alone at its headline shape (the kernels line). Times of the port come
+from ``port_bench/run.py --workload <cell> --trace 1`` and from the
+spans (``--profile_dir`` on ``train_gs``, ``svd_test``, ``sds_train``);
+where a phase runs the program under ``spans`` it prints each span's
+count and device ms on one line. Inputs for a check are taken from a
+real call with ``capture``; ``patched`` puts a planted fault, or the
+plain version in a kernel's place:
 
 1. the card (``nvidia-smi`` name and power limit), torch, TF32 settings
    (both TF32 switches are set off, so the plain versions run in fp32;
@@ -16,10 +23,12 @@ non-zero:
    K3's, K6's and K7's registers, spills and static shared memory (ptxas),
    K2's blocks per SM, and K3's blocks per SM and splats per warp
    reduction;
-3. K1 (pair keys) against its plain version, bit for bit, on the 1080p
-   bench frames of the 100k bench ball and the 2M-gaussian scene;
-4. K2 (composite) against its plain version on the same frames: max
-   errors, pixels beyond rgb 3e-5 / depth 3e-4 (at most 0.01%), every
+3. K1 (pair keys) against its plain version, bit for bit, on the inputs
+   of one ``render`` of the 1080p bench frame of the 100k bench ball and
+   of the 2M-gaussian scene (equal keys give equal segments: both go
+   through the same sort);
+4. K2 (composite) against its plain version on that render's K2 inputs:
+   max errors, pixels beyond rgb 3e-5 / depth 3e-4 (at most 0.01%), every
    pixel within the stop-flip bound; its tiles bit-equal with and without
    the per-item state output, and that state against the plain K2's at
    the same bars over every item-pixel (``compare_state``); on the 2M
@@ -28,27 +37,23 @@ non-zero:
 5. K3 (composite backward), started from K2's per-item state, against
    its plain version walking each tile from its start and against its
    plain version from the same state, on the same frames under a
-   seeded cotangent (``check_k3``, which also prints the tile depths, the
-   work items and the walked, kept and contributing shares of
-   pair-pixels): max error per row, pairs
-   beyond 2e-6 + 1e-4 max|row| (at most 0.01%), the same for the
-   per-gaussian gradients after the gather's backward, every pair and
-   gaussian within the flip allowance, rows 10-15 exactly 0, bit-equal
-   on a second run;
+   seeded cotangent (``check_k3``, which also prints the tile depths and
+   the work items): max error per row, pairs beyond 2e-6 + 1e-4
+   max|row| (at most 0.01%), the same for the per-gaussian gradients
+   after the gather's backward, every pair and gaussian within the flip
+   allowance, rows 10-15 exactly 0, bit-equal on a second run; on the 2M
+   frame K1 and K2 timed beside their bounds;
 5b. K6 (the gradient-free projection) on the 2M-gaussian scene in the
     1080p bench view against its plain version on the card, at SH degree
     0 (main path 1's params and degree) and at degree 3 (the same with
     seeded rest coefficients): radius, extent and visibility equal on
     every row, means2d zero on culled rows, every float within 1e-6
-    relative; kernel and plain ms beside its bytes bound (109 and 289 B
-    a splat);
+    relative; timed beside its bytes bound (109 and 289 B a splat);
 5c. K7 (the projection's backward) on that scene and view at SH degree
     3, its cotangents columns of one packed [N, 16] gradient, against
     its plain version on the card: culled rows 0, NaN where the plain
     version has NaN, every finite gradient within 1e-5 of its field's
-    largest; kernel and plain ms beside its bytes bound (524 B a splat),
-    and the projection's forward and backward through the plain ops with
-    autograd (the grad path before K7) against K6 and K7;
+    largest; timed beside its bytes bound (524 B a splat);
 6. the port's whole render path on CUDA against its CPU path on a small
    scene, 16x16 and 8x16 tiles: images (rgb 3e-5, depth 3e-4) and the
    gradients of a loss on them, means2d_offset's included (through K3 on
@@ -64,41 +69,35 @@ non-zero:
 9. main path 1: the ``render`` CLI on a 1920x1080 COLMAP scene (the
    bench camera and three yaw offsets) holding a 2M-gaussian PLY, with
    the kernel launch counters zeroed before and read after; then, for
-   that scene and the 100k bench ball, the median ms/frame over those
-   views (CUDA events, after one warm-up view) and a per-stage split of
-   the bench view;
+   that scene and the 100k bench ball, every view finite and not
+   constant;
 10. main path 2 on an 8-view 960x540 orbit scene rendered from the
     2M-gaussian scene, from 200,000 of its points: first one
     ``train_step`` of that scene, whose K3 call (the real L1+SSIM
-    cotangent) is held against the plain K3 as in phase 5 and sets the
-    densification threshold (a quantile of that step's screen-space
-    gradient norms), K1 on its inputs (bit-equal keys) timed with its
-    bound, and K2 on its inputs timed with and without the per-item
-    state, with its bound (tiles and state bit-equal to the step's, the
-    state against the plain K2's as in phase 4); then the
-    ``train_gs`` CLI for 60 iterations in a
-    buffer a little larger than the init, counters zeroed before and read
-    after: loss falls, densify ran twice and wrote rows, the capacity
-    grew, PLY and npz written, no non-finite gradient, K3 and K7 launched
-    once per step, K6 once per step and per evaluation render;
+    cotangent) is held against the plain K3 as in phase 5, timed beside
+    its bound, and sets the densification threshold (a quantile of that
+    step's screen-space gradient norms), K1 on its inputs (bit-equal
+    keys), and K2 on its inputs with and without the per-item state
+    (tiles and state bit-equal to the step's, the state against the
+    plain K2's as in phase 4); then the ``train_gs`` CLI for 60
+    iterations in a buffer a little larger than the init, counters zeroed
+    before and read after: loss falls, densify ran twice and wrote rows,
+    the capacity grew, PLY and npz written, no non-finite gradient, K3
+    and K7 launched once per step, K6 once per step and per evaluation
+    render;
 11. the train step at full width: the 2M-gaussian bench ball in a
-    2,097,152-row buffer at 512x384, median ms/step over 10 steps after
-    2 warm-up steps (CUDA events), the split of the real step into render
-    forward, loss, backward (loss/assembly, K3, the gather's backward, the
-    projection's backward) and Adam (``StepProbe``), and its K3 call held
-    against the plain K3 as in phase 5; then a planted fault (``k3_fault``:
-    K3 fed the next item's state for the first item of the deepest tile)
-    that the same bar must fail;
+    2,097,152-row buffer at 512x384, 12 steps with a
+    finite loss and gradients, the last one's K3 call held against the
+    plain K3 as in phase 5; then a planted fault (``k3_fault``: K3 fed
+    the next item's state for the first item of the deepest tile) that
+    the same bar must fail;
 12. K4 (flash-attention forward) against its plain version as main path
     3 calls it, on the packed [B, T, H*D] projections: [28, 3072, 5*64]
     with 5 heads (ds1) and [28, 768, 10*64] with 10 heads (ds2) in bf16,
     and [2, 768, 64] in f32: max abs error (0.02) and relative to
     max|plain| (0.02), bit-equal on a second run and equal to K4 on the
-    folded [B*H, T, D] layout, kernel, plain and bound ms, achieved
-    TFLOP/s, and PyTorch's ``scaled_dot_product_attention`` timed as a
-    yardstick (the port never calls it) with the kernel/SDPA factor, on
-    the inputs and on the operands rounded to bf16 (as K4 stages f32
-    operands);
+    folded [B*H, T, D] layout; ds1 and ds2 timed beside their bound and
+    beside ``scaled_dot_product_attention`` at the same shapes;
 13. the tiny SVD engine (``svd_test --tiny_model``, 3 frames at 64x48)
     on CUDA against the CPU with the same weights (every all-zero
     parameter moved) and noise, f32 with TF32 off: conditioning, one
@@ -108,10 +107,9 @@ non-zero:
 14. main path 3: the ``svd_test`` CLI at full width (VideoUNet 320,
     ControlNet, VAE, ViT-H CLIP: 2.9B random bf16 parameters made on the
     card, every all-zero one moved) on a synthetic gs/ tree, 14 frames at
-    512x384, 25 Euler-EDM steps at CFG batch 28, counters zeroed before:
-    14 finite frames written and K4 launched exactly 350 times; seconds
-    per clip split into conditioning, the median sampler step and the
-    VAE decode (``SvdProbe``), peak device memory per part;
+    512x384, 25 Euler-EDM steps at CFG batch 28, under the spans: 14
+    finite frames written, K4 launched exactly 350 times, 25 denoiser
+    evaluations (``engine.eval`` spans);
 15. one full-width guided denoiser evaluation at sigma_max, its q and k
     projections scaled so that the attention is far from uniform, through
     K4, then with ``attention_op``'s K4 call patched to the plain version
@@ -128,8 +126,7 @@ non-zero:
     frame index shifted by one, the other video's context), each of which
     must fail the bf16 or the f32 bar; a 25-step clip through
     ``make_frame_sharded_denoiser`` against ``engine.sample`` from the
-    same noise (the final latents' relative rms), both timed with their
-    peak memory, K4 launched 350 times;
+    same noise (the final latents' relative rms), K4 launched 350 times;
 15t. once main path 3's engine is freed, the ``svd_test`` CLI with
     ``--shard_frames`` in one process on main path 3's tree and weights:
     the "ignored" line, main path 3's 14 frames within 1 uint8 level, K4
@@ -142,23 +139,22 @@ non-zero:
     Euler ancestral, DPM++(2S) ancestral and LMS (3 steps), and the latent
     dump of a blended sample (files, sigma ladder, last latent = result);
 15b. the ``svd_test`` CLI with ``--sampling blended --dump_latents`` at
-    main path 3's width and shapes, counters zeroed before: 14 finite
-    frames, K4 launched exactly 350 times, 25 dumps whose sigmas are the
-    run's sigma_hat ladder, the last dump the sampled latents; the
-    background check (outside the latent mask the last dumped latent
-    within ``background_bar`` of the encoded background, a bar derived
-    from the last step's arithmetic at sigma 0.002 and printed beside the
-    reading; inside, a mean change 10 times the bar) and two planted
-    faults that must fail it (the blend skipped, its mask inverted);
-    seconds per clip, the median step, the peak memory (``BlendProbe``);
+    main path 3's width and shapes: 14 finite frames, K4
+    launched exactly 350 times, 25 resampling evaluations, 25 dumps whose
+    sigmas are the run's sigma_hat ladder, the last dump the sampled
+    latents; the background check (outside the latent mask the last
+    dumped latent within ``background_bar`` of the encoded background, a
+    bar derived from the last step's arithmetic at sigma 0.002 and
+    printed beside the reading; inside, a mean change 10 times the bar)
+    and two planted faults that must fail it (the blend skipped, its mask
+    inverted);
 15c. the same CLI with ``--sampling inversion``: 14 finite frames, K4
     launched exactly 700 times (25 inversion and 25 resampling
     evaluations at batch 14), the background check with its bar for the
-    inverted latents and the same planted faults, the seconds of the
-    inversion pass, the resampling pass and the decode;
-15d. phase 12's checks and times of K4 at main path 10's new shapes:
-    [14, 3072, 5*64] and [14, 768, 10*64] in bf16 (the inversion's
-    batch) and [28, 3072, 5*64] in f32 (the demo's uncontrolled UNet);
+    inverted latents and the same planted faults;
+15d. phase 12's checks of K4 at main path 10's new shapes: [14, 3072,
+    5*64] and [14, 768, 10*64] in bf16 (the inversion's batch) and [28,
+    3072, 5*64] in f32 (the demo's uncontrolled UNet);
 15e. the ``divide_test`` CLI on the grids of 15b and 15c: its frames equal
     the CLI's per-frame PNGs byte for byte, GIF previews of 13 frames;
 15f. the ``demo_app`` server (``make_server`` on port 0 in a thread,
@@ -168,17 +164,16 @@ non-zero:
     25 steps, 14 frames; another seed at 10 steps) answered with 200 and
     14-frame GIFs that differ, the engine initialised once, K4 launched
     10 x steps times per request and no other kernel, a num_frames=3
-    request answered with 500; seconds per request and peak memory; then
-    one f32 uncontrolled denoiser evaluation through K4 against the plain
-    attention under phase 15's discipline (``DEMO_EVAL_RMS_TOL``);
+    request answered with 500; then one f32 uncontrolled denoiser
+    evaluation through K4 against the plain attention under phase 15's
+    discipline (``DEMO_EVAL_RMS_TOL``);
 16. K5 (flash-attention backward) against its plain version as main path
     4 calls it, on the packed projections of one video, [14, 3072, 5*64]
     (ds1) and [14, 768, 10*64] (ds2) bf16, and [2, 768, 64] f32, with o and
     the logsumexp from K4 and a seeded cotangent: dq, dk, dv within 0.02
-    of max|plain| and 0.01 relative rms, bit-equal on a second run; kernel,
-    plain and bound ms, achieved TFLOP/s, and the backward of PyTorch's
-    ``scaled_dot_product_attention`` timed as a yardstick (never called by
-    the port) with the kernel/SDPA factor;
+    of max|plain| and 0.01 relative rms, bit-equal on a second run; ds1
+    and ds2 timed beside their bound and beside the backward of
+    ``scaled_dot_product_attention`` at the same shapes;
 17. the gradient of one full-width ds1 SpatialVideoTransformer (320
     channels, 5 heads, 14 frames at 64x48, bf16, q and k scaled x3 as in
     phase 15) through K4 + K5 against the same block with
@@ -193,33 +188,30 @@ non-zero:
 19. main path 4: the ``svd_train`` CLI at full width (``EngineConfig()``'s
     networks, 2.9B random bf16 parameters with every all-zero one moved,
     bf16 compute and parameters, 14 frames at 512x384, batch 1, ``--ema``)
-    for a few steps on a ``write_est_tree`` tree, counters zeroed before:
-    K5 and K4 launched exactly 10 and 14 times per step, finite losses,
-    the UNet, VAE and CLIP bit-unchanged and the ControlNet moved, the EMA
-    checkpoint written and read back equal; step time, peak device memory,
-    the checkpoint's save time and the share of ControlNet entries the
-    first bf16 Adam step changed;
+    for a few steps on a ``write_est_tree`` tree, under the spans: one
+    step per scene (``engine.eval`` spans), K5 and K4 launched exactly 10
+    and 14 times per step, finite losses, the UNet, VAE and CLIP
+    bit-unchanged and the ControlNet moved, the EMA (the dict that
+    ``ema_update`` updates) updated once a step, the checkpoint written
+    and read back equal to it bit for bit;
 19a. main path 12 (c) on main path 4's engine: two ``make_dp_train_step``
     steps with the EMA over NCCL at world size 1 against two
     ``make_train_step`` steps with the same draws from the same
     parameters: the losses within 1e-6 relative, the parameters and the
-    EMA within one spacing of their type where |g| >= 1e-6; ms per step
-    of each, the flat all-reduce buffers' bytes, K5 20 and K4 28
-    launches;
+    EMA within one spacing of their type where |g| >= 1e-6; the flat
+    all-reduce buffers' bytes, K5 20 and K4 28 launches;
 20. main path 5's workspace (stage 1): the bench COLMAP scene of phase 9,
     the 2M-gaussian PLY, a ``--registry`` JSON (front view view00, the
     bicycle scene's orbit and vis parameters), an insertion box at the
     front of the foreground clusters near the origin and a deletion box
     inside the scene;
 21. main path 5: the ``gen_seq`` CLI (14 frames x modes x1, x2 at
-    512x384 and the 4 ``bds_train`` views at 1920x1080), counters zeroed
-    before: K1 and K2 launched exactly 32 times each and K3-K5 never, 14
-    renders/mask/masked PNGs per mode at 512x384, ``poses.npy`` (14, 4,
-    4), ``cam_center.npy`` at the box centre, 4 ``bds_train`` masks at
-    1080p, each mode's masks non-empty in a frame and not all ones in all;
-    then the CLI again under ``SeqProbe`` for its split (load, render,
-    mask, PNG writing), device ms per orbit frame, mask ms per frame at
-    512x384 and 1080p, and the OBB step's peak device memory;
+    512x384 and the 4 ``bds_train`` views at 1920x1080) under the spans:
+    K1 and K2 launched exactly 32 times each and K3-K5 never, 32
+    ``render`` spans, 14 renders/mask/masked PNGs per mode at 512x384,
+    ``poses.npy`` (14, 4, 4), ``cam_center.npy`` at the box centre, 4
+    ``bds_train`` masks at 1080p, each mode's masks non-empty in a frame
+    and not all ones in all;
 22. the ``gen_seq`` mask of frame 0 of x1 and of the front view at 1080p
     (and of the front view with the foreground clusters alone, which has
     empty pixels) through K1/K2 against the plain K2's route on the card:
@@ -229,15 +221,14 @@ non-zero:
     triangle edge (counted), the share of the box the scene hides in the
     front view (in (0, 1)); a planted fault (K2's empty pixels at a final
     T of 1 - 2^-24) that the sentinel check must fail; then phases 3-5's
-    checks and times of K1-K3 at frame 0 of x1 (512x384);
+    checks of K1-K3 at frame 0 of x1 (512x384);
 23. the ``render_depth`` CLI (28 frames) and the ``vis_render --src`` CLI
     (55 frames) on the same scene, counters zeroed before each: K1 and K2
-    launched exactly 28 and 55 times, no constant PNG; seconds and ms per
-    frame;
+    launched exactly 28 and 55 times, no constant PNG;
 24. the ``delete`` CLI on the 2M-gaussian PLY with the deletion box: some
     rows removed, none left inside by ``contains``, ``contains`` on CUDA
     against the CPU except on rows within 1e-6 of a face (counted); the
-    ``gen_pc`` CLI writes 10,000 points; seconds of each;
+    ``gen_pc`` CLI writes 10,000 points;
 25. main path 6 (stage 2) on main path 5's workspace: stand-ins for the
     ``svd_test`` frames, big2m and a 20,000-splat object of one saturated
     colour inside the insertion box rendered together (K1/K2) at the 28
@@ -247,80 +238,75 @@ non-zero:
 26. the ``seg_masks`` CLI with ``--auto --propagate`` on modes x1 and x2:
     IoU of every frame's mask against the visible-object mask, median
     above 0.6 (the JAX test's bar), the worst frame, the box mask's own
-    IoU beside it, ms per frame;
+    IoU beside it;
 27. ``seg_masks --ground`` at full width on mode x1: random ViT-H/14 and
     23-layer text towers (every all-zero parameter moved, q and k x3)
     written as a JAX-layout f32 npz, a merges file the script writes and
     a plain-text query; every grounded mask within the same frame's
     ``--auto`` mask; the 57 window scores of frame 0 against the same
     towers in float64 on the card at 4 windows (bar 5e-3 of the largest
-    float64 score); ms per frame, the towers' load time, peak memory;
-28. one stage-2 step of each kind on ``load_sd_ply``'s 1,909,232 rows: a
-    512x384 seq view with the full loss and a 1080p training view with
-    the background loss (a cotangent exactly 0 inside the box): K3
-    against its plain version as in phase 5 (``check_k3``), K1 and K2
-    against theirs with the per-item state (``k2_with_state``), all timed
-    with their bounds, the pairs whose K3 rows are all zero, the step's
-    split and peak memory; the 51 cameras per epoch; the densification
-    threshold (a quantile of the seq step's screen-space gradients);
+    float64 score);
+28. one stage-2 step of each kind on ``load_sd_ply``'s 1,909,232 rows:
+    a 512x384 seq view with the full loss and a 1080p
+    training view with the background loss (a cotangent exactly 0 inside
+    the box): K3 against its plain version as in phase 5 (``check_k3``),
+    K1 and K2 against theirs with the per-item state
+    (``k2_with_state``), the pairs whose K3 rows are all zero; the 51
+    cameras per epoch; the densification threshold (a quantile of the
+    seq step's screen-space gradients);
 29. the ``inpaint_rec`` CLI, 400 steps with densification at steps 50,
     100 and 150, counters zeroed before and read after: K1, K2, K3, K6
-    and K7 launched once per step, the inpainted views' loss falls (first vs
-    last 20 of them), densify wrote rows, no non-finite gradient, the PLY
-    written and loaded, the masked PSNR of the seq views inside the SAM
-    masks above the initial state's by 1 dB; median step ms per view kind
-    and peak memory;
+    and K7 launched once per step, every step's loss captured, the
+    inpainted views' loss falls (first vs last 20 of them), densify wrote
+    rows, no non-finite gradient, the PLY written and loaded, the masked
+    PSNR of the seq views inside the SAM masks above the initial state's
+    by 1 dB;
 30. main path 7 (slice 7) on main path 5's workspace: a random
     SD-2-inpainting-width UNet2D and 2D VAE (every all-zero parameter
     moved) written as a ``.ckpt`` and read into the SDS prior as
     ``sds_train`` builds it, text embeddings [2, 77, 1024] from the seed;
-    then phase 12's checks and times of K4 at the UNet2D's CFG shapes,
-    [2, 4096, 5*64] (ds1) and [2, 1024, 10*64] (ds2) in f32;
+    then phase 12's checks of K4 at the UNet2D's CFG shapes, [2, 4096,
+    5*64] (ds1) and [2, 1024, 10*64] (ds2) in f32;
 31. one CFG evaluation of that UNet2D (q and k x3, as phase 15) through
     K4 against the same UNet with the plain attention (10 K4 launches,
     relative rms of the eps at phase 15's bar), two planted K4 faults
     that must exceed the bar, and another input seed;
 32. one SDS step at full width on a 1080p bds_train view of the del PLY +
-    30,000 box samples after a warm-up step (``SdsProbe``): K3 against
+    30,000 box samples after a warm-up step: K3 against
     its plain version under the step's own cotangent (the background
     loss's plus the SDS gradient through the VAE encoder and the 1080p ->
     512^2 resize), K1 and K2 with the per-item state against theirs,
-    K1-K3, K6 and K7 once, K4 10 times and K5 never, the SDS image gradient
-    finite and non-zero inside the mask, peak memory, and the step's
-    device ms beside its parts run alone (``sds_split``: render forward,
-    VAE encode forward and backward, CFG UNet, Adam; the rest is the
-    render backward, the losses and resizes); the densification
+    K1-K3, K6 and K7 once, K4 10 times and K5 never, the SDS image
+    gradient finite and non-zero inside the mask; the densification
     threshold (a quantile of this step's gradients);
 33. the ``sds_train`` CLI with the ``.ckpt`` and the embeddings, 60 steps
-    on the 4 bds_train views, densifying at step 50: K1-K3, K6 and K7 once
-    and K4 10 times per step, K5 never, the background loss of the 20 steps before
-    the densification below the first 20's and finite after it, no
-    non-finite gradient, the PLY written and loaded, median step ms and
-    peak memory;
+    on the 4 bds_train views, densifying at step 50, under the spans:
+    K1-K3, K6 and K7 once and K4 10 times per step, K5 never, every step
+    logged and run (``sds.step`` spans), the background loss of the 20
+    steps before the densification below the first 20's and finite
+    after it, no non-finite gradient, the PLY written and loaded;
 34. ``gen_seq --sds`` on that PLY, ``gen_depth --dpt_ckpt`` with a random
-    DPT-large (ms per frame, peak memory) and ``gen_depth`` rendering the
+    DPT-large (run on every frame) and ``gen_depth`` rendering the
     disparity, counters zeroed before each (K1 and K2 28 times each); the
     written disparity against the plain K2 route's on every frame (all
     but 0.01% of pixels equal, none off by more than 1 level);
 35. the ``ctrl_inpaint`` CLI at full width (``--context_dim 768``,
     ``--size 512``) from random SD-1.5-size UNet2D + VAE and ControlNet2D
     ``.ckpt`` files: 2 samples of 10 UniPC steps, then 1 of DPM++(2M):
-    K4 14 times per evaluation and no other kernel, s per sample, peak
-    memory, the PNGs not constant;
+    K4 14 times per evaluation and no other kernel, the PNGs not
+    constant;
 36. main path 8 (slice 8, evaluation) on main paths 5 and 6's workspace:
     the ``render`` CLI on main path 6's recomposed PLY and on main path
     5's source PLY at 10 bench views (1920x1080), counters zeroed before
     each run (K1 and K2 once per view, K3-K5 never), the frames moved into
-    ``vis/cmp/<exp>/{inpainted,src}/<scene>/ours_<iter>/renders``; the
-    median ms per view of the recomposed PLY and phases 3-5's checks and
-    times of K1-K3 at its first view;
+    ``vis/cmp/<exp>/{inpainted,src}/<scene>/ours_<iter>/renders``; phases
+    3-5's checks of K1-K3 at the recomposed PLY's first view;
 37. the ``cmp`` CLI (``--n_frame 10``) on that tree with random full-width
     MUSIQ (2,153 tokens per frame) and WaDIQaM-NR npz files, counters
     zeroed before (no launches): sharpness, musiq, wadiqam and
     psnr_vs_src finite for the scene and in ``mean``; MUSIQ and WaDIQaM on
     one 1080p frame and LPIPS at full VGG16 on a [4, 512, 512, 3] pair on
-    the card within 1e-4 relative of the CPU; ms per frame and peak
-    memory;
+    the card within 1e-4 relative of the CPU;
 38. one ``vae_finetune --tiny`` step (every term on, LPIPS included) on
     CUDA against the CPU from the same weights and noise: logs within
     1e-5 relative, gradients at the gradient bar (plus 2e-7 of the
@@ -330,24 +316,21 @@ non-zero:
     (``VAEConfig()``, the ndf-64 3-layer discriminator, a random full VGG16
     LPIPS npz) on main path 5's 28 gen_seq frames at 256^2, batch 4, 20
     steps, ``--disc_start 5``, counters zeroed before (no launches): every
-    log finite, ``loss/disc`` 0 before step 5 and not after, both npz files
-    read back equal; median ms per step and peak memory;
+    step's log finite, ``loss/disc`` 0 before step 5 and not after, both
+    npz files read back equal;
 41. main path 11 (slice 10): main path 1's big2m 1080p bench frame as 4
     interleaved tile-row bands (``render(band_rows=, band_row0=,
     band_stride=)``) one after another, counters zeroed before (K1 and K2
     once per band): stitched bit for bit equal to the full frame, the
-    pairs summed equal, each band's and the full frame's ms in turns (the
-    worst band is the per-GPU time of a 4-way band-sharded frame); K2 in
-    band mode on the heaviest band against its plain version (phase 4's
-    bars) and bit-equal to the full frame's K2 on the same tiles, with its
-    time and bound;
+    pairs summed equal; the heaviest band's K2 call against its plain
+    version (phase 4's bars) and bit-equal to the full frame's K2 call on
+    the same tiles;
 42. main path 2's ball2m-train step as 4 bands on the card
     (``gs_band_train.band_grads`` per band, the other bands' rgb
     detached): the bands' gradients summed against ``train_step``'s (its
     Adam moments and densification statistics) at 2e-6 + 1e-4 max|g|, the
     loss equal, pairs summed equal, K1-K3 once per band; K3 in band mode
-    on the heaviest band against its plain version as in phase 5; each
-    band's ms against the full step's;
+    on the heaviest band against its plain version as in phase 5;
 43. the distributed paths over NCCL at world size 1 (tcp on localhost)
     against the single-process functions: ``render_views_sharded`` on 14
     views of big2m and ``render_frame_sharded`` bit for bit;
@@ -355,32 +338,25 @@ non-zero:
     its ZeRO form with the loss equal and the gradients at 2e-6 + 1e-4
     max|g| (a train step's gradients do not repeat bit for bit: the
     gather's backward adds atomically);
-44. ``data.native_io`` built from ``native/dataio.cpp`` (its seconds; a
-    missing ``zlib.h`` is reported, any other failure fails),
-    ``decode_png`` of main path 5's 28 gen_seq PNGs equal to PIL (ms per
-    frame of each) and through ``PrefetchLoader``; a 20-step ``train_gs
-    --live_view`` run on main path 2's scene publishing every 5 steps,
-    whose server answers its page, the PNG of the current render and a
-    posted pose, and then serves renders of that pose;
-45. the ``kernels`` JSON line (K1 and K2 at main path 1's big2m frame, K3
-    at main path 2's first step, K4 at main path 3's ds1 shape, K5 at main
-    path 4's ds1 shape; K4 and K5 also carry ``vs_library``, kernel ms over
-    SDPA ms, and K4 ``library_bf16_ms``/``vs_library_bf16``, SDPA on the
-    bf16-rounded operands; K1-K3 also carry ``main_path_6``: its launches
-    and its orbit-rec times and bounds at both step shapes; K1-K4 carry
-    ``main_path_7``: its launches over all its CLIs, K1-K3's times and
-    bounds at the SDS step's view, K4's at the UNet2D's ds1 and ds2; K1
-    and K2 carry ``main_path_8``: its launches and their times and bounds
-    at the recomposed PLY's first view; K4 carries ``main_path_10``: its
-    launches in 15b, 15c and per demo request, and its records at 15d's
-    shapes; K2 and K3 carry ``band``: main path 11's launches and their
-    times and bounds at the band shapes of phases 41 and 42; K4 and K5
-    carry ``main_path_12``: its launches in 15s, 15t and 19a); the last
-    line is the ``ok`` JSON object.
+44. ``data.native_io`` built from ``native/dataio.cpp`` (a missing
+    ``zlib.h`` is reported, any other failure fails), ``decode_png`` of
+    main path 5's 28 gen_seq PNGs equal to PIL and through
+    ``PrefetchLoader``; a 20-step ``train_gs --live_view`` run on main
+    path 2's scene publishing every 5 steps, whose server answers its
+    page, the PNG of the current render and a posted pose, and then
+    serves renders of that pose;
+45. the ``kernels`` JSON line: one record per kernel, each timed alone
+    at its headline shape with ``cuda_ms`` beside its least time from
+    ``port_bench/counts`` (K1 and K2 at main path 1's big2m frame, K3 at
+    main path 2's first step, K4 at main path 3's ds1 shape, K5 at main
+    path 4's ds1 shape, K6 at SH 0 with SH 3 under ``sh3``, K7 at SH 3),
+    with each main path's launches (``main_path_6/7/8/10/12``, ``band``);
+    the last line is the ``ok`` JSON object.
 
 Build outputs and the scenes go under ``build/`` in the checkout.
 """
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -402,28 +378,6 @@ DEVICE = "cuda"
 BALL_N, BIG_N = 100_000, 2_000_000
 YAWS = (0.0, -0.06, 0.06, 0.12)   # the bench view and three yaw offsets
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM rate and
-# FP32 rate outside the tensor cores; the special-function rate is the
-# same clock's 16 MUFU ops per SM per cycle (132 SMs x 16 x 1.98 GHz).
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-SFU_OP_PER_S = 132 * 16 * 1.98e9
-# The least operations of the composite kernels, as (FP32 ops,
-# special-function ops) per pair-pixel by what the forward walk does
-# there; ``walk_counts`` counts those pair-pixels on the run's inputs.
-# - walked (the pixel has not stopped earlier in the chunk): the gate,
-#   i.e. 2 subs, 9 ops of the quadratic form, the opacity product, the
-#   clamp and 2 compares, and the exp of the power;
-# - kept (passes the gate): log1p(-alpha), counted as 4 FP32 ops (fewer
-#   than its polynomial), the add, product and compare of the stop test,
-#   and the exp of the in-chunk prefix;
-# - contributing (kept, T_out >= 1e-4): K2 adds the exp of T_in, its sub
-#   and product, the weight and the 4 accumulators; K3 adds the exp of
-#   T_in and the reciprocal of its division, ~40 ops of A, the w.A
-#   prefix, dL/dalpha and the ten row terms, and 10 adds that sum the
-#   rows over the tile's pixels.
-WALK_OPS, KEEP_OPS = (15, 1), (7, 1)
-K2_CONTRIB_OPS, K3_CONTRIB_OPS = (8, 1), (50, 2)
 RGB_TOL, DEPTH_TOL, BAD_FRACTION = 3e-5, 3e-4, 1e-4
 GRAD_ATOL, GRAD_RTOL = 2e-6, 1e-4   # gradient bar: atol + rtol * max|g|
 TILE = 16
@@ -448,7 +402,6 @@ K4_SHAPES = ((28, 3072, 5, 64, "bfloat16"), (28, 768, 10, 64, "bfloat16"),
              (2, 768, 1, 64, "float32"))
 K4_ABS_TOL = K4_REL_TOL = 0.02
 K4_PER_EVAL = 14        # ds1 and ds2 blocks: 10 in the UNet, 4 in the trunk
-BF16_FLOP_PER_S = 989e12
 # The denoiser evaluation through K4 against the plain attention: the rms
 # of the difference at most this share of the rms of the plain output.
 # The q and k projections are scaled by SVD_QK_GAIN first: at init the
@@ -651,7 +604,7 @@ VAE_STEP_REL_TOL = 1e-5
 # orbit views of big2m), native_io on main path 5's gen_seq PNGs, and a
 # LIVE_STEPS-step train_gs with the live view publishing every
 # LIVE_INTERVAL steps.
-BANDS, BAND_REPEATS, DIST_VIEWS = 4, 5, 14
+BANDS, DIST_VIEWS = 4, 14
 LIVE_STEPS, LIVE_INTERVAL = 20, 5
 LIVE_POSE = {"yaw": 30.0, "pitch": -10.0, "radius": 1.5}
 
@@ -692,49 +645,101 @@ def grad_bar(want, dim=None):
     return GRAD_ATOL + GRAD_RTOL * m
 
 
-def walk_counts(torch, attrs, seg_start, counts, size, row0=0, stride=1):
-    """(walked, kept, contributing) pair-pixels of the composite's forward
-    walk on these inputs, from the plain version's own recomputation of
-    each chunk (``composite._chunk``): a pixel walks a splat while its
-    T_in >= 1e-4 in the chunk, keeps it when it passes the gate, and it
-    contributes when kept with T_out >= 1e-4. ``row0``/``stride`` place
-    a band's tile rows."""
-    from multiview_inpaint_tpu_torch.ops.rasterizer import composite as c
-    tiles_x, tiles_y, th, tw = size
-    dev = attrs.device
-    coords = c.tile_pixel_coords(tiles_x, tiles_y, tw, th, dev, row0, stride)
-    t_carry = torch.ones((tiles_x * tiles_y, th * tw), device=dev)
-    lane = torch.arange(c.CHUNK, device=dev)
-    zero = torch.zeros((), device=dev)
-    n = torch.zeros(3, dtype=torch.int64, device=dev)
+Call = collections.namedtuple("Call", "args kw out")
+
+
+@contextlib.contextmanager
+def patched(owner, name, fn):
+    """``owner.name`` is ``fn`` inside the block (a planted fault, or the
+    plain version in a kernel's place); yields the attribute it
+    replaced."""
+    real = getattr(owner, name)
+    setattr(owner, name, fn)
+    try:
+        yield real
+    finally:
+        setattr(owner, name, real)
+
+
+@contextlib.contextmanager
+def capture(owner, name, keep=Call):
+    """The calls to ``owner.name`` inside the block, passed through and
+    recorded: the list it yields gets ``keep(args, kwargs, result)`` of
+    each call once it returns (by default the three as a ``Call``)."""
+    calls = []
+
+    def run(*args, **kw):
+        out = real(*args, **kw)
+        calls.append(keep(args, kw, out))
+        return out
+
+    with patched(owner, name, run) as real:
+        yield calls
+
+
+def perturbed(torch, seed):
+    """A ``capture`` keep for an engine's init: every all-zero parameter
+    of the new engine moved (``perturb_zero_params``); keeps the engine."""
+    def keep(args, kw, eng):
+        perturb_zero_params(torch, eng, seed)
+        return eng
+    return keep
+
+
+@contextlib.contextmanager
+def spans(label):
+    """The port's spans (``telemetry``, with device events on the card)
+    over the block, from a reset of its records and counters (the launch
+    counters too); then one line of each span's count and device ms, and
+    the dict it yields filled with the snapshot's spans."""
+    from multiview_inpaint_tpu_torch import telemetry
+    out = {}
+    telemetry.reset()
+    telemetry.enable(device_events=DEVICE == "cuda")
+    try:
+        yield out
+    finally:
+        telemetry.disable()
+    out.update(telemetry.snapshot()["spans"])
+    print(f"[{label} spans] count, device ms: " + json.dumps(
+        {k: [v["count"], round(v["device_ms"] or 0.0, 3)]
+         for k, v in out.items()}), flush=True)
+
+
+def timed(torch, kernel, plain, iters, plain_iters, bound_s, bound_by,
+          library=None, **errors):
+    """A kernel's record of the kernels line: its and its plain version's
+    mean ms (``cuda_ms``), its least time ``bound_s`` (from
+    ``port_bench.counts``) and what bounds it, and its ``errors``; with
+    ``library`` (the same work in a PyTorch library call, run with grad
+    on) also that call's mean ms as the yardstick ``library_ms``."""
     with torch.no_grad():
-        for c0, tl in c._chunks(counts, th * tw, c.CHUNK):
-            s = c._chunk(attrs, seg_start, counts, coords, t_carry, tl, c0,
-                         lane, zero)
-            walked = s.ok[:, None, :] & (s.t_in >= c.T_STOP)
-            kept = walked & s.keep
-            n += torch.stack([walked.sum(), kept.sum(),
-                              (kept & s.contrib).sum()])
-            t_carry[tl] = t_carry[tl] * torch.exp(torch.sum(
-                torch.where(s.contrib, s.logs, zero), dim=-1))
-    return n.tolist()
+        rec = dict(errors, ms=cuda_ms(torch, kernel, iters),
+                   plain_ms=cuda_ms(torch, plain, plain_iters),
+                   bound_ms=bound_s * 1e3, bound_by=bound_by,
+                   library_ms=None)
+    if library is not None:
+        rec["library_ms"] = cuda_ms(torch, library, iters)
+        rec["vs_library"] = rec["ms"] / rec["library_ms"]
+    return rec
 
 
-def bound(t_bytes, walk, contrib_ops):
-    """``bound_ms`` and ``bound_by`` of a composite kernel: the larger of
-    its bytes' time ``t_bytes`` (s) and the time of its least operations
-    on the ``walk_counts`` pair-pixels ``walk``."""
-    flop = sfu = 0
-    for n, (f, u) in zip(walk, (WALK_OPS, KEEP_OPS, contrib_ops)):
-        flop += n * f
-        sfu += n * u
-    t_ops = max(flop / FP32_FLOP_PER_S, sfu / SFU_OP_PER_S)
-    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+def timing_note(rec):
+    lib = ("" if rec["library_ms"] is None else
+           f", library {rec['library_ms']:.4f} ms (kernel / library "
+           f"{rec['vs_library']:.3f})")
+    return (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms"
+            f"{lib}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+            f"{rec['bound_ms'] / rec['ms']:.1%} of it)")
 
 
-def walk_shares(walk, pair_pixels):
-    return [round(n / max(pair_pixels, 1), 4) for n in walk]
+def composite_bound(bound_s, walk, n_pairs, n_tiles, pix):
+    """(least seconds, what bounds them) of K2 or K3 (``bound_s``:
+    ``port_bench.counts.composite.k2_bound_s`` or ``k3_bound_s``) on the
+    walk's pair-pixels; its bytes alone are its bound on an empty walk."""
+    s = bound_s(walk, n_pairs, n_tiles, pix)
+    return s, ("bytes" if bound_s([0, 0, 0], n_pairs, n_tiles, pix) >= s
+               else "operations")
 
 
 def phase_card(torch):
@@ -804,52 +809,34 @@ def phase_build():
 
 def phase_kernels(torch, card, name, params, camera=None):
     """Phases 3-5 on one frame of ``camera`` (the 1080p bench camera by
-    default); returns the K1 and K2 records of the kernels line (launches
-    filled in later)."""
+    default), on the K1 and K2 inputs of one ``render`` of it. On big2m,
+    main path 1's frame, also K2's planted fault and K1's and K2's records
+    of the kernels line (launches filled in later); else returns None."""
+    from port_bench.counts import composite as bounds
     from multiview_inpaint_tpu_torch.ops.rasterizer import (
-        RenderCamera, api, binning, composite, composite_cuda, pair_expand)
+        RenderCamera, api, binning, composite, composite_cuda, pair_expand,
+        render)
     from multiview_inpaint_tpu_torch.utils import synthetic
 
     cam = RenderCamera.from_camera(camera or synthetic.bench_camera(),
                                    DEVICE)
-    tiles_x, tiles_y = -(-cam.width // TILE), -(-cam.height // TILE)
-    n_tiles, pix = tiles_x * tiles_y, TILE * TILE
-    size = (tiles_x, tiles_y, TILE, TILE, cam.width, cam.height)
-    with torch.no_grad():
-        proj = api.project(params, cam, 0)
-    r = binning.compact_rects(proj.means2d, proj.radius, proj.depth,
-                              tiles_x, tiles_y, TILE, TILE, proj.extent)
-    k1_args = (r.starts, r.x0, r.y0, r.w, r.count, r.n_active, r.total,
-               tiles_x)
-    keys = pair_expand.expand_keys(*k1_args)
-    keys_ref = pair_expand.expand_keys_ref(*k1_args)
-    sorted_k = torch.sort(keys).values
-    sorted_p = torch.sort(keys_ref).values
-    seg_k = binning.segments_from_keys(sorted_k, n_tiles)
-    seg_p = binning.segments_from_keys(sorted_p, n_tiles)
-    if not (torch.equal(keys, keys_ref) and torch.equal(sorted_k, sorted_p)
-            and all(torch.equal(a, b) for a, b in zip(seg_k, seg_p))):
-        fail(f"K1 keys/segments differ from the plain version on {name}")
-    k1_ms = cuda_ms(torch, lambda: pair_expand.expand_keys(*k1_args), 50)
-    k1_plain_ms = cuda_ms(torch,
-                          lambda: pair_expand.expand_keys_ref(*k1_args), 5)
-    # Keys out; starts, x0, y0 and w of the actives in (the counts follow
-    # from the starts and the total).
-    k1_bytes = r.total * 8 + r.n_active * (8 + 4 + 4 + 4)
-    k1 = dict(max_abs_err=0.0, ms=k1_ms, plain_ms=k1_plain_ms,
-              bound_ms=k1_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-              library_ms=None)
-    print(f"[3 K1 {name}] n={params.capacity} actives={r.n_active} "
-          f"pairs={r.total}: keys, sorted keys, seg_start, counts equal | "
-          f"kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, bound "
-          f"{k1['bound_ms']:.4f} ms (bytes) | {card}", flush=True)
+    with capture(binning, "expand_keys") as k1_calls, \
+            capture(binning, "bin_gaussians") as bins, \
+            capture(api, "composite_tiles") as k2_calls, torch.no_grad():
+        render(params, cam, torch.zeros(3, device=DEVICE), device=DEVICE)
+    k1_args = k1_calls[0].args
+    # Equal keys give equal segments: both go through the same sort.
+    if not torch.equal(pair_expand.expand_keys(*k1_args),
+                       pair_expand.expand_keys_ref(*k1_args)):
+        fail(f"K1 keys differ from the plain version on {name}")
+    n_active, total = k1_args[5], k1_args[6]
+    print(f"[3 K1 {name}] n={params.capacity} actives={n_active} "
+          f"pairs={total}: keys equal | {card}", flush=True)
 
-    counts, seg_start = seg_k
-    gid = r.order[sorted_k & 0xFFFFFFFF]          # gaussian of each pair
-    attrs = composite_cuda.pack_attrs(
-        proj.means2d, proj.conic, proj.opacity, proj.color,
-        proj.depth)[gid].contiguous()
-    k2_args = (attrs, seg_start, counts, tiles_x, tiles_y, TILE, TILE)
+    gid = bins[0].out.order[bins[0].out.gid_sorted]   # gaussian of each pair
+    k2_args = k2_calls[0].args
+    attrs, seg_start, counts, tiles_x, tiles_y = k2_args[:5]
+    size = (tiles_x, tiles_y, TILE, TILE, cam.width, cam.height)
     with torch.no_grad():
         out_k = composite_cuda.composite_fwd(*k2_args)
         out_s, state = composite_cuda.composite_fwd(*k2_args,
@@ -866,22 +853,11 @@ def phase_kernels(torch, card, name, params, camera=None):
     e_rgb, e_d, e_t, bad, within = k2_verdict(torch, out_k, out_p, attrs,
                                               size)
     n_pix = e_d.numel()
-    k2_ms = cuda_ms(torch, lambda: composite_cuda.composite_fwd(*k2_args),
-                    10)
-    with torch.no_grad():
-        k2_plain_ms = cuda_ms(
-            torch, lambda: composite.composite_segments(*k2_args), 1)
-    walk, k2_bound = k2_bound_of(torch, *k2_args)
-    k2 = dict(max_abs_err=float(max(e_rgb.max(), e_d.max(), e_t.max())),
-              ms=k2_ms, plain_ms=k2_plain_ms, **k2_bound, library_ms=None)
+    k2_err = float(max(e_rgb.max(), e_d.max(), e_t.max()))
     print(f"[4 K2 {name}] max abs err rgb {float(e_rgb.max()):.3g} depth "
           f"{float(e_d.max()):.3g} T {float(e_t.max()):.3g} | {bad}/{n_pix} "
           f"px beyond rgb {RGB_TOL} / depth {DEPTH_TOL} | all px within "
-          f"stop-flip bound: {within} | walked, kept, contributing share of "
-          f"pair-pixels {walk_shares(walk, r.total * pix)} | kernel "
-          f"{k2_ms:.4f} ms, plain {k2_plain_ms:.2f} ms, bound "
-          f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}) | {state_note} | "
-          f"{card}", flush=True)
+          f"stop-flip bound: {within} | {state_note} | {card}", flush=True)
     if bad > BAD_FRACTION * n_pix or not within:
         fail(f"K2 disagrees with its plain version on {name}")
     if name == "big2m":
@@ -893,6 +869,19 @@ def phase_kernels(torch, card, name, params, camera=None):
     check_k3(torch, card, f"5 K3 {name}",
              (attrs, seg_start, counts, out_k, g, tiles_x, tiles_y, TILE,
               TILE, state), gid, params.capacity)
+    if name != "big2m":
+        return None
+    walk = bounds.walk_counts(*k2_args)
+    k1 = timed(torch, lambda: pair_expand.expand_keys(*k1_args),
+               lambda: pair_expand.expand_keys_ref(*k1_args), 50, 5,
+               bounds.k1_bound_s(total, n_active), "bytes", max_abs_err=0.0)
+    k2 = timed(torch, lambda: composite_cuda.composite_fwd(*k2_args),
+               lambda: composite.composite_segments(*k2_args), 10, 1,
+               *composite_bound(bounds.k2_bound_s, walk, attrs.shape[0],
+                                tiles_x * tiles_y, TILE * TILE),
+               max_abs_err=k2_err)
+    print(f"[3 K1 {name}] {timing_note(k1)} | [4 K2 {name}] "
+          f"{timing_note(k2)} | {card}", flush=True)
     return k1, k2
 
 
@@ -927,19 +916,6 @@ def k2_verdict(torch, out_k, out_p, attrs, size):
                        + DEPTH_TOL).all()
                   and (e_t <= flip_t + RGB_TOL).all())
     return e_rgb, e_d, e_t, bad, within
-
-
-def k2_bound_of(torch, attrs, seg_start, counts, tiles_x, tiles_y, th, tw,
-                row0=0, stride=1):
-    """The walk's pair-pixel counts (``walk_counts``) and K2's
-    ``bound_ms``/``bound_by`` on these inputs: its bytes (64 per pair and
-    16 per tile in, 8 rows per pixel out) or its least operations."""
-    walk = walk_counts(torch, attrs, seg_start, counts,
-                       (tiles_x, tiles_y, th, tw), row0, stride)
-    n_tiles = tiles_x * tiles_y
-    t_bytes = (attrs.shape[0] * 64 + n_tiles * 16
-               + n_tiles * 8 * th * tw * 4) / HBM_BYTES_PER_S
-    return walk, bound(t_bytes, walk, K2_CONTRIB_OPS)
 
 
 def k2_fault(torch, card, label, k2_args, out_p, size):
@@ -1052,26 +1028,24 @@ def depth_stats(torch, counts):
             f"grid {composite.max_items(counts.numel(), int(counts.sum()))})")
 
 
-def check_k3(torch, card, label, k3_args, gid, n_gauss, band=(0, 1)):
+def check_k3(torch, card, label, k3_args, gid, n_gauss):
     """K3 against its plain version on ``k3_args`` (attrs, seg_start,
     counts, tiles8, g_tiles8, tiles_x, tiles_y, tile_h, tile_w, the
-    forward's per-item state), pair by pair and gaussian by gaussian
-    (``compare_k3``), twice: against the plain K3 walking each tile from
-    its start, which owes nothing to K2's state, and against the plain
-    K3 started from that state. ``band`` is (row0, stride) of a band's
-    tiles. Fails on a breach of either, else returns K3's record for the
-    kernels line (launches filled in later)."""
+    forward's per-item state, then a band's row0 and stride if any), pair
+    by pair and gaussian by gaussian (``compare_k3``), twice: against the
+    plain K3 walking each tile from its start, which owes nothing to K2's
+    state, and against the plain K3 started from that state. Fails on a
+    breach of either, else returns the largest error."""
     from multiview_inpaint_tpu_torch.ops.rasterizer import (composite,
                                                             composite_cuda)
 
-    attrs, seg_start, counts, _, _, *size, _ = k3_args
-    row0, stride = band
+    args, band = k3_args[:10], tuple(k3_args[10:]) or (0, 1)
+    counts, th, tw = args[2], args[7], args[8]
     with torch.no_grad():
-        d_k = composite_cuda.composite_bwd(*k3_args, row0, stride)
-        again = composite_cuda.composite_bwd(*k3_args, row0, stride)
-        d_walk = composite.composite_segments_bwd(*k3_args[:-1], None, row0,
-                                                  stride)
-        d_p = composite.composite_segments_bwd(*k3_args, row0, stride)
+        d_k = composite_cuda.composite_bwd(*args, *band)
+        again = composite_cuda.composite_bwd(*args, *band)
+        d_walk = composite.composite_segments_bwd(*args[:-1], None, *band)
+        d_p = composite.composite_segments_bwd(*args, *band)
     if not torch.isfinite(d_k).all() or d_k[:, 10:].any():
         fail(f"K3 rows not finite, or rows 10-15 not 0, at {label}")
     if not torch.equal(d_k, again):
@@ -1080,24 +1054,9 @@ def check_k3(torch, card, label, k3_args, gid, n_gauss, band=(0, 1)):
         compare_k3(torch, d_k, d_walk, gid, n_gauss))
     e_rows, share, within, e_gauss, share_g, within_g, ok = compare_k3(
         torch, d_k, d_p, gid, n_gauss)
-    k3_ms = cuda_ms(torch, lambda: composite_cuda.composite_bwd(
-        *k3_args, row0, stride), 5)
-    with torch.no_grad():
-        k3_plain_ms = cuda_ms(
-            torch, lambda: composite.composite_segments_bwd(
-                *k3_args, row0, stride), 1)
-    tiles_x, tiles_y, th, tw = size
-    n_tiles, pix = tiles_x * tiles_y, th * tw
-    n_pairs = attrs.shape[0]
-    walk = walk_counts(torch, attrs, seg_start, counts, size, row0, stride)
-    t_bytes = (n_pairs * 64 * 2 + n_tiles * 16
-               + n_tiles * pix * 2 * 32) / HBM_BYTES_PER_S
-    k3 = dict(max_abs_err=float(max(e_walk.max(), e_rows.max())), ms=k3_ms,
-              plain_ms=k3_plain_ms, **bound(t_bytes, walk, K3_CONTRIB_OPS),
-              library_ms=None)
-    print(f"[{label}] pairs={n_pairs} in {n_tiles} {th}x{tw} tiles: "
-          f"{depth_stats(torch, counts)} | vs the plain K3 from each tile's "
-          f"start: max abs err per row "
+    print(f"[{label}] pairs={d_k.shape[0]} in {counts.numel()} {th}x{tw} "
+          f"tiles: {depth_stats(torch, counts)} | vs the plain K3 from each "
+          f"tile's start: max abs err per row "
           f"{[float(f'{e:.3g}') for e in e_walk.tolist()]} | pairs beyond "
           f"{GRAD_ATOL} + {GRAD_RTOL} max|row|: {share_w:.3g} (within flip "
           f"allowance: {within_w}) | per gaussian max err "
@@ -1106,14 +1065,11 @@ def check_k3(torch, card, label, k3_args, gid, n_gauss, band=(0, 1)):
           f"row {[float(f'{e:.3g}') for e in e_rows.tolist()]} | pairs "
           f"beyond {share:.3g} (within: {within}) | per gaussian max err "
           f"{float(e_gauss.max()):.3g}, beyond: {share_g:.3g} (within: "
-          f"{within_g}) | rows 10-15 zero, repeats bit for bit | walked, "
-          f"kept, contributing share of pair-pixels "
-          f"{walk_shares(walk, n_pairs * pix)} | kernel {k3_ms:.4f} ms, "
-          f"plain {k3_plain_ms:.2f} ms, bound {k3['bound_ms']:.4f} ms "
-          f"({k3['bound_by']}) | {card}", flush=True)
+          f"{within_g}) | rows 10-15 zero, repeats bit for bit | {card}",
+          flush=True)
     if not (ok_w and ok):
         fail(f"K3 disagrees with its plain version at {label}")
-    return k3
+    return float(max(e_walk.max(), e_rows.max()))
 
 
 def k3_fault(torch, card, label, k3_args, gid, n_gauss):
@@ -1194,12 +1150,13 @@ def k6_verdict(torch, got, want):
 
 def phase_project(torch, card):
     """Phase 5b: K6 on the 2M-gaussian scene in the 1080p bench view
-    against its plain version on the card, then both timed (CUDA events)
-    beside K6's bytes bound, at each of ``K6_DEGREES``: degree 0 on main
-    path 1's own params (no rest coefficients), degree 3 on the same with
-    seeded rest coefficients. Returns K6's record of the kernels line:
-    the degree-0 numbers at the top, as the launches filled in later are
-    main path 1's at degree 0, and the degree-3 ones under ``sh3``."""
+    against its plain version on the card, then both timed beside K6's
+    bytes bound, at each of ``K6_DEGREES``: degree 0 on main path 1's own
+    params (no rest coefficients), degree 3 on the same with seeded rest
+    coefficients. Returns K6's record of the kernels line: the degree-0
+    numbers at the top, as the launches filled in later are main path 1's
+    at degree 0, and the degree-3 ones under ``sh3``."""
+    from port_bench.counts import peaks
     from multiview_inpaint_tpu_torch.ops.rasterizer import (RenderCamera,
                                                             project_cuda)
     from multiview_inpaint_tpu_torch.utils import synthetic
@@ -1214,28 +1171,22 @@ def phase_project(torch, card):
         rows, culled_zero, rel = k6_verdict(torch, got, want)
         visible = int((want.radius > 0).sum())
         del got, want
-        k6_ms = cuda_ms(torch, lambda: project_cuda.project(params, cam, sh),
-                        50)
-        with torch.no_grad():
-            plain_ms = cuda_ms(
-                torch, lambda: project_cuda.project_ref(params, cam, sh), 5)
         per_splat = k6_bytes_per_splat(sh)
-        bound_ms = BIG_N * per_splat / HBM_BYTES_PER_S * 1e3
+        rec = timed(torch, lambda: project_cuda.project(params, cam, sh),
+                    lambda: project_cuda.project_ref(params, cam, sh), 50, 5,
+                    BIG_N * per_splat / peaks.HBM_BYTES_PER_S, "bytes",
+                    max_abs_err=None, max_rel_err=max(rel.values()))
         print(f"[5b K6 big2m SH {sh}] n={BIG_N}, "
               f"{params.features_rest.shape[1]} rest coefficients, "
               f"1920x1080, {visible} visible: rows differing {rows} | "
               f"means2d zero on culled rows {culled_zero} | max relative "
-              f"error {rel} | kernel {k6_ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes, "
-              f"{per_splat} B a splat: {bound_ms / k6_ms:.1%} of HBM) | "
+              f"error {rel} | {timing_note(rec)}, {per_splat} B a splat | "
               f"{card}", flush=True)
         if any(rows.values()) or not culled_zero or not all(
                 e <= K6_REL_TOL for e in rel.values()):
             fail(f"K6 disagrees with its plain version on big2m at SH "
                  f"degree {sh}")
-        records[sh] = dict(max_abs_err=None, max_rel_err=max(rel.values()),
-                           ms=k6_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by="bytes", library_ms=None)
+        records[sh] = rec
         del params
     return dict(sh_degree=0, **records[0], sh3=records[3])
 
@@ -1264,10 +1215,9 @@ def phase_project_bwd(torch, card):
     seeded packed gradient, against its plain version on the card; culled
     rows zero, NaN where the plain version's, finite entries within
     K7_RTOL plus K7_ATOL of the field's largest; K7 and the plain version
-    timed (CUDA events) beside K7's bytes bound; then the projection's
-    forward and backward through the plain ops with autograd against K6
-    and K7 (``project_grad``). Returns K7's record of the kernels line."""
-    from multiview_inpaint_tpu_torch.gs.gaussians import PARAM_FIELDS
+    timed beside K7's bytes bound. Returns K7's record of the kernels
+    line."""
+    from port_bench.counts import peaks
     from multiview_inpaint_tpu_torch.ops.rasterizer import (RenderCamera,
                                                             project_cuda)
     from multiview_inpaint_tpu_torch.utils import synthetic
@@ -1303,41 +1253,21 @@ def phase_project_bwd(torch, card):
         close = close and bool(((x - y).abs()
                                 <= K7_RTOL * y.abs() + K7_ATOL * top).all())
     del got, want
-    k7_ms = cuda_ms(torch, lambda: project_cuda.project_bwd(*args), 50)
-    plain_ms = cuda_ms(torch, lambda: project_cuda.project_bwd_ref(*args),
-                       5)
-
-    def forward_backward(project):
-        leaves = {f: getattr(params, f).detach().requires_grad_(True)
-                  for f in PARAM_FIELDS}
-        offset = torch.zeros((BIG_N, 2), device=DEVICE, requires_grad=True)
-        out = project(dataclasses.replace(params, **leaves), cam, sh, 1.0,
-                      offset)
-        torch.autograd.grad([out.means2d, out.conic, out.depth, out.color,
-                             out.opacity], [*leaves.values(), offset], cots)
-
-    autograd_ms = cuda_ms(torch, lambda: forward_backward(
-        project_cuda.project_ref), 5)
-    fused_ms = cuda_ms(torch, lambda: forward_backward(
-        project_cuda.project_grad), 20)
     per_splat = k7_bytes_per_splat(sh)
-    bound_ms = BIG_N * per_splat / HBM_BYTES_PER_S * 1e3
+    rec = timed(torch, lambda: project_cuda.project_bwd(*args),
+                lambda: project_cuda.project_bwd_ref(*args), 50, 5,
+                BIG_N * per_splat / peaks.HBM_BYTES_PER_S, "bytes",
+                max_abs_err=None, max_rel_err=max(rel.values()))
     print(f"[5c K7 big2m SH {sh}] n={BIG_N}, 1920x1080, {int(vis.sum())} "
           f"visible: culled rows zero {culled_zero} | NaN where the plain "
           f"version's {nan_same} | within {K7_RTOL} relative plus "
           f"{K7_ATOL} of the field's largest {close} | max error over the "
-          f"field's largest {rel} | kernel {k7_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.4f} ms (bytes, {per_splat} B a splat: "
-          f"{bound_ms / k7_ms:.1%} of HBM) | projection forward and "
-          f"backward: plain ops with autograd {autograd_ms:.3f} ms, K6 + "
-          f"K7 {fused_ms:.3f} ms | {card}", flush=True)
+          f"field's largest {rel} | {timing_note(rec)}, {per_splat} B a "
+          f"splat | {card}", flush=True)
     if not (culled_zero and nan_same and close):
         fail(f"K7 disagrees with its plain version on big2m at SH degree "
              f"{sh}")
-    return dict(sh_degree=sh, max_abs_err=None,
-                max_rel_err=max(rel.values()), ms=k7_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="bytes", library_ms=None,
-                autograd_path_ms=autograd_ms, k6_k7_path_ms=fused_ms)
+    return dict(sh_degree=sh, **rec)
 
 
 def _small_scene(device):
@@ -1512,11 +1442,8 @@ def phase_main(torch, card):
     gaussians.save_ply(synthetic.make_big_scene(BIG_N, device="cpu"), ply)
 
     _kernels.reset_launches()
-    t0 = time.perf_counter()
     render_cli.main(["-s", src, "-m", model, "--resolution", "1",
                      "--skip_test", "--device", DEVICE])
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
     launches = dict(_kernels.LAUNCHES)
     n_views = len(names)
     if launches != _forward_launches(n_views):
@@ -1533,232 +1460,107 @@ def phase_main(torch, card):
             fail(f"{p}: shape {arr.shape}, constant={arr.std() == 0}")
 
     print(f"[9 main render] render CLI, {BIG_N} gaussians, {n_views} views "
-          f"at 1920x1080 in {cli_s:.1f} s (PNGs written) | "
-          f"launches {launches} | {card}", flush=True)
-    frame_times(torch, card, f"big2m ({BIG_N} gaussians, from the PLY)",
-                gaussians.load_ply(ply, 0, device=DEVICE))
-    frame_times(torch, card, f"ball100k ({BALL_N} gaussians)",
-                synthetic.make_bench_ball(BALL_N, device=DEVICE))
+          f"at 1920x1080 (PNGs written) | launches {launches} | {card}",
+          flush=True)
+    check_frames(torch, card, f"big2m ({BIG_N} gaussians, from the PLY)",
+                 gaussians.load_ply(ply, 0, device=DEVICE))
+    check_frames(torch, card, f"ball100k ({BALL_N} gaussians)",
+                 synthetic.make_bench_ball(BALL_N, device=DEVICE))
     return launches
 
 
-def frame_times(torch, card, name, params):
-    """Median device ms/frame of ``render`` over the YAWS views (CUDA
-    events, after one warm-up view) and the per-stage split of the bench
-    view; fails on a frame that is not finite or is constant."""
+def check_frames(torch, card, name, params):
+    """``render`` of the YAWS views; fails on a frame
+    that is not finite or is constant."""
     from multiview_inpaint_tpu_torch.ops.rasterizer import (RenderCamera,
                                                             render)
     from multiview_inpaint_tpu_torch.utils import synthetic
 
-    cams = [RenderCamera.from_camera(synthetic.bench_camera(y), DEVICE)
-            for y in YAWS]
     bg = torch.zeros(3, device=DEVICE)
-    times, pairs = [], []
+    pairs = []
     with torch.no_grad():
-        render(params, cams[0], bg, device=DEVICE)          # warm-up view
-        torch.cuda.synchronize()
-        for c in cams:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = render(params, c, bg, device=DEVICE)
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
+        for y in YAWS:
+            out = render(params, RenderCamera.from_camera(
+                synthetic.bench_camera(y), DEVICE), bg, device=DEVICE)
             pairs.append(out.pairs)
             if not (torch.isfinite(out.rgb).all()
                     and torch.isfinite(out.depth).all()
                     and float(out.rgb.std()) > 0):
                 fail(f"{name}: frame not finite or constant")
-    print(f"[9 frame {name}] median {statistics.median(times):.3f} "
-          f"ms/frame over {len(times)} views at 1920x1080 (CUDA events, "
-          f"after one warm-up view; all {[round(t, 3) for t in times]}; "
-          f"pairs {pairs}) | {card}", flush=True)
-    split = stage_split(torch, params, cams[0])
-    print(f"[9 stages {name}] ms per stage of the bench view: "
-          f"{json.dumps({k: round(v, 4) for k, v in split.items()})} | "
-          f"{card}", flush=True)
+    print(f"[9 frames {name}] {len(YAWS)} views at 1920x1080 finite and not "
+          f"constant, pairs {pairs} | {card}", flush=True)
 
 
-def stage_split(torch, params, cam):
-    """Device ms of each step of ``api.render`` for one frame, timed with
-    CUDA events (mean of 3 frames after a warm-up frame)."""
-    from multiview_inpaint_tpu_torch.ops.rasterizer import (
-        api, binning, composite_cuda, pair_expand)
-    tiles_x, tiles_y = -(-cam.width // TILE), -(-cam.height // TILE)
-    names = ("project", "rects_compact", "K1_pair_keys", "sort",
-             "segments", "gather_attrs", "K2_composite", "assemble")
-    totals = dict.fromkeys(names, 0.0)
-    frames = 3
-    for it in range(frames + 1):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
-        with torch.no_grad():
-            ev[0].record()
-            proj = api.project(params, cam, 0)
-            ev[1].record()
-            r = binning.compact_rects(proj.means2d, proj.radius, proj.depth,
-                                      tiles_x, tiles_y, TILE, TILE,
-                                      proj.extent)
-            ev[2].record()
-            keys = pair_expand.expand_keys(r.starts, r.x0, r.y0, r.w,
-                                           r.count, r.n_active, r.total,
-                                           tiles_x)
-            ev[3].record()
-            keys = torch.sort(keys).values
-            ev[4].record()
-            counts, seg_start = binning.segments_from_keys(
-                keys, tiles_x * tiles_y)
-            ev[5].record()
-            attrs = composite_cuda.pack_attrs(
-                proj.means2d, proj.conic, proj.opacity, proj.color,
-                proj.depth)[r.order[keys & 0xFFFFFFFF]]
-            ev[6].record()
-            t8 = composite_cuda.composite(attrs, seg_start, counts, tiles_x,
-                                          tiles_y, TILE, TILE)
-            ev[7].record()
-            api.assemble(t8.transpose(1, 2), tiles_x, tiles_y, TILE, TILE,
-                         cam.width, cam.height).contiguous()
-            ev[8].record()
-        torch.cuda.synchronize()
-        if it:
-            for i, n in enumerate(names):
-                totals[n] += ev[i].elapsed_time(ev[i + 1]) / frames
-    return totals
+def kernel_inputs(run):
+    """``run()`` with K1's and K3's calls and the pair binning captured:
+    its result, K1's arguments, K3's (ten, then a band's row0 and stride)
+    and the gaussian of each pair, all of the last such calls."""
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (binning,
+                                                            composite_cuda)
+    with capture(binning, "bin_gaussians",
+                 lambda a, kw, b: b.order[b.gid_sorted]) as gid, \
+            capture(binning, "expand_keys") as k1, \
+            capture(composite_cuda, "composite_bwd") as k3:
+        out = run()
+    return out, k1[-1].args, k3[-1].args, gid[-1]
 
 
-class StepProbe:
-    """Times the real ``gs_trainer.train_step`` by parts and keeps its K3
-    call.
-
-    ``step`` runs one train step with wrappers around what the step
-    calls: ``render``, ``loss_terms`` and ``apply_adam`` in
-    ``gs_trainer``, and under the render the pair binning (to keep each
-    pair's gaussian), K1's wrapper (its inputs are kept), ``pack_attrs``
-    (a gradient hook on its output marks the end of the gather's
-    backward) and K3's wrapper (its inputs are kept). Each boundary
-    records a CUDA event.
-    """
-    MARKS = ("step", "render", "loss", "k3_in", "k3_out", "gather",
-             "adam_in", "adam_out")
-    PARTS = ("render_fwd", "loss_fwd", "bwd_loss_assemble", "bwd_K3",
-             "bwd_gather", "bwd_projection", "adam")
-
-    def __init__(self, torch):
-        from multiview_inpaint_tpu_torch.models import gs_trainer
-        from multiview_inpaint_tpu_torch.ops.rasterizer import (
-            api, binning, composite_cuda)
-        self.torch, self.ev, self.k3_args, self.gid = torch, {}, None, None
-        self.k1_args = None
-
-        def marked(fn, first, last):
-            def run(*a, **kw):
-                if first:
-                    self.mark(first)
-                out = fn(*a, **kw)
-                self.mark(last)
-                return out
-            return run
-
-        def bins(*a, **kw):
-            b = bin_gaussians(*a, **kw)
-            self.gid = b.order[b.gid_sorted]
-            return b
-
-        def pack(*a):
-            packed = pack_attrs(*a)
-            if packed.requires_grad:
-                packed.register_hook(lambda g: self.mark("gather"))
-            return packed
-
-        def k3(*a):
-            # K3's ten arguments, then the band's row0 and stride
-            self.k3_args, self.k3_band = a[:10], a[10:]
-            return k3_marked(*a)
-
-        def k1(*a):
-            self.k1_args = a
-            return expand_keys(*a)
-
-        bin_gaussians, pack_attrs = binning.bin_gaussians, api.pack_attrs
-        expand_keys = binning.expand_keys
-        k3_marked = marked(composite_cuda.composite_bwd, "k3_in", "k3_out")
-        self.patches = [
-            (gs_trainer, "render", marked(gs_trainer.render, None, "render")),
-            (gs_trainer, "loss_terms",
-             marked(gs_trainer.loss_terms, None, "loss")),
-            (gs_trainer, "apply_adam",
-             marked(gs_trainer.apply_adam, "adam_in", "adam_out")),
-            (binning, "bin_gaussians", bins), (binning, "expand_keys", k1),
-            (api, "pack_attrs", pack),
-            (composite_cuda, "composite_bwd", k3)]
-
-    def mark(self, key):
-        self.ev[key] = self.torch.cuda.Event(enable_timing=True)
-        self.ev[key].record()
-
-    def step(self, *args):
-        """``gs_trainer.train_step(*args)`` with the wrappers in place;
-        returns its result and the device ms of each of ``PARTS``."""
-        from multiview_inpaint_tpu_torch.models import gs_trainer
-        saved = [(m, n, getattr(m, n)) for m, n, _ in self.patches]
-        for m, n, f in self.patches:
-            setattr(m, n, f)
-        try:
-            self.mark("step")
-            out = gs_trainer.train_step(*args)
-            self.torch.cuda.synchronize()
-        finally:
-            for m, n, f in saved:
-                setattr(m, n, f)
-        return out, {p: self.ev[a].elapsed_time(self.ev[b]) for p, a, b in
-                     zip(self.PARTS, self.MARKS, self.MARKS[1:])}
-
-
-def phase_train(torch, card, iterations=TRAIN_ITERS, extra=()):
+def phase_train(torch, card):
     """Main path 2: one train step of the orbit scene (K3 held against its
-    plain version there), then the train_gs CLI on that scene, with
-    ``extra`` CLI arguments; returns the launch counts of the CLI run and
-    K3's record for the kernels line."""
+    plain version there and timed, K1 and K2 checked on its inputs), then
+    the train_gs CLI on that scene; returns the launch counts of the CLI
+    run and K3's record for the kernels line."""
+    from port_bench.counts import composite as bounds
     from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.gs.scene import Scene
     from multiview_inpaint_tpu_torch.models import gs_trainer
-    from multiview_inpaint_tpu_torch.ops.rasterizer import RenderCamera
+    from multiview_inpaint_tpu_torch.ops.rasterizer import (
+        RenderCamera, composite, composite_cuda)
     from multiview_inpaint_tpu_torch.pipelines import train_gs
     from multiview_inpaint_tpu_torch.utils import synthetic
 
+    iterations = TRAIN_ITERS
     work = os.path.join(REPO, "build", "smoke_train")
     shutil.rmtree(work, ignore_errors=True)
     src = os.path.join(work, "scene")
     model = os.path.join(work, "model")
-    t0 = time.perf_counter()
     names = synthetic.write_orbit_colmap_scene(
         src, synthetic.make_big_scene(BIG_N, device=DEVICE),
         np.linspace(-0.35, 0.35, TRAIN_VIEWS), TRAIN_W, TRAIN_H,
         TRAIN_POINTS)
-    scene_s = time.perf_counter() - t0
 
     # The CLI's first step: its scene, init and loss, on one of its views.
     scene = Scene(src, os.path.join(work, "first_step"), resolution=1,
                   device=DEVICE)
     cam = scene.train_cameras()[0]
-    probe = StepProbe(torch)
-    (state, _), _ = probe.step(
-        gs_trainer.init_state(scene.gaussians),
-        RenderCamera.from_camera(cam, DEVICE),
-        torch.as_tensor(np.asarray(cam.image, np.float32), device=DEVICE),
-        torch.zeros(3, device=DEVICE), gs_trainer.OptimizationConfig(),
-        scene.cameras_extent)
-    k3 = check_k3(torch, card, "10 K3 orbit-train first step",
-                  probe.k3_args, probe.gid, state.params.capacity)
-    k2_with_state(torch, card, probe)
+    (state, _), k1_args, k3_args, gid = kernel_inputs(
+        lambda: gs_trainer.train_step(
+            gs_trainer.init_state(scene.gaussians),
+            RenderCamera.from_camera(cam, DEVICE),
+            torch.as_tensor(np.asarray(cam.image, np.float32),
+                            device=DEVICE),
+            torch.zeros(3, device=DEVICE), gs_trainer.OptimizationConfig(),
+            scene.cameras_extent))
+    err = check_k3(torch, card, "10 K3 orbit-train first step", k3_args,
+                   gid, state.params.capacity)
+    attrs, seg_start, counts, _, _, tiles_x, tiles_y, th, tw = k3_args[:9]
+    walk = bounds.walk_counts(attrs, seg_start, counts, tiles_x, tiles_y,
+                              th, tw)
+    k3 = timed(torch, lambda: composite_cuda.composite_bwd(*k3_args),
+               lambda: composite.composite_segments_bwd(*k3_args), 5, 1,
+               *composite_bound(bounds.k3_bound_s, walk, attrs.shape[0],
+                                tiles_x * tiles_y, th * tw),
+               max_abs_err=err)
+    print(f"[10 K3 orbit-train first step] {timing_note(k3)} | {card}",
+          flush=True)
+    k2_with_state(torch, card, k1_args, k3_args, "10", "orbit-train")
     seen = state.stats.denom > 0
     threshold = float(torch.quantile(state.stats.grad_accum[seen],
                                      DENSIFY_QUANTILE))
     capacity = TRAIN_POINTS + TRAIN_SPARE_ROWS
-    del scene, probe, state
+    del scene, state, k1_args, k3_args, gid
 
     _kernels.reset_launches()
-    t0 = time.perf_counter()
     train_gs.main([
         "-s", src, "-m", model, "--resolution", "1",
         "--iterations", str(iterations), "--densify_from_iter", "20",
@@ -1768,10 +1570,8 @@ def phase_train(torch, card, iterations=TRAIN_ITERS, extra=()):
         "--test_iterations", str(iterations),
         "--save_iterations", str(iterations),
         "--checkpoint_iterations", str(iterations), "--log_interval", "10",
-        "--device", DEVICE, *extra,
+        "--device", DEVICE,
     ])
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
     launches = dict(_kernels.LAUNCHES)
 
     with open(os.path.join(model, "train_log.jsonl")) as f:
@@ -1805,7 +1605,7 @@ def phase_train(torch, card, iterations=TRAIN_ITERS, extra=()):
     print(f"[10 main train] train_gs CLI, {iterations} iterations on "
           f"{len(names)} views at {TRAIN_W}x{TRAIN_H} (GT rendered from "
           f"{BIG_N} gaussians, {TRAIN_POINTS} init points in {capacity} "
-          f"rows; scene written in {scene_s:.1f} s) in {cli_s:.1f} s | loss "
+          f"rows) | loss "
           f"{[round(r['loss'], 5) for r in steps]} | points "
           f"{last.get('points')} capacity {last.get('capacity')} pairs "
           f"{last.get('pairs')} | densify threshold {threshold:.4g} (the "
@@ -1817,122 +1617,73 @@ def phase_train(torch, card, iterations=TRAIN_ITERS, extra=()):
     return launches, k3
 
 
-def k2_with_state(torch, card, probe, label="10", cell="orbit-train"):
-    """K1 and K2 on the inputs of the step ``probe`` ran (main path 2's
-    first step by default): K1's keys bit-equal to the plain version's,
-    K1 timed with its bound; K2 with and without the per-item state:
-    tiles bit-equal, the state held against the plain K2's
-    (``compare_state``), both timed, with K2's bound. Returns K1's and
-    K2's records (ms, plain ms, bound)."""
+def k2_with_state(torch, card, k1_args, k3_args, label, cell):
+    """K1 and K2 on the inputs of a train step (``kernel_inputs``): K1's
+    keys bit-equal to the plain version's; K2 with and without the
+    per-item state: tiles bit-equal and equal to the step's, the state
+    equal to the step's and held against the plain K2's
+    (``compare_state``)."""
     from multiview_inpaint_tpu_torch.ops.rasterizer import (
         composite, composite_cuda, pair_expand)
 
-    k1_args = probe.k1_args
-    same_keys = torch.equal(pair_expand.expand_keys(*k1_args),
-                            pair_expand.expand_keys_ref(*k1_args))
-    k1_ms = cuda_ms(torch, lambda: pair_expand.expand_keys(*k1_args), 50)
-    k1_plain_ms = cuda_ms(torch,
-                          lambda: pair_expand.expand_keys_ref(*k1_args), 3)
-    k1_bound = (k1_args[6] * 8 + k1_args[5] * (8 + 4 + 4 + 4)) \
-        / HBM_BYTES_PER_S * 1e3
-    print(f"[{label} K1 {cell}] actives {k1_args[5]} pairs {k1_args[6]}: "
-          f"keys equal {same_keys} | kernel {k1_ms:.4f} ms, plain "
-          f"{k1_plain_ms:.4f} ms, bound {k1_bound:.4f} ms (bytes) | {card}",
-          flush=True)
-    if not same_keys:
+    if not torch.equal(pair_expand.expand_keys(*k1_args),
+                       pair_expand.expand_keys_ref(*k1_args)):
         fail(f"K1 keys differ from the plain version at {cell}")
-    attrs, seg_start, counts, tiles8, _, *size, state = probe.k3_args
+    attrs, seg_start, counts, tiles8, _, *size, state = k3_args[:10]
     n_items = int(composite.item_ends(counts)[-1])  # rows past it are unset
     k2_args = (attrs.detach(), seg_start, counts, *size)
     with torch.no_grad():
         plain = composite_cuda.composite_fwd(*k2_args)
         with_st, st = composite_cuda.composite_fwd(*k2_args, with_state=True)
-        ms = cuda_ms(torch, lambda: composite_cuda.composite_fwd(*k2_args),
-                     10)
-        ms_st = cuda_ms(torch, lambda: composite_cuda.composite_fwd(
-            *k2_args, with_state=True), 10)
-        k2_plain_ms = cuda_ms(
-            torch, lambda: composite.composite_segments(*k2_args), 1)
         _, st_p = composite.composite_segments(*k2_args, with_state=True)
-    walk, k2_bound = k2_bound_of(torch, *k2_args)
-    note = compare_state(torch, f"{label} K2 {cell}", attrs, counts, st,
-                         st_p)
+    note = compare_state(torch, f"{label} K2 {cell}", k2_args[0], counts,
+                         st, st_p)
     same = (torch.equal(plain, with_st) and torch.equal(plain, tiles8)
             and torch.equal(st[:n_items], state[:n_items]))
-    print(f"[{label} K2 {cell}] tiles equal with and without the per-item "
-          f"state ({tuple(st.shape)}, {st.numel() * 4 / 1e6:.1f} MB) and "
-          f"equal to the step's, state equal to the step's: {same} | "
-          f"{note} | kernel {ms:.4f} ms, with the state {ms_st:.4f} ms, "
-          f"plain {k2_plain_ms:.2f} ms, bound {k2_bound['bound_ms']:.4f} ms "
-          f"({k2_bound['bound_by']}; walked, kept, contributing share of "
-          f"pair-pixels "
-          f"{walk_shares(walk, attrs.shape[0] * size[2] * size[3])}) | "
-          f"{card}", flush=True)
+    print(f"[{label} K1, K2 {cell}] actives {k1_args[5]} pairs "
+          f"{k1_args[6]}: keys equal | K2 tiles equal with and without the "
+          f"per-item state ({tuple(st.shape)}, {st.numel() * 4 / 1e6:.1f} "
+          f"MB) and equal to the step's, state equal to the step's: {same} "
+          f"| {note} | {card}", flush=True)
     if not same:
         fail(f"K2's tiles or state differ with the state output at {cell}")
-    return (dict(ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound),
-            dict(ms=ms_st, plain_ms=k2_plain_ms, **k2_bound))
 
 
-def phase_step_time(torch, card):
-    """The train step at full width: median ms/step, the split of the
-    real step (mean of 3 probed steps) and its K3 call against the plain
-    K3."""
-    from multiview_inpaint_tpu_torch.gs import cameras
+def phase_step_full(torch, card):
+    """The train step at full width: 12 steps, each with
+    a finite loss and gradients; the last one's K3 call against the plain
+    K3, then fed a planted next-item state."""
     from multiview_inpaint_tpu_torch.models import gs_trainer
-    from multiview_inpaint_tpu_torch.ops.rasterizer import RenderCamera
-    from multiview_inpaint_tpu_torch.utils import synthetic
 
-    params = synthetic.make_bench_ball(STEP_N, capacity=STEP_CAPACITY,
-                                       device=DEVICE)
-    cam = RenderCamera.from_camera(cameras.make_camera(
-        0, np.eye(3), np.array([0.0, 0.0, 3.0]), fovx=1.1, fovy=0.8,
-        width=STEP_W, height=STEP_H), DEVICE)
-    gt = torch.from_numpy(np.random.default_rng(0).uniform(
-        0, 1, (STEP_H, STEP_W, 3)).astype(np.float32)).to(DEVICE)
-    bg = torch.zeros(3, device=DEVICE)
+    params, cam, gt, bg = _step_cell(torch)
     cfg = gs_trainer.OptimizationConfig()
     state = gs_trainer.init_state(params)
-    times = []
-    for it in range(12):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    for _ in range(11):
         state, m = gs_trainer.train_step(state, cam, gt, bg, cfg, 1.0)
-        end.record()
-        torch.cuda.synchronize()
-        if it >= 2:
-            times.append(start.elapsed_time(end))
         if not torch.isfinite(m.loss) or int(m.nonfinite_grads):
             fail("full-width train step: loss or gradients not finite")
-    parts = []
-    for _ in range(3):
-        probe = StepProbe(torch)
-        (state, m), ms = probe.step(state, cam, gt, bg, cfg, 1.0)
-        parts.append(ms)
-    split = {p: statistics.mean(ms[p] for ms in parts)
-             for p in StepProbe.PARTS}
-    print(f"[11 step time] {STEP_N} gaussians in {STEP_CAPACITY} rows at "
-          f"{STEP_W}x{STEP_H}, pairs {m.pairs}: median "
-          f"{statistics.median(times):.3f} ms/step over {len(times)} steps "
-          f"(CUDA events, after 2 warm-up steps; all "
-          f"{[round(t, 3) for t in times]}) | split of the step (ms, mean "
-          f"of 3 steps): "
-          f"{json.dumps({k: round(v, 4) for k, v in split.items()})} | "
-          f"{card}", flush=True)
-    check_k3(torch, card, "11 K3 ball2m-train step", probe.k3_args,
-             probe.gid, state.params.capacity)
-    k3_fault(torch, card, "11 K3 planted fault", probe.k3_args, probe.gid,
+    (state, m), _, k3_args, gid = kernel_inputs(
+        lambda: gs_trainer.train_step(state, cam, gt, bg, cfg, 1.0))
+    if not torch.isfinite(m.loss) or int(m.nonfinite_grads):
+        fail("full-width train step: loss or gradients not finite")
+    print(f"[11 step] {STEP_N} gaussians in {STEP_CAPACITY} rows at "
+          f"{STEP_W}x{STEP_H}, pairs {m.pairs}: 12 steps, loss and "
+          f"gradients finite | {card}", flush=True)
+    check_k3(torch, card, "11 K3 ball2m-train step", k3_args, gid,
+             state.params.capacity)
+    k3_fault(torch, card, "11 K3 planted fault", k3_args[:10], gid,
              state.params.capacity)
 
 
-def phase_k4(torch, card, shapes=K4_SHAPES, label="12"):
+def phase_k4(torch, card, shapes, label, headline=False):
     """K4 against its plain version on packed [B, T, H*D] inputs at a
-    main path's shapes (main path 3's by default); returns the record of
-    each shape for the kernels line (launches filled in later). The
-    launches made here are taken off the counters again."""
+    main path's shapes. With ``headline`` (main path 3's shapes) its bf16
+    shapes, ds1 and ds2, are also timed beside their bound; returns their
+    records for the kernels line (launches filled in later). The launches
+    made here are taken off the counters again."""
     import torch.nn.functional as F
 
+    from port_bench.counts import attention, peaks
     from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.diffusion import flash_attention as fa
 
@@ -1953,42 +1704,28 @@ def phase_k4(torch, card, shapes=K4_SHAPES, label="12"):
             rel = err / float(plain.float().abs().max())
             equal = torch.equal(out, again)
             same_folded = torch.equal(fa._unfold(folded, h), out)
-            ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, h, scale),
-                         20)
-            plain_ms = cuda_ms(
-                torch, lambda: fa.flash_attention_ref(q, k, v, h, scale), 3)
+        note = ""
+        if headline and dtype == "bfloat16":
+            bound_s = attention.k4_bound_s(b, h, t, d, q.element_size())
+            t_bytes = 4 * q.numel() * q.element_size() / peaks.HBM_BYTES_PER_S
             qh, kh, vh = (x.view(b, t, h, d).transpose(1, 2)
                           for x in (q, k, v))
-            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, scale=scale), 20)
-            # K4 rounds f32 operands to bf16 as it stages them: SDPA on the
-            # bf16-rounded operands is the like-for-like yardstick
-            qb, kb, vb = (x.to(torch.bfloat16) for x in (qh, kh, vh))
-            lib_bf16_ms = cuda_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    qb, kb, vb, scale=scale), 20)
-        flop = 4 * b * h * t * t * d
-        t_ops = max(flop / BF16_FLOP_PER_S, b * h * t * t / SFU_OP_PER_S)
-        t_bytes = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S
-        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   bound_ms=max(t_ops, t_bytes) * 1e3,
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   library_ms=lib_ms, vs_library=ms / lib_ms,
-                   library_bf16_ms=lib_bf16_ms,
-                   vs_library_bf16=ms / lib_bf16_ms)
-        records.append(rec)
+            rec = timed(torch, lambda: fa.flash_attention(q, k, v, h, scale),
+                        lambda: fa.flash_attention_ref(q, k, v, h, scale),
+                        20, 3, bound_s,
+                        "operations" if bound_s > t_bytes else "bytes",
+                        library=lambda: F.scaled_dot_product_attention(
+                            qh, kh, vh, scale=scale),
+                        max_abs_err=err)
+            records.append(rec)
+            note = (f" | {timing_note(rec)}, "
+                    f"{attention.k4_flop(b, h, t, d) / rec['ms'] / 1e9:.1f} "
+                    f"TFLOP/s")
         print(f"[{label} K4 {dtype} [{b}, {t}, {h}*{d}], {h} heads] max abs "
-              f"err "
-              f"{err:.4g} (bar {K4_ABS_TOL}), rel {rel:.4g} (bar "
+              f"err {err:.4g} (bar {K4_ABS_TOL}), rel {rel:.4g} (bar "
               f"{K4_REL_TOL}) | bit-equal on a second run: {equal}, equal "
-              f"to K4 on the folded [{b * h}, {t}, {d}]: {same_folded} | "
-              f"kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain "
-              f"{plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']}, {rec['bound_ms'] / ms:.3f} of it), SDPA "
-              f"{lib_ms:.4f} ms (yardstick only), kernel/SDPA "
-              f"{ms / lib_ms:.3f}x, SDPA on the bf16-rounded operands "
-              f"{lib_bf16_ms:.4f} ms, kernel/that {ms / lib_bf16_ms:.3f}x "
-              f"| {card}", flush=True)
+              f"to K4 on the folded [{b * h}, {t}, {d}]: {same_folded}"
+              f"{note} | {card}", flush=True)
         if not (torch.isfinite(out).all() and equal and same_folded
                 and err <= K4_ABS_TOL and rel <= K4_REL_TOL):
             fail(f"K4 disagrees with its plain version at [{b}, {t}, "
@@ -2089,83 +1826,15 @@ def phase_svd_engine(torch):
         fail(f"the SVD engine on {DEVICE} disagrees with the cpu")
 
 
-class SvdProbe:
-    """CUDA events around what ``svd_test.run`` calls on its engine:
-    ``prepare_cond`` (conditioning: CLIP + VAE encode), each denoiser
-    evaluation of ``sample`` (one per sampler step) and
-    ``decode_first_stage``; keeps the engine and the sampler's
-    conditioning. ``attach`` wraps the engine instance's methods."""
-
-    def __init__(self, torch):
-        self.torch, self.engine, self.conds = torch, None, None
-        self.ev = {"cond": [], "step": [], "sample_end": [], "decode": []}
-        self.peak_gb = {}
-
-    def event(self, key):
-        e = self.torch.cuda.Event(enable_timing=True)
-        e.record()
-        self.ev[key].append(e)
-
-    def attach(self, eng):
-        self.engine = eng
-        prepare, sample = eng.prepare_cond, eng.sample
-        decode, denoise_fn = eng.decode_first_stage, eng.denoise_fn
-
-        def peak(key, fn, *a, **kw):
-            """fn's result; the peak of allocated device memory while it
-            ran, per key."""
-            self.torch.cuda.reset_peak_memory_stats()
-            out = fn(*a, **kw)
-            self.peak_gb[key] = max(self.peak_gb.get(key, 0.0),
-                                    self.torch.cuda.max_memory_allocated()
-                                    / 1e9)
-            return out
-
-        def timed(fn, key):
-            def run(*a, **kw):
-                self.event(key)
-                out = peak(key, fn, *a, **kw)
-                self.event(key)
-                return out
-            return run
-
-        def probed_sample(cond, uc, **kw):
-            self.conds = (cond, uc)
-            out = peak("sample", sample, cond, uc, **kw)
-            self.event("sample_end")
-            return out
-
-        def probed_denoise_fn():
-            dn = denoise_fn()
-
-            def run(*a):
-                self.event("step")
-                return dn(*a)
-            return run
-
-        eng.prepare_cond = timed(prepare, "cond")
-        eng.decode_first_stage = timed(decode, "decode")
-        eng.sample = probed_sample
-        eng.denoise_fn = probed_denoise_fn
-
-    def split(self):
-        """(conditioning ms, per-step ms list, decode ms)."""
-        def pairs(evs):
-            return [a.elapsed_time(b) for a, b in zip(evs[::2], evs[1::2])]
-        marks = self.ev["step"] + self.ev["sample_end"]
-        steps = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
-        return sum(pairs(self.ev["cond"])), steps, sum(pairs(
-            self.ev["decode"]))
-
-
 def phase_svd_main(torch, card):
     """Main path 3: the svd_test CLI at full width on a synthetic gs/ tree
     (1 scene, 1 ctrl, mode x1), every all-zero parameter of the random
-    engine moved and the counters zeroed before; returns the launch counts
-    and the probe (its engine and conditioning)."""
+    engine moved, under the spans; returns the launch counts, the engine
+    and the sampler's conditioning (c, uc)."""
     from PIL import Image
 
     from multiview_inpaint_tpu_torch import kernels as _kernels
+    from multiview_inpaint_tpu_torch.diffusion.engine import SVDEngine
     from multiview_inpaint_tpu_torch.pipelines import svd_test
     from multiview_inpaint_tpu_torch.utils import synthetic
 
@@ -2175,35 +1844,17 @@ def phase_svd_main(torch, card):
     synthetic.write_gs_tree(root, scene="scene_case", ctrl="ctrl_0",
                             modes=("x1",), frames=SVD_FRAMES,
                             size=(SVD_H, SVD_W), iteration=30000)
-    probe = SvdProbe(torch)
-    init_engine = svd_test.init_engine
-    info = {}
-
-    def init(*a, **kw):
-        t0 = time.perf_counter()
-        eng = init_engine(*a, **kw)
-        info["moved"] = perturb_zero_params(torch, eng, 7)
-        torch.cuda.synchronize()
-        info["init_s"] = time.perf_counter() - t0
-        info["params"] = sum(p.numel() for p in eng.parameters())
-        probe.attach(eng)
-        return eng
-
-    svd_test.init_engine = init
-    try:
-        _kernels.reset_launches()
-        t0 = time.perf_counter()
+    _kernels.reset_launches()
+    with capture(svd_test, "init_engine", perturbed(torch, 7)) as engines, \
+            capture(SVDEngine, "sample") as samples, \
+            spans("14 main svd") as sp:
         svd_test.main(["--data_root", root, "--logdir",
                        os.path.join(work, "logs"), "--modes", "x1",
                        "--num_frames", str(SVD_FRAMES), "--num_steps",
                        str(SVD_STEPS), "--size", str(SVD_H), str(SVD_W),
                        "--device", DEVICE])
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
-    finally:
-        svd_test.init_engine = init_engine
     launches = dict(_kernels.LAUNCHES)
-    cond_ms, steps, decode_ms = probe.split()
+    eng = engines[0]
     out_dir = os.path.join(root, "inpainted", "scene_case", "ctrl_0", "x1")
     pngs = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
     finite = []
@@ -2212,34 +1863,26 @@ def phase_svd_main(torch, card):
             arr = np.asarray(im, np.float32)
         finite.append(arr.shape == (SVD_H, SVD_W, 3)
                       and bool(np.isfinite(arr).all()))
-    clip_s = (cond_ms + sum(steps) + decode_ms) / 1e3
     want = K4_PER_EVAL * SVD_STEPS
     checks = {
         f"{SVD_FRAMES} frames written": len(pngs) == SVD_FRAMES,
         f"frames finite, {SVD_H}x{SVD_W}": bool(finite) and all(finite),
         f"K4 launched {want} times": launches["flash_attn_fwd"] == want,
         "no rasterizer kernel": launches["composite"] == 0,
-        f"{SVD_STEPS} denoiser evaluations": len(steps) == SVD_STEPS,
+        f"{SVD_STEPS} denoiser evaluations":
+        sp.get("engine.eval", {}).get("count") == SVD_STEPS,
     }
-    print(f"[14 main svd] svd_test CLI, {info.get('params')} parameters "
-          f"(bf16; the VAE f32) initialised on the card in "
-          f"{info.get('init_s', 0):.1f} s ({info.get('moved')} all-zero "
-          f"tensors moved), {SVD_FRAMES} frames at {SVD_H}x{SVD_W}, "
-          f"{SVD_STEPS} steps, CFG batch {2 * SVD_FRAMES}, in {cli_s:.1f} s | "
-          f"clip {clip_s:.2f} s: conditioning (CLIP + VAE encode, c and uc) "
-          f"{cond_ms:.1f} ms, sampler step median "
-          f"{statistics.median(steps) if steps else 0:.1f} ms (all "
-          f"{[round(s, 1) for s in steps]}), VAE decode {decode_ms:.1f} ms "
-          f"| peak device memory (GB) while each part ran "
-          f"{json.dumps({k: round(v, 2) for k, v in probe.peak_gb.items()})} "
-          f"| launches {launches} | "
-          f"{json.dumps(checks)} | {card}", flush=True)
+    print(f"[14 main svd] svd_test CLI, "
+          f"{sum(p.numel() for p in eng.parameters())} parameters (bf16; "
+          f"the VAE f32) made on the card, {SVD_FRAMES} frames at "
+          f"{SVD_H}x{SVD_W}, {SVD_STEPS} steps, CFG batch {2 * SVD_FRAMES} | "
+          f"launches {launches} | {json.dumps(checks)} | {card}", flush=True)
     if not all(checks.values()):
         fail(f"main path 3 (svd_test CLI) checks failed: {checks}")
-    return launches, probe
+    return launches, eng, samples[0].args[1:3]
 
 
-def phase_svd_eval(torch, card, probe):
+def phase_svd_eval(torch, card, eng, conds):
     """One full-width guided denoiser evaluation at sigma_max, q and k
     projections scaled by SVD_QK_GAIN: through K4; with ``attention_op``'s
     K4 call patched to the plain version; patched to two planted faults
@@ -2252,8 +1895,7 @@ def phase_svd_eval(torch, card, probe):
     from multiview_inpaint_tpu_torch.diffusion.transformer import (
         CrossAttention)
 
-    eng = probe.engine
-    cond, uc = probe.conds
+    cond, uc = conds
     shape = (SVD_FRAMES, SVD_H // 8, SVD_W // 8, 4)
     sigma = torch.full((SVD_FRAMES,), eng.cfg.sigma_max, device=DEVICE)
     with torch.no_grad():
@@ -2263,31 +1905,18 @@ def phase_svd_eval(torch, card, probe):
                 m.to_k.weight.mul_(SVD_QK_GAIN)
     real = attention_op.flash_attention
     ref = flash_attention.flash_attention_ref
-    logit_std = []
-
-    def k4_logged(q, k, v, heads, sm):
-        """K4; notes the std of one ds1 head's logits on 256 rows."""
-        if not logit_std and q.shape[1] == 3072:
-            d = q.shape[2] // heads
-            s = q[0, :256, :d].float() @ k[0, :, :d].float().T * sm
-            logit_std.append(float(s.std()))
-        return real(q, k, v, heads, sm)
 
     def evaluate(seed, attend):
         gen = torch.Generator(device=DEVICE).manual_seed(seed)
         x = torch.randn(shape, generator=gen, device=DEVICE) * float(
             (1 + eng.cfg.sigma_max ** 2) ** 0.5)
-        attention_op.flash_attention = attend
-        try:
+        with patched(attention_op, "flash_attention", attend):
             _kernels.reset_launches()
             gx, gs, gc = eng.guider.prepare(x, sigma, cond, uc)
             out = eng.denoise_fn()(gx, gs, gc)
-            torch.cuda.synchronize()
-        finally:
-            attention_op.flash_attention = real
         return out, _kernels.LAUNCHES["flash_attn_fwd"]
 
-    out_k4, n_k4 = evaluate(11, k4_logged)
+    out_k4, n_k4 = evaluate(11, real)
     out_plain, n_plain = evaluate(11, ref)
     out_drop, _ = evaluate(11, lambda q, k, v, h, sm: ref(
         q, k[:, FAULT_KEYS:], v[:, FAULT_KEYS:], h, sm))
@@ -2308,7 +1937,7 @@ def phase_svd_eval(torch, card, probe):
     bar = SVD_EVAL_RMS_TOL
     print(f"[15 svd eval] one guided denoiser evaluation at sigma "
           f"{eng.cfg.sigma_max} (batch {2 * SVD_FRAMES}), q and k x"
-          f"{SVD_QK_GAIN} (logit std of a ds1 head {logit_std}): K4 "
+          f"{SVD_QK_GAIN}: K4 "
           f"launches {n_k4}, with attention_op's K4 call patched to the "
           f"plain version {n_plain} | relative rms diff from the "
           f"plain-attention output: K4 {err:.4g} (max abs "
@@ -2327,34 +1956,14 @@ def phase_svd_eval(torch, card, probe):
              "attention, or the bar does not separate the planted faults")
 
 
-def _counted_collectives(mesh, calls):
-    """Wrappers counting each collective of ``mesh`` (calls, bytes of the
-    tensor handed in) into ``calls``; returns the originals to restore."""
-    real = {n: getattr(mesh, n) for n in ("all_to_all_rows",
-                                          "all_gather_rows")}
-
-    def counted(name):
-        def run(x, *a, **kw):
-            c = calls.setdefault(name, [0, 0])
-            c[0] += 1
-            c[1] += x.numel() * x.element_size()
-            return real[name](x, *a, **kw)
-        return run
-
-    for n in real:
-        setattr(mesh, n, counted(n))
-    return real
-
-
-def phase_frame_sharded(torch, card, probe):
+def phase_frame_sharded(torch, card, eng, conds):
     """Main path 12 (a), on main path 3's engine (phase 15's q and k
     scaling kept) and conditioning: NCCL at world size 1 (tcp on
     localhost); one ``frame_sharded_apply_model`` of svd-clip's CFG batch
     of 28 rows at 512x384 against ``engine.apply_model``, its collectives
     counted; then a 25-step clip through ``make_frame_sharded_denoiser``
-    against ``engine.sample`` from the same noise, each timed on the host
-    clock (synchronised) with its peak memory, counters zeroed before the
-    sharded clip; then the forward with each of FS_FAULTS planted, and
+    against ``engine.sample`` from the same noise, counters zeroed before
+    the sharded clip; then the forward with each of FS_FAULTS planted, and
     all of it again on the engine cast to f32 (which frees main path 3's
     bf16 weights) with ``attention_op``'s K4 call patched to the plain
     f32 attention, since K4 rounds p to bf16 before p.v whatever the
@@ -2369,9 +1978,7 @@ def phase_frame_sharded(torch, card, probe):
     from multiview_inpaint_tpu_torch.parallel import (
         svd_inference_parallel as sp)
 
-    eng = probe.engine
-    cond, uc = probe.conds
-    k4 = attention_op.flash_attention
+    cond, uc = conds
     shape = (SVD_FRAMES, SVD_H // 8, SVD_W // 8, 4)
     noise = torch.randn(shape, generator=torch.Generator(
         device=DEVICE).manual_seed(31), device=DEVICE)
@@ -2395,13 +2002,9 @@ def phase_frame_sharded(torch, card, probe):
 
     def forward(fault=None):
         """The sharded forward, ``fault`` planted in ``FrameShard``."""
-        if fault:
-            setattr(sp.FrameShard, *plant[fault])
-        try:
-            with torch.no_grad():
-                return sp.frame_sharded_apply_model(eng, xs, c_noise, gc)
-        finally:
-            sp.FrameShard.frame_index, sp.FrameShard.bind = index, bind
+        with (patched(sp.FrameShard, *plant[fault]) if fault
+              else contextlib.nullcontext()), torch.no_grad():
+            return sp.frame_sharded_apply_model(eng, xs, c_noise, gc)
 
     def readings():
         """Each planted fault's relative rms against ``apply_model``."""
@@ -2410,51 +2013,39 @@ def phase_frame_sharded(torch, card, probe):
         return {f: _rms(forward(f), want) for f in FS_FAULTS}
 
     def clip(denoise_fn):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        z = SVDEngine.sample(eng, cond, uc, noise=noise,
-                             num_steps=SVD_STEPS, denoise_fn=denoise_fn)
-        torch.cuda.synchronize()
-        return (z, time.perf_counter() - t0,
-                torch.cuda.max_memory_allocated() / 1e9)
+        return SVDEngine.sample(eng, cond, uc, noise=noise,
+                                num_steps=SVD_STEPS, denoise_fn=denoise_fn)
 
-    calls = {}
-    t0 = time.perf_counter()
+    def nbytes(args, kw, out):
+        return args[0].numel() * args[0].element_size()
+
     mesh.init(0, 1, f"tcp://127.0.0.1:{_free_port()}", DEVICE)
-    init_s = time.perf_counter() - t0
     try:
         backend = dist.get_backend()
         with torch.no_grad():
             want = eng.apply_model(xs, c_noise, gc)
-        real = _counted_collectives(mesh, calls)
-        try:
+        with capture(mesh, "all_to_all_rows", nbytes) as a2a, \
+                capture(mesh, "all_gather_rows", nbytes) as gathers:
             _kernels.reset_launches()
             got = forward()
-            torch.cuda.synchronize()
             fwd_k4 = _kernels.LAUNCHES["flash_attn_fwd"]
-        finally:
-            for n, f in real.items():
-                setattr(mesh, n, f)
-        z_ref, ref_s, ref_gb = clip(None)
+        calls = {"all_to_all_rows": [len(a2a), sum(a2a)],
+                 "all_gather_rows": [len(gathers), sum(gathers)]}
+        z_ref = clip(None)
         _kernels.reset_launches()
-        z_fs, fs_s, fs_gb = clip(sp.make_frame_sharded_denoiser(eng))
+        z_fs = clip(sp.make_frame_sharded_denoiser(eng))
         launches = dict(_kernels.LAUNCHES)
         faults = {"bf16": readings()}
         eng.unet.float()
         eng.controlnet.float()
         eng.compute_dtype = torch.float32
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        attention_op.flash_attention = flash_attention.flash_attention_ref
-        try:
+        with patched(attention_op, "flash_attention",
+                     flash_attention.flash_attention_ref):
             with torch.no_grad():
                 want32 = eng.apply_model(xs, c_noise, gc)
             f32_rms = _rms(forward(), want32)
             faults["f32"] = readings()
-        finally:
-            attention_op.flash_attention = k4
-        f32_s = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     fwd_rms, clip_rms = _rms(got, want), _rms(z_fs, z_ref)
@@ -2473,26 +2064,24 @@ def phase_frame_sharded(torch, card, probe):
         f"K4 {K4_PER_EVAL} per forward": fwd_k4 == K4_PER_EVAL,
         f"K4 launched {want_k4} times": launches["flash_attn_fwd"] == want_k4,
     }
-    print(f"[15s frame-sharded] {backend} at world size 1 (init "
-          f"{init_s:.2f} s) on main path 3's engine: one forward of "
+    print(f"[15s frame-sharded] {backend} at world size 1 on main path 3's "
+          f"engine: one forward of "
           f"{xs.shape[0]} rows at sigma {float(sigma):.4g}, relative rms "
           f"against apply_model {fwd_rms:.4g} (max abs "
           f"{float((got - want).abs().max()):.4g} of max|out| "
           f"{float(want.abs().max()):.4g}), bar {FS_FORWARD_RMS_TOL}; in "
-          f"f32 {f32_rms:.4g}, bar {FS_F32_RMS_TOL} ({f32_s:.1f} s for the "
-          f"f32 forwards) | planted faults' relative rms "
+          f"f32 {f32_rms:.4g}, bar {FS_F32_RMS_TOL} | planted faults' "
+          f"relative rms "
           f"{json.dumps(faults)}, each caught {json.dumps(caught)} | "
           f"collectives per evaluation (calls, bytes handed in): "
-          f"{json.dumps(calls)} | {SVD_STEPS}-step clip: sharded {fs_s:.3f} s "
-          f"(peak {fs_gb:.2f} GB) against engine.sample {ref_s:.3f} s "
-          f"(peak {ref_gb:.2f} GB), ratio {fs_s / ref_s:.4f}; final latents' "
-          f"relative rms {clip_rms:.4g}, bar {FS_CLIP_RMS_TOL} | launches "
+          f"{json.dumps(calls)} | {SVD_STEPS}-step clip, sharded against "
+          f"engine.sample: final latents' relative rms {clip_rms:.4g}, bar "
+          f"{FS_CLIP_RMS_TOL} | launches "
           f"{launches} | {json.dumps(checks)} | {card}", flush=True)
     if not all(checks.values()):
         fail(f"main path 12 (frame-sharded sampling) checks failed: "
              f"{checks}")
-    return dict(launches, forward=fwd_k4, clip_s=fs_s, plain_clip_s=ref_s,
-                collectives=calls)
+    return launches
 
 
 def phase_shard_frames_cli(torch, card):
@@ -2511,29 +2100,15 @@ def phase_shard_frames_cli(torch, card):
     root = os.path.join(work, "gs")
     out = os.path.join(work, "shard_frames")
     shutil.rmtree(out, ignore_errors=True)
-    init_engine = svd_test.init_engine
-
-    def init(*a, **kw):
-        eng = init_engine(*a, **kw)
-        perturb_zero_params(torch, eng, 7)
-        return eng
-
-    svd_test.init_engine = init
     buf = io.StringIO()
-    try:
+    with capture(svd_test, "init_engine", perturbed(torch, 7)), \
+            contextlib.redirect_stdout(buf):
         _kernels.reset_launches()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            svd_test.main(["--data_root", root, "--logdir",
-                           os.path.join(work, "logs_shard"), "--modes", "x1",
-                           "--num_frames", str(SVD_FRAMES), "--num_steps",
-                           str(SVD_STEPS), "--size", str(SVD_H), str(SVD_W),
-                           "--device", DEVICE, "--shard_frames", "--out",
-                           out])
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
-    finally:
-        svd_test.init_engine = init_engine
+        svd_test.main(["--data_root", root, "--logdir",
+                       os.path.join(work, "logs_shard"), "--modes", "x1",
+                       "--num_frames", str(SVD_FRAMES), "--num_steps",
+                       str(SVD_STEPS), "--size", str(SVD_H), str(SVD_W),
+                       "--device", DEVICE, "--shard_frames", "--out", out])
     launches = dict(_kernels.LAUNCHES)
     text = buf.getvalue()
     sub = os.path.join("scene_case", "ctrl_0", "x1")
@@ -2556,8 +2131,8 @@ def phase_shard_frames_cli(torch, card):
         "within 1 level of main path 3's": worst <= 1,
         f"K4 launched {want_k4} times": launches["flash_attn_fwd"] == want_k4,
     }
-    print(f"[15t svd_test --shard_frames] one process, {cli_s:.1f} s; it "
-          f"printed {text.splitlines()[:1]} | {len(got_names)} frames "
+    print(f"[15t svd_test --shard_frames] one process; it printed "
+          f"{text.splitlines()[:1]} | {len(got_names)} frames "
           f"against main path 3's: max difference {worst} levels, "
           f"{differ} of {SVD_FRAMES * SVD_H * SVD_W * 3} values differ | "
           f"launches {launches} | {json.dumps(checks)} | {card}", flush=True)
@@ -2656,61 +2231,8 @@ def phase_sampling_engine(torch, card):
         fail(f"main path 10's samplers on {DEVICE} disagree with the cpu")
 
 
-class BlendProbe(SvdProbe):
-    """``SvdProbe`` plus what ``svd_test --sampling blended|inversion``
-    calls: an event per inversion evaluation and the first one's raw
-    output, the last denoiser evaluation's input and output, the
-    sampler's arguments and result."""
-
-    def __init__(self, torch):
-        super().__init__(torch)
-        self.ev["inv"] = []
-        self.first_inv = self.last_eval = self.args = self.result = None
-
-    def attach(self, eng):
-        super().attach(eng)
-        denoise_fn, inv_fn = eng.denoise_fn, eng.inv_denoise_fn
-
-        def probed_denoise_fn():
-            dn = denoise_fn()
-
-            def run(x, s, c):
-                out = dn(x, s, c)
-                self.last_eval = (x, s, out)
-                return out
-            return run
-
-        def probed_inv_fn():
-            dn = inv_fn()
-
-            def run(x, s, c):
-                self.event("inv")
-                out = dn(x, s, c)
-                if self.first_inv is None:
-                    self.first_inv = out
-                return out
-            return run
-
-        def probed(fn):
-            def run(cond, uc, z, mask, **kw):
-                self.args = (cond, uc, z, mask)
-                self.torch.cuda.reset_peak_memory_stats()
-                self.result = fn(cond, uc, z, mask, **kw)
-                self.peak_gb["sample"] = max(
-                    self.peak_gb.get("sample", 0.0),
-                    self.torch.cuda.max_memory_allocated() / 1e9)
-                self.event("sample_end")
-                return self.result
-            return run
-
-        eng.denoise_fn = probed_denoise_fn
-        eng.inv_denoise_fn = probed_inv_fn
-        eng.sample_blended = probed(eng.sample_blended)
-        eng.sample_inversion = probed(eng.sample_inversion)
-
-
-def background_bar(torch, probe, mode, mask):
-    """The bar on max |final latent - background| outside the latent
+def background_bar(torch, eng, mode, z, mask, evals, invs):
+    """The bar on max |final latent - background ``z``| outside the latent
     mask, from the last step (sigma_hat = sigma_min; a v-scaling denoiser
     D = c_skip x + c_out F with c_skip = 1 / (sigma^2 + 1), |c_out| <=
     sigma; the Euler step to 0 returns D):
@@ -2722,24 +2244,27 @@ def background_bar(torch, probe, mode, mask):
       sigma sqrt(sigma^2 + 1) F_inv (F_inv the first inversion
       evaluation's raw output), so D - z is at most 2 sigma^2 |z| + sigma
       (sqrt(sigma^2 + 1) |F_inv| + |F|);
-    plus BG_ULPS f32 spacings at the background's magnitude. F is
-    recovered in f64 from the recorded evaluation, (D - c_skip x) /
-    c_out, and combined by the engine's guider."""
-    x, s, d = (t.double() for t in probe.last_eval)
+    plus BG_ULPS f32 spacings at the background's magnitude. ``evals``
+    and ``invs`` are the run's captured ``edm.denoise`` and
+    ``edm.raw_net_out`` calls. F is recovered in f64 from the last
+    evaluation, (D - c_skip x) / c_out, and combined by the engine's
+    guider."""
+    last = evals[-1]
+    x, s, d = (t.double() for t in (last.args[1], last.args[2], last.out))
     sigma = float(s[0])
     c_skip, c_out = 1 / (sigma ** 2 + 1), -sigma / math.sqrt(sigma ** 2 + 1)
     f = (d - c_skip * x) / c_out
     if mode == "blended":
-        f = probe.engine.guider.combine(f, s)
+        f = eng.guider.combine(f, s)
     out = mask == 0
-    z_max = float(probe.args[2].double().abs()[out].max())
+    z_max = float(z.double().abs()[out].max())
     f_max = float(f.abs()[out].max())
     spacing = float(f32_spacing(torch, torch.tensor(
         z_max + sigma * BG_NORMAL_MAX)))
     if mode == "blended":
         return (sigma ** 2 * z_max + sigma * (BG_NORMAL_MAX + f_max)
                 + BG_ULPS * spacing), sigma, f_max
-    f_inv = float(probe.first_inv.double().abs()[out].max())
+    f_inv = float(invs[0].out.double().abs()[out].max())
     return (2 * sigma ** 2 * z_max + sigma * (
         math.sqrt(sigma ** 2 + 1) * f_inv + f_max)
         + BG_ULPS * spacing), sigma, max(f_max, f_inv)
@@ -2754,14 +2279,14 @@ def background_reading(final, z, mask):
 def phase_svd_sampling(torch, card, mode):
     """Main path 10's svd_test CLI with ``--sampling blended`` (and
     ``--dump_latents``) or ``--sampling inversion`` at main path 3's width
-    on a synthetic gs/ tree (1 scene, 1 ctrl, mode x1), counters zeroed
-    before: 14 finite frames, K4's launches, the background check and its
-    two planted faults, the seconds per part and the peak memory; returns
-    the record (and the CLI's output directories)."""
+    on a synthetic gs/ tree (1 scene, 1 ctrl, mode x1): 14 finite frames, K4's launches, the resampling evaluations, the
+    background check and its two planted faults; returns the launches of
+    K4 and the CLI's output directories."""
     from PIL import Image
 
     from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.diffusion import edm
+    from multiview_inpaint_tpu_torch.diffusion.engine import SVDEngine
     from multiview_inpaint_tpu_torch.pipelines import svd_test
     from multiview_inpaint_tpu_torch.utils import synthetic
 
@@ -2773,38 +2298,40 @@ def phase_svd_sampling(torch, card, mode):
     synthetic.write_gs_tree(root, scene="scene_case", ctrl="ctrl_0",
                             modes=("x1",), frames=SVD_FRAMES,
                             size=(SVD_H, SVD_W), iteration=30000)
-    probe = BlendProbe(torch)
-    init_engine = svd_test.init_engine
-    info = {}
-
-    def init(*a, **kw):
-        t0 = time.perf_counter()
-        eng = init_engine(*a, **kw)
-        info["moved"] = perturb_zero_params(torch, eng, 7)
-        torch.cuda.synchronize()
-        info["init_s"] = time.perf_counter() - t0
-        probe.attach(eng)
-        return eng
-
     argv = ["--data_root", root, "--logdir", logdir, "--out", out_root,
             "--modes", "x1", "--num_frames", str(SVD_FRAMES), "--num_steps",
             str(SVD_STEPS), "--size", str(SVD_H), str(SVD_W), "--sampling",
             mode, "--device", DEVICE]
     if mode == "blended":
         argv += ["--dump_latents", dump]
-    svd_test.init_engine = init
-    try:
+    # The sampler's arguments and result, every resampling evaluation
+    # (edm.denoise) and every inversion evaluation (edm.raw_net_out), of
+    # the CLI's run and then of each planted fault's.
+    with capture(svd_test, "init_engine", perturbed(torch, 7)), \
+            capture(SVDEngine, f"sample_{mode}") as samples, \
+            capture(edm, "denoise") as denoised, \
+            capture(edm, "raw_net_out") as inverted:
         _kernels.reset_launches()
-        t0 = time.perf_counter()
         svd_test.main(argv)
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
-    finally:
-        svd_test.init_engine = init_engine
-    launches = dict(_kernels.LAUNCHES)
-    cond_ms, steps, decode_ms = probe.split()
-    inv_ms = (probe.ev["inv"][0].elapsed_time(probe.ev["step"][0])
-              if probe.ev["inv"] else 0.0)
+        launches = dict(_kernels.LAUNCHES)
+        n_evals = len(denoised)
+        (eng, cond, uc, z, mask), final = samples[0].args, samples[0].out
+        bar, sigma, f_max = background_bar(torch, eng, mode, z, mask,
+                                           denoised, inverted)
+        # planted faults: the blend skipped (mask all ones), its mask
+        # inverted
+        faults = {}
+        for name, fmask in (("blend skipped", torch.ones_like(mask)),
+                            ("mask inverted", 1 - mask)):
+            denoised.clear()
+            inverted.clear()
+            gen = torch.Generator(device=DEVICE).manual_seed(29)
+            got = getattr(eng, f"sample_{mode}")(
+                cond, uc, z, fmask, generator=gen, num_steps=BG_FAULT_STEPS)
+            faults[name] = (background_reading(got, z, mask)[0],
+                            background_bar(torch, eng, mode, z, mask,
+                                           denoised, inverted)[0])
+        del eng, samples
     out_dir = os.path.join(out_root, "scene_case", "ctrl_0", "x1")
     pngs = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
     finite = []
@@ -2813,8 +2340,6 @@ def phase_svd_sampling(torch, card, mode):
             arr = np.asarray(im, np.float32)
         finite.append(arr.shape == (SVD_H, SVD_W, 3)
                       and bool(np.isfinite(arr).all()))
-    _, _, z, mask = probe.args
-    final = probe.result
     checks = {}
     if mode == "blended":
         files = sorted(os.listdir(dump)) if os.path.isdir(dump) else []
@@ -2825,12 +2350,12 @@ def phase_svd_sampling(torch, card, mode):
             checks[f"{SVD_STEPS} dumps"] and np.array_equal(np.load(
                 os.path.join(dump, "latent_sigmas.npy")), ladder))
         if checks[f"{SVD_STEPS} dumps"]:
-            final = torch.from_numpy(np.load(os.path.join(dump, want[-1])))
+            dumped = torch.from_numpy(np.load(os.path.join(dump, want[-1])))
             checks["last dump = the sampled latents"] = torch.equal(
-                final, probe.result.cpu())
+                dumped, final.cpu())
+            final = dumped
     evals = SVD_STEPS * (1 if mode == "blended" else 2)
     want_k4 = K4_PER_EVAL * evals
-    bar, sigma, f_max = background_bar(torch, probe, mode, mask)
     reading, inside = background_reading(final.to(z.device), z, mask)
     checks.update({
         f"{SVD_FRAMES} frames written": len(pngs) == SVD_FRAMES,
@@ -2839,60 +2364,29 @@ def phase_svd_sampling(torch, card, mode):
         == want_k4,
         "no other kernel": sum(launches.values()) == launches[
             "flash_attn_fwd"],
-        f"{SVD_STEPS} resampling evaluations": len(steps) == SVD_STEPS,
+        f"{SVD_STEPS} resampling evaluations": n_evals == SVD_STEPS,
         "background within its bar": reading <= bar,
         f"inside the mask >= {BG_INSIDE_FACTOR:g}x the bar":
-            inside >= BG_INSIDE_FACTOR * bar})
-    # planted faults: the blend skipped (mask all ones), its mask inverted
-    cond, uc = probe.args[:2]
-    sample = (probe.engine.sample_blended if mode == "blended"
-              else probe.engine.sample_inversion)
-    faults = {}
-    for name, fmask in (("blend skipped", torch.ones_like(mask)),
-                        ("mask inverted", 1 - mask)):
-        probe.first_inv = None
-        gen = torch.Generator(device=DEVICE).manual_seed(29)
-        got = sample(cond, uc, z, fmask, generator=gen,
-                     num_steps=BG_FAULT_STEPS)
-        fbar = background_bar(torch, probe, mode, mask)[0]
-        faults[name] = (background_reading(got, z, mask)[0], fbar)
-    checks["planted faults fail the bar"] = all(r > b for r, b in
-                                                 faults.values())
-    clip_s = (cond_ms + inv_ms + sum(steps) + decode_ms) / 1e3
-    record = dict(launches=launches["flash_attn_fwd"], clip_s=clip_s,
-                  cli_s=cli_s, cond_ms=cond_ms, inversion_ms=inv_ms,
-                  sampling_ms=sum(steps), step_ms=statistics.median(steps)
-                  if steps else 0.0, decode_ms=decode_ms,
-                  peak_gb=dict(probe.peak_gb), background=reading,
-                  background_bar=bar, inside_mean=inside,
-                  faults={k: v[0] for k, v in faults.items()},
-                  work=work, out_dir=out_dir, grid_dir=os.path.join(
-                      logdir, "log_img", "test"))
+            inside >= BG_INSIDE_FACTOR * bar,
+        "planted faults fail the bar": all(r > b for r, b in
+                                           faults.values())})
     fault_text = json.dumps({k: [float(f"{r:.4g}"), float(f"{b:.4g}")]
                              for k, (r, b) in faults.items()})
-    split = (f"inversion pass {inv_ms:.1f} ms, resampling {sum(steps):.1f}"
-             f" ms" if mode == "inversion" else
-             f"sampling {sum(steps):.1f} ms")
     print(f"[{label} main svd {mode}] svd_test --sampling {mode}"
-          f"{' --dump_latents' if mode == 'blended' else ''}, engine "
-          f"initialised in {info.get('init_s', 0):.1f} s "
-          f"({info.get('moved')} all-zero tensors moved), {SVD_FRAMES} "
-          f"frames at {SVD_H}x{SVD_W}, {SVD_STEPS} steps, in {cli_s:.1f} s | "
-          f"clip {clip_s:.2f} s: conditioning {cond_ms:.1f} ms, {split} "
-          f"(step median {record['step_ms']:.1f} ms, {evals} evaluations), "
-          f"VAE decode {decode_ms:.1f} ms | peak device memory (GB) "
-          f"{json.dumps({k: round(v, 2) for k, v in probe.peak_gb.items()})}"
-          f" | background outside the latent mask: max |final - z| "
-          f"{reading:.4g}, bar {bar:.4g} (sigma {sigma:.4g}, max|F| "
+          f"{' --dump_latents' if mode == 'blended' else ''}, {SVD_FRAMES} "
+          f"frames at {SVD_H}x{SVD_W}, {SVD_STEPS} steps, {evals} "
+          f"evaluations | background outside the latent mask: max |final - "
+          f"z| {reading:.4g}, bar {bar:.4g} (sigma {sigma:.4g}, max|F| "
           f"{f_max:.4g}); inside: mean {inside:.4g} | planted faults "
           f"({BG_FAULT_STEPS} steps) reading / bar {fault_text}"
           f" | launches {launches} | {json.dumps(checks)} | {card}",
           flush=True)
-    probe.engine = probe.args = probe.last_eval = probe.first_inv = None
     if not all(checks.values()):
         fail(f"main path 10 (svd_test --sampling {mode}) checks failed: "
              f"{checks}")
-    return record
+    return dict(launches=launches["flash_attn_fwd"], work=work,
+                out_dir=out_dir,
+                grid_dir=os.path.join(logdir, "log_img", "test"))
 
 
 def phase_divide_test(card, runs):
@@ -2904,12 +2398,10 @@ def phase_divide_test(card, runs):
     checks = {}
     for mode, rec in runs.items():
         out = os.path.join(rec["work"], "divided")
-        t0 = time.perf_counter()
         divide_test.main(["--grid_dir", rec["grid_dir"], "--out", out,
                           "--items", "scene_case:ctrl_0:x1", "--frame_size",
                           str(SVD_H), str(SVD_W), "--num_frames",
                           str(SVD_FRAMES)])
-        secs = time.perf_counter() - t0
         names = [f"{i:02d}.png" for i in range(SVD_FRAMES)]
         same = []
         for f in names:
@@ -2922,8 +2414,7 @@ def phase_divide_test(card, runs):
                                      "ctrl_0.gif")) as im:
             n_gif = im.n_frames
         checks[mode] = dict(frames_equal=all(same),
-                            gif_frames=n_gif == SVD_FRAMES - 1,
-                            seconds=round(secs, 2))
+                            gif_frames=n_gif == SVD_FRAMES - 1)
     print(f"[15e divide_test] the grids of 15b and 15c split into "
           f"{SVD_FRAMES} frames each, equal byte for byte to the CLI's "
           f"per-frame PNGs, GIF previews of {SVD_FRAMES - 1} frames: "
@@ -2970,7 +2461,9 @@ def phase_demo_app(torch, card):
     that differ, K4 K4_PER_UNET_EVAL x steps times per request, the
     engine initialised once, a num_frames=3 request answered with 500;
     then one uncontrolled f32 denoiser evaluation (q and k x3) through K4
-    against the plain attention and two planted faults."""
+    against the plain attention and two planted faults, on the
+    conditioning of the requests' first evaluation. Returns K4's launches
+    per request."""
     import threading
 
     from PIL import Image
@@ -2978,6 +2471,7 @@ def phase_demo_app(torch, card):
     from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.diffusion import (attention_op,
                                                        flash_attention)
+    from multiview_inpaint_tpu_torch.diffusion.engine import SVDEngine
     from multiview_inpaint_tpu_torch.diffusion.transformer import (
         CrossAttention)
     from multiview_inpaint_tpu_torch.pipelines import demo_app
@@ -2988,27 +2482,6 @@ def phase_demo_app(torch, card):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     png = _demo_image(os.path.join(work, "input.png"))
-    inits, captured = [], {}
-    init_engine, dn_factory = svs.init_engine, svs.uncontrolled_denoise_fn
-
-    def init(*a, **kw):
-        t0 = time.perf_counter()
-        eng = init_engine(*a, **kw)
-        moved = perturb_zero_params(torch, eng, 9)
-        torch.cuda.synchronize()
-        inits.append(dict(seconds=time.perf_counter() - t0, moved=moved,
-                          params=sum(p.numel() for p in eng.parameters())))
-        return eng
-
-    def capture(eng, cfg):
-        dn = dn_factory(eng, cfg)
-
-        def run(x, s, c):
-            captured.setdefault("cond", c)
-            return dn(x, s, c)
-        return run
-
-    svs.init_engine, svs.uncontrolled_denoise_fn = init, capture
     demo_app._MODEL.clear()
     srv = demo_app.make_server(demo_app.build_parser().parse_args(
         ["--port", "0", "--device", DEVICE]))
@@ -3017,39 +2490,38 @@ def phase_demo_app(torch, card):
     base = f"http://127.0.0.1:{srv.server_address[1]}"
     requests, gifs = [], []
     try:
-        health = _http(base + "/health")
-        page = _http(base + "/")
-        for query, steps in ((("seed=23", SVD_STEPS)),
-                             (f"seed=24&num_steps={DEMO_STEPS}",
-                              DEMO_STEPS)):
-            _kernels.reset_launches()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            code, ctype, body = _http(base + "/generate?" + query,
-                                      png)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            frames = size = None
-            if code == 200:
-                path = os.path.join(work, f"out_{len(gifs)}.gif")
-                with open(path, "wb") as f:
-                    f.write(body)
-                with Image.open(path) as im:
-                    frames, size = im.n_frames, im.size
-            gifs.append(body)
-            requests.append(dict(
-                steps=steps, status=code, type=ctype, frames=frames,
-                size=size, seconds=secs,
-                launches=_kernels.LAUNCHES["flash_attn_fwd"],
-                other_launches=sum(_kernels.LAUNCHES.values())
-                - _kernels.LAUNCHES["flash_attn_fwd"],
-                peak_gb=torch.cuda.max_memory_allocated() / 1e9))
-        bad = _http(base + "/generate?num_frames=3", png)
+        with capture(svs, "init_engine", perturbed(torch, 9)) as inits, \
+                capture(SVDEngine, "apply_unet",
+                        lambda a, kw, out: a[3]) as conds:
+            health = _http(base + "/health")
+            page = _http(base + "/")
+            for query, steps in ((("seed=23", SVD_STEPS)),
+                                 (f"seed=24&num_steps={DEMO_STEPS}",
+                                  DEMO_STEPS)):
+                _kernels.reset_launches()
+                requests.append((steps, _http(base + "/generate?" + query,
+                                              png),
+                                 dict(_kernels.LAUNCHES)))
+            bad = _http(base + "/generate?num_frames=3", png)
     finally:
         srv.shutdown()
         srv.server_close()
         thread.join(timeout=60)
-        svs.init_engine, svs.uncontrolled_denoise_fn = init_engine, dn_factory
+    answers = []
+    for i, (steps, (code, ctype, body), launched) in enumerate(requests):
+        frames = size = None
+        if code == 200:
+            path = os.path.join(work, f"out_{i}.gif")
+            with open(path, "wb") as f:
+                f.write(body)
+            with Image.open(path) as im:
+                frames, size = im.n_frames, im.size
+        gifs.append(body)
+        answers.append(dict(
+            steps=steps, status=code, type=ctype, frames=frames, size=size,
+            launches=launched["flash_attn_fwd"],
+            other_launches=sum(launched.values())
+            - launched["flash_attn_fwd"]))
     checks = {
         "health ok": health[0] == 200 and json.loads(health[2])["model"]
         == "svd",
@@ -3057,33 +2529,28 @@ def phase_demo_app(torch, card):
         "200 and a 14-frame 512x384 GIF each": all(
             r["status"] == 200 and r["type"] == "image/gif"
             and r["frames"] == SVD_FRAMES and r["size"] == (SVD_W, SVD_H)
-            for r in requests),
+            for r in answers),
         "the two GIFs differ": len(set(gifs)) == 2,
         "engine initialised once": len(inits) == 1,
         f"K4 {K4_PER_UNET_EVAL} x steps per request, no other kernel": all(
             r["launches"] == K4_PER_UNET_EVAL * r["steps"]
-            and r["other_launches"] == 0 for r in requests),
+            and r["other_launches"] == 0 for r in answers),
         "num_frames=3 answered with 500": bad[0] == 500,
     }
-    init_s = inits[0]["seconds"] if inits else 0.0
     print(f"[15f main demo_app] server on port {srv.server_address[1]}, "
-          f"{inits[0]['params'] if inits else 0} parameters initialised on "
-          f"the card in {init_s:.1f} s at the first request "
-          f"({inits[0]['moved'] if inits else 0} all-zero tensors moved) | "
-          f"requests: " + "; ".join(
-              f"{r['steps']} steps: {r['status']} {r['type']} "
-              f"{r['frames']} frames {r['size']}, {r['seconds']:.2f} s "
-              f"(K4 {r['launches']}, peak {r['peak_gb']:.2f} GB)"
-              for r in requests)
-          + f" | first request less the model load "
-          f"{requests[0]['seconds'] - init_s:.2f} s | bad request "
-          f"{bad[0]}: {bad[2][:80]!r} | {json.dumps(checks)} | {card}",
-          flush=True)
+          f"{sum(p.numel() for p in inits[0].parameters()) if inits else 0}"
+          f" parameters made on the card at the first request | requests: "
+          + "; ".join(f"{r['steps']} steps: {r['status']} {r['type']} "
+                      f"{r['frames']} frames {r['size']} (K4 "
+                      f"{r['launches']})" for r in answers)
+          + f" | bad request {bad[0]}: {bad[2][:80]!r} | "
+          f"{json.dumps(checks)} | {card}", flush=True)
     if not all(checks.values()):
         fail(f"main path 10 (demo_app) checks failed: {checks}")
 
     eng, cfg = demo_app._MODEL["model"]
-    cond = captured["cond"]
+    cond = conds[0]
+    del inits, conds
     with torch.no_grad():
         for m in eng.unet.modules():
             if isinstance(m, CrossAttention):
@@ -3099,19 +2566,13 @@ def phase_demo_app(torch, card):
         gen = torch.Generator(device=DEVICE).manual_seed(seed)
         x = torch.randn(shape, generator=gen, device=DEVICE) * float(
             (1 + cfg.sigma_max ** 2) ** 0.5)
-        attention_op.flash_attention = attend
-        try:
+        with patched(attention_op, "flash_attention", attend), \
+                torch.no_grad():
             _kernels.reset_launches()
-            with torch.no_grad():
-                out = dn(torch.cat([x, x]), sigma, cond)
-            torch.cuda.synchronize()
-        finally:
-            attention_op.flash_attention = real
+            out = dn(torch.cat([x, x]), sigma, cond)
         return out, _kernels.LAUNCHES["flash_attn_fwd"]
 
-    t0 = time.perf_counter()
     out_k4, n_k4 = evaluate(11, real)
-    eval_s = time.perf_counter() - t0
     out_plain, n_plain = evaluate(11, ref)
     out_drop, _ = evaluate(11, lambda q, k, v, h, sm: ref(
         q, k[:, FAULT_KEYS:], v[:, FAULT_KEYS:], h, sm))
@@ -3125,7 +2586,7 @@ def phase_demo_app(torch, card):
     print(f"[15f demo eval] one uncontrolled f32 denoiser evaluation at "
           f"sigma {cfg.sigma_max} (batch {2 * SVD_FRAMES}, UNet weights "
           f"{next(eng.unet.input_blocks.parameters()).dtype}), q and k x"
-          f"{SVD_QK_GAIN}, {eval_s:.2f} s: K4 launches {n_k4} (on "
+          f"{SVD_QK_GAIN}: K4 launches {n_k4} (on "
           f"{cond['concat'].dtype} operands), with attention_op's K4 call "
           f"patched to the plain version {n_plain} | relative rms diff "
           f"from the plain-attention output: K4 {err:.4g}, bar {bar}; "
@@ -3142,10 +2603,7 @@ def phase_demo_app(torch, card):
         fail("the f32 uncontrolled denoiser through K4 disagrees with the "
              "plain attention, or the bar does not separate the planted "
              "faults")
-    return dict(requests=[{k: r[k] for k in ("steps", "seconds",
-                                              "launches", "peak_gb")}
-                          for r in requests], init_s=init_s,
-                eval_rms=err, fault_rms=[drop, base], seed_rms=seed_diff)
+    return [r["launches"] for r in answers]
 
 
 def _rms(a, b):
@@ -3156,12 +2614,13 @@ def _rms(a, b):
 
 def phase_k5(torch, card):
     """K5 against its plain version on packed [B, T, H*D] inputs at main
-    path 4's shapes, o and the logsumexp from K4, a seeded cotangent;
-    returns the record of the ds1 shape for the kernels line (launches
-    filled in later). The launches made here are taken off the counters
-    again."""
+    path 4's shapes, o and the logsumexp from K4, a seeded cotangent; the
+    bf16 shapes, ds1 and ds2, also timed beside their bound. Returns the
+    record of the ds1 shape for the kernels line (launches filled in
+    later). The launches made here are taken off the counters again."""
     import torch.nn.functional as F
 
+    from port_bench.counts import peaks
     from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.diffusion import flash_attention as fa
 
@@ -3187,34 +2646,33 @@ def phase_k5(torch, card):
                       for g, p in zip(got, plain))
             equal = all(torch.equal(x, y) for x, y in zip(got, again))
             finite = all(bool(torch.isfinite(x).all()) for x in got)
-            ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(*args), 10)
-            plain_ms = cuda_ms(
-                torch, lambda: fa.flash_attention_bwd_ref(*args), 2)
-        qh, kh, vh = (x.view(b, t, h, d).transpose(1, 2).detach()
-                      .requires_grad_() for x in (q, k, v))
-        out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
-        doh = do.view(b, t, h, d).transpose(1, 2)
-        lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-            out, (qh, kh, vh), doh, retain_graph=True), 10)
-        del out
-        flop = 10 * b * h * t * t * d
-        t_ops = max(flop / BF16_FLOP_PER_S, b * h * t * t / SFU_OP_PER_S)
-        t_bytes = (7 * q.numel() * q.element_size()
-                   + 2 * lse.numel() * 4) / HBM_BYTES_PER_S
-        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   bound_ms=max(t_ops, t_bytes) * 1e3,
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   library_ms=lib_ms, vs_library=ms / lib_ms)
-        records.append(rec)
+        note = ""
+        if dtype == "bfloat16":
+            flop = 10 * b * h * t * t * d
+            t_ops = max(flop / peaks.BF16_FLOP_PER_S,
+                        b * h * t * t / peaks.SFU_OP_PER_S)
+            t_bytes = (7 * q.numel() * q.element_size()
+                       + 2 * lse.numel() * 4) / peaks.HBM_BYTES_PER_S
+            qh, kh, vh = (x.view(b, t, h, d).transpose(1, 2).detach()
+                          .requires_grad_() for x in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+            doh = do.view(b, t, h, d).transpose(1, 2)
+            rec = timed(torch, lambda: fa.flash_attention_bwd(*args),
+                        lambda: fa.flash_attention_bwd_ref(*args), 10, 2,
+                        max(t_ops, t_bytes),
+                        "operations" if t_ops >= t_bytes else "bytes",
+                        library=lambda: torch.autograd.grad(
+                            lib_out, (qh, kh, vh), doh, retain_graph=True),
+                        max_abs_err=err)
+            del lib_out
+            records.append(rec)
+            note = (f" | {timing_note(rec)}, "
+                    f"{flop / rec['ms'] / 1e9:.1f} TFLOP/s")
         print(f"[16 K5 {dtype} [{b}, {t}, {h}*{d}], {h} heads] dq/dk/dv max "
               f"abs err {err:.4g}, / max|plain| {rel:.4g} (bar "
               f"{K5_REL_TOL}), relative rms {rms:.4g} (bar {K5_RMS_TOL}) | "
-              f"bit-equal on a second run: {equal}, finite: {finite} | "
-              f"kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain "
-              f"{plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']}, {rec['bound_ms'] / ms:.3f} of it), SDPA "
-              f"backward {lib_ms:.4f} ms (yardstick only), kernel/SDPA "
-              f"{ms / lib_ms:.3f}x | {card}", flush=True)
+              f"bit-equal on a second run: {equal}, finite: {finite}{note} "
+              f"| {card}", flush=True)
         if not (finite and equal and rel <= K5_REL_TOL
                 and rms <= K5_RMS_TOL):
             fail(f"K5 disagrees with its plain version at [{b}, {t}, "
@@ -3302,16 +2760,12 @@ def phase_k5_grad(torch, card):
 
     def grads(fn, fault=None):
         Plain.fault = fault
-        flash_attention.FlashAttention = fn
-        try:
+        with patched(flash_attention, "FlashAttention", fn):
             _kernels.reset_launches()
             xi = x.detach().requires_grad_()
             out = block(xi, ctx, SVD_FRAMES, ind)
             g = torch.autograd.grad((out.float() * cot).sum(),
                                     [xi] + params)
-            torch.cuda.synchronize()
-        finally:
-            flash_attention.FlashAttention = real
         counts = (_kernels.LAUNCHES["flash_attn_fwd"],
                   _kernels.LAUNCHES["flash_attn_bwd"])
         return torch.cat([t.float().reshape(-1) for t in g]), g[0], counts
@@ -3423,94 +2877,51 @@ def _fingerprints(torch, module):
 
 def phase_svd_train(torch, card):
     """Main path 4: the svd_train CLI at full width (its steps through
-    ``make_dp_train_step`` without a process group), counters zeroed
-    before; returns its launch counts and its engine."""
+    ``make_dp_train_step`` without a process group) under the spans;
+    returns its launch counts and its engine."""
     from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.diffusion import checkpoint as ckpt
+    from multiview_inpaint_tpu_torch.parallel import svd_data_parallel as dp
     from multiview_inpaint_tpu_torch.pipelines import svd_train
     from multiview_inpaint_tpu_torch.utils import synthetic
 
     work = os.path.join(REPO, "build", "smoke_svd_train")
     shutil.rmtree(work, ignore_errors=True)
     root, logdir = os.path.join(work, "est"), os.path.join(work, "logs")
-    t0 = time.perf_counter()
     synthetic.write_est_tree(root, scenes=TRAIN_SVD_SCENES,
                              frames=SVD_FRAMES, size=(SVD_H, SVD_W))
-    tree_s = time.perf_counter() - t0
-    info = {"step_s": [], "save_s": []}
-    init_engine = svd_train.init_engine
-    make_step = svd_train.make_dp_train_step
-    save_params = ckpt.save_params
 
-    def init(*a, **kw):
-        t1 = time.perf_counter()
-        eng = init_engine(*a, **kw)
-        info["moved"] = perturb_zero_params(torch, eng, 27)
-        torch.cuda.synchronize()
-        info["init_s"] = time.perf_counter() - t1
-        info["params"] = sum(p.numel() for p in eng.parameters())
-        info["engine"] = eng
-        info["frozen"] = {n: _fingerprints(torch, getattr(eng, n))
-                          for n in ("unet", "vae", "clip")}
-        info["cn0"] = {k: p.detach().clone()
-                       for k, p in eng.controlnet.named_parameters()}
-        return eng
+    def init(args, kw, eng):
+        """The new engine with its all-zero parameters moved, and its
+        frozen networks' fingerprints and ControlNet before training."""
+        perturb_zero_params(torch, eng, 27)
+        frozen = {n: _fingerprints(torch, getattr(eng, n))
+                  for n in ("unet", "vae", "clip")}
+        return eng, frozen, {k: p.detach().clone()
+                             for k, p in eng.controlnet.named_parameters()}
 
-    def make(eng, optimizer, params, ema_decay=None):
-        step = make_step(eng, optimizer, params, ema_decay)
-
-        def timed(*a, **kw):
-            info["ema"] = a[1]
-            before = ({k: p.detach().clone() for k, p in params.items()}
-                      if not info["step_s"] else None)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            loss = step(*a, **kw)
-            torch.cuda.synchronize()
-            info["step_s"].append(time.perf_counter() - t1)
-            if before is not None:
-                n = sum(p.numel() for p in params.values())
-                info["changed_first"] = sum(
-                    int((p.detach() != before[k]).sum())
-                    for k, p in params.items()) / n
-            return loss
-        return timed
-
-    def timed_save(*a, **kw):
-        t1 = time.perf_counter()
-        save_params(*a, **kw)
-        info["save_s"].append(time.perf_counter() - t1)
-
-    svd_train.init_engine, svd_train.make_dp_train_step = init, make
-    ckpt.save_params = timed_save
-    try:
-        _kernels.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
+    # The EMA is the dict each step updates in place.
+    _kernels.reset_launches()
+    with capture(svd_train, "init_engine", init) as inits, \
+            capture(dp, "ema_update", lambda a, kw, out: a[0]) as emas, \
+            spans("19 main svd train") as sp:
         svd_train.main(["--data_root", root, "--logdir", logdir,
                         "--epochs", "1", "--num_frames", str(SVD_FRAMES),
                         "--size", str(SVD_H), str(SVD_W), "--ckpt_every",
                         "1", "--log_interval", "1", "--ema", "--device",
                         DEVICE])
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
-    finally:
-        svd_train.init_engine, svd_train.make_dp_train_step = init_engine, \
-            make_step
-        ckpt.save_params = save_params
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = dict(_kernels.LAUNCHES)
-    eng = info.pop("engine")
-    steps = len(info["step_s"])
+    (eng, frozen, cn0), = inits
+    steps = sp.get("engine.eval", {}).get("count", 0)   # one per step
     with open(os.path.join(logdir, "svd_train_log.jsonl")) as f:
         losses = [json.loads(line)["loss"] for line in f]
-    frozen_same = {n: _fingerprints(torch, getattr(eng, n))
-                   == info["frozen"][n] for n in ("unet", "vae", "clip")}
-    cn_moved = sum(int((p.detach() != info["cn0"][k]).sum())
+    frozen_same = {n: _fingerprints(torch, getattr(eng, n)) == frozen[n]
+                   for n in ("unet", "vae", "clip")}
+    cn_moved = sum(int((p.detach() != cn0[k]).sum())
                    for k, p in eng.controlnet.named_parameters())
     cn_total = sum(p.numel() for p in eng.controlnet.parameters())
     path = os.path.join(logdir, "checkpoints", "epoch=000000.npz")
-    ema = info.get("ema", {})
+    ema = emas[-1] if emas else {}
     read_back = os.path.exists(path) and bool(ema)
     if read_back:   # the EMA, written as f32, reads back bit for bit
         loaded = ckpt.state_dict_from_jax(ckpt.load_params(path),
@@ -3527,23 +2938,18 @@ def phase_svd_train(torch, card):
             math.isfinite(x) for x in losses),
         "UNet, VAE, CLIP bit-unchanged": all(frozen_same.values()),
         "ControlNet moved": cn_moved > 0,
+        "EMA updated every step": len(emas) == steps and all(
+            e is emas[0] for e in emas),
         "checkpoint written and read back": read_back,
     }
-    step_ms = [round(x * 1e3, 1) for x in info["step_s"]]
-    print(f"[19 main svd train] svd_train CLI, {info.get('params')} "
-          f"parameters (bf16; the VAE f32; {info.get('moved')} all-zero "
-          f"tensors moved) initialised in {info.get('init_s', 0):.1f} s, "
-          f"{TRAIN_SVD_SCENES} scenes of {SVD_FRAMES} frames at {SVD_H}x"
-          f"{SVD_W} written in {tree_s:.1f} s, 1 epoch at batch 1, --ema, "
-          f"remat none, in {cli_s:.1f} s | step ms (host clock, "
-          f"synchronised) {step_ms}, median after the first "
-          f"{statistics.median(step_ms[1:]) if steps > 1 else 0} | losses "
-          f"{[round(x, 4) for x in losses]} | peak device memory "
-          f"{peak_gb:.2f} GB | checkpoint save s {info['save_s']} | "
-          f"ControlNet entries changed by the first step "
-          f"{info.get('changed_first', 0):.4f}, by the run "
-          f"{cn_moved / cn_total:.4f} of {cn_total} | launches {launches} | "
-          f"{json.dumps(checks)} | {card}", flush=True)
+    print(f"[19 main svd train] svd_train CLI, "
+          f"{sum(p.numel() for p in eng.parameters())} parameters (bf16; the "
+          f"VAE f32; all-zero tensors moved), {TRAIN_SVD_SCENES} scenes of "
+          f"{SVD_FRAMES} frames at {SVD_H}x{SVD_W}, 1 epoch at batch 1, "
+          f"--ema, remat none | losses {[round(x, 4) for x in losses]} | "
+          f"ControlNet entries changed by the run {cn_moved / cn_total:.4f} "
+          f"of {cn_total} | launches {launches} | {json.dumps(checks)} | "
+          f"{card}", flush=True)
     if not all(checks.values()):
         fail(f"main path 4 (svd_train CLI) checks failed: {checks}")
     return launches, eng
@@ -3562,9 +2968,8 @@ def phase_ddp_step(torch, card, eng):
     world size 1 against DDP_STEPS ``make_train_step`` steps, both from
     the same trainable parameters with draws from generators of one seed,
     on one synthetic video at main path 4's shapes (bars at
-    FS_FORWARD_RMS_TOL's comment); ms per step of each (host clock,
-    synchronised), the flat all-reduce buffers' bytes per type, counters
-    zeroed before the DDP steps. Returns their launches."""
+    FS_FORWARD_RMS_TOL's comment); the flat all-reduce buffers' bytes per
+    type, counters zeroed before the DDP steps. Returns their launches."""
     import torch.distributed as dist
 
     from multiview_inpaint_tpu_torch import kernels as _kernels
@@ -3588,19 +2993,12 @@ def phase_ddp_step(torch, card, eng):
         ema = {k: p.detach().clone() for k, p in params.items()}
         step = make(eng, opt, params, 0.9999)
         gen = torch.Generator(device=DEVICE).manual_seed(43)
-        losses, ms = [], []
-        for _ in range(DDP_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            losses.append(float(step(state, ema, lat, cond_b,
-                                     generator=gen)))
-            torch.cuda.synchronize()
-            ms.append(round((time.perf_counter() - t0) * 1e3, 1))
-        return dict(losses=losses, ms=ms, mu=state["mu"], ema=ema,
+        losses = [float(step(state, ema, lat, cond_b, generator=gen))
+                  for _ in range(DDP_STEPS)]
+        return dict(losses=losses, mu=state["mu"], ema=ema,
                     params={k: p.detach().clone() for k, p in params.items()})
 
     ref = run(dp.make_train_step)
-    torch.cuda.reset_peak_memory_stats()
     mesh.init(0, 1, f"tcp://127.0.0.1:{_free_port()}", DEVICE)
     try:
         backend = dist.get_backend()
@@ -3609,7 +3007,6 @@ def phase_ddp_step(torch, card, eng):
         launches = dict(_kernels.LAUNCHES)
     finally:
         dist.destroy_process_group()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     flat = {}
     for p in params.values():
         flat[str(p.dtype)] = flat.get(str(p.dtype), 0) + p.numel() * \
@@ -3639,94 +3036,17 @@ def phase_ddp_step(torch, card, eng):
     print(f"[19a ddp step] {backend} at world size 1 on main path 4's "
           f"engine, {DDP_STEPS} steps of one video ({SVD_FRAMES} frames at "
           f"{SVD_H}x{SVD_W}), EMA 0.9999, lr {DDP_LR}: make_dp_train_step "
-          f"ms {got['ms']} against make_train_step {ref['ms']}; losses "
+          f"against make_train_step, losses "
           f"{got['losses']} against {ref['losses']} (worst rel "
           f"{loss_rel:.3g}) | params and EMA: worst difference "
           f"{worst:.3g} spacings where |mu| >= 1e-7, {differ} entries "
           f"differ at all, {small} of {total} entries below counted | flat "
-          f"all-reduce buffers (bytes per type) {json.dumps(flat)} | peak "
-          f"device memory {peak_gb:.2f} GB | launches {launches} | "
+          f"all-reduce buffers (bytes per type) {json.dumps(flat)} | "
+          f"launches {launches} | "
           f"{json.dumps(checks)} | {card}", flush=True)
     if not all(checks.values()):
         fail(f"main path 12 (the DDP step) checks failed: {checks}")
-    return dict(launches, ms=got["ms"], plain_ms=ref["ms"])
-
-
-class SeqProbe:
-    """Times the real ``gen_seq`` CLI by parts: wrappers around what its
-    ``main`` and ``render_sequence`` call, ``render`` and ``box_mask``
-    (CUDA events around each call; ``box_mask`` also the peak device
-    memory above what was allocated when it began), ``Scene`` (the load)
-    and ``scene_io.save_image`` (host clock)."""
-
-    def __init__(self, torch):
-        from multiview_inpaint_tpu_torch.pipelines import gen_seq
-        self.torch = torch
-        self.events = {"render": [], "mask": []}   # (frame height, start, end)
-        self.host_s = {"load": 0.0, "png": 0.0}
-        self.png_s = {}                          # frame height: seconds
-        self.peak_mb = {}
-
-        def timed(kind, fn):
-            def run(*a, **kw):
-                if kind == "mask":
-                    torch.cuda.reset_peak_memory_stats()
-                    base = torch.cuda.memory_allocated()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = fn(*a, **kw)
-                end.record()
-                img = out.rgb if kind == "render" else out
-                h = img.shape[0]
-                self.events[kind].append((h, start, end))
-                if kind == "mask":
-                    self.peak_mb[h] = max(self.peak_mb.get(h, 0.0), (
-                        torch.cuda.max_memory_allocated() - base) / 2**20)
-                return out
-            return run
-
-        def host(kind, fn):
-            def run(*a, **kw):
-                t0 = time.perf_counter()
-                out = fn(*a, **kw)
-                dt = time.perf_counter() - t0
-                self.host_s[kind] += dt
-                if kind == "png":
-                    h = a[1].shape[0]
-                    self.png_s[h] = self.png_s.get(h, 0.0) + dt
-                return out
-            return run
-
-        self.patches = [
-            (gen_seq, "render", timed("render", gen_seq.render)),
-            (gen_seq, "box_mask", timed("mask", gen_seq.box_mask)),
-            (gen_seq, "Scene", host("load", gen_seq.Scene)),
-            (gen_seq.scene_io, "save_image",
-             host("png", gen_seq.scene_io.save_image))]
-
-    def run(self, argv):
-        """``gen_seq.main(argv)`` with the wrappers in place; returns its
-        seconds on the host clock."""
-        from multiview_inpaint_tpu_torch.pipelines import gen_seq
-        saved = [(m, n, getattr(m, n)) for m, n, _ in self.patches]
-        for m, n, f in self.patches:
-            setattr(m, n, f)
-        try:
-            t0 = time.perf_counter()
-            gen_seq.main(argv)
-            self.torch.cuda.synchronize()
-            return time.perf_counter() - t0
-        finally:
-            for m, n, f in saved:
-                setattr(m, n, f)
-
-    def ms(self, kind):
-        """{frame height: [device ms of each call]} of ``kind``."""
-        out = {}
-        for h, a, b in self.events[kind]:
-            out.setdefault(h, []).append(a.elapsed_time(b))
-        return out
+    return launches
 
 
 def phase_stage1_setup(card):
@@ -3797,19 +3117,15 @@ def _forward_launches(n):
 
 
 def phase_gen_seq(torch, card, s):
-    """Main path 5: the gen_seq CLI on big2m, counters zeroed before; then
-    the same CLI run again under ``SeqProbe`` for its time split. Returns
-    the launch counts of the first run."""
+    """Main path 5: the gen_seq CLI on big2m under the spans. Returns its
+    launch counts."""
     from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.gs import obb
     from multiview_inpaint_tpu_torch.pipelines import gen_seq
 
-    argv = _stage1_argv(s)
     _kernels.reset_launches()
-    t0 = time.perf_counter()
-    gen_seq.main(argv)
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
+    with spans("21 main gen_seq") as sp:
+        gen_seq.main(_stage1_argv(s))
     launches = dict(_kernels.LAUNCHES)
     n_train = len(YAWS)
     want = len(SEQ_MODES) * SEQ_FRAMES + n_train
@@ -3820,7 +3136,8 @@ def phase_gen_seq(torch, card, s):
 
     center = obb.load_obb(s["box"]).center
     checks = {f"K1, K2 and K6 launched {want} times, K3-K5 0":
-              launches == _forward_launches(want)}
+              launches == _forward_launches(want),
+              f"{want} renders": sp.get("render", {}).get("count") == want}
     cover = {}
     for mode in SEQ_MODES:
         d = seq(mode)
@@ -3850,35 +3167,11 @@ def phase_gen_seq(torch, card, s):
         len(bds_masks) == n_train
         and all(m.shape == (1080, 1920) for m in bds_masks))
 
-    probe = SeqProbe(torch)
-    probe_s = probe.run(argv)
-    render_ms, mask_ms = probe.ms("render"), probe.ms("mask")
-    orbit, full = render_ms.get(ORBIT_H, []), render_ms.get(1080, [])
-    split = {"load_s": probe.host_s["load"],
-             "render_s": (sum(orbit) + sum(full)) / 1e3,
-             "mask_s": sum(sum(v) for v in mask_ms.values()) / 1e3,
-             "png_s": probe.host_s["png"]}
-    split["other_s"] = probe_s - sum(split.values())
-    checks["probed run rendered every frame"] = (
-        len(orbit) == len(SEQ_MODES) * SEQ_FRAMES and len(full) == n_train)
     print(f"[21 main gen_seq] gen_seq CLI, {BIG_N} gaussians, modes "
           f"{list(SEQ_MODES)} x {SEQ_FRAMES} frames at {ORBIT_H}x{ORBIT_W} "
-          f"(HxW) + {n_train} bds_train views at 1920x1080, in {cli_s:.2f} s "
-          f"(PNGs written) | launches {launches} | mask cover per frame "
-          f"{json.dumps(cover)} | probed run {probe_s:.2f} s: "
-          f"{json.dumps({k: round(v, 3) for k, v in split.items()})}, PNG "
-          f"share {split['png_s'] / probe_s:.3f}, PNG s by frame height "
-          f"{json.dumps({k: round(v, 3) for k, v in probe.png_s.items()})} "
-          f"| device ms per orbit frame "
-          f"(CUDA events) median {statistics.median(orbit or [0]):.3f} (all "
-          f"{[round(t, 2) for t in orbit]}), per 1080p view median "
-          f"{statistics.median(full or [0]):.3f} | mask ms per frame median "
-          f"{ORBIT_H}x{ORBIT_W} "
-          f"{statistics.median(mask_ms.get(ORBIT_H, [0])):.3f}, 1080p "
-          f"{statistics.median(mask_ms.get(1080, [0])):.3f} | OBB step peak "
-          f"device memory above its start (MB) "
-          f"{json.dumps({k: round(v, 1) for k, v in probe.peak_mb.items()})}"
-          f" | {json.dumps(checks)} | {card}", flush=True)
+          f"(HxW) + {n_train} bds_train views at 1920x1080 (PNGs written) | "
+          f"launches {launches} | mask cover per frame {json.dumps(cover)} "
+          f"| {json.dumps(checks)} | {card}", flush=True)
     if not all(checks.values()):
         fail(f"main path 5 (gen_seq CLI) checks failed: {checks}")
     return launches
@@ -3889,15 +3182,10 @@ def _render_route(torch, params, cam, k2=None):
     (None: K2 itself), which takes the call's arguments and its band
     keywords ``row0`` and ``stride``."""
     from multiview_inpaint_tpu_torch.ops.rasterizer import api
-    real = api.composite_tiles
-    if k2 is not None:
-        api.composite_tiles = k2
-    try:
-        with torch.no_grad():
-            return api.render(params, cam, torch.zeros(3, device=DEVICE),
-                              device=DEVICE)
-    finally:
-        api.composite_tiles = real
+    with (patched(api, "composite_tiles", k2) if k2
+          else contextlib.nullcontext()), torch.no_grad():
+        return api.render(params, cam, torch.zeros(3, device=DEVICE),
+                          device=DEVICE)
 
 
 def sentinel_counts(depth_a, depth_b):
@@ -4048,10 +3336,7 @@ def phase_stage1_clis(torch, card, s):
     out = {}
     for name, main, extra, want, dirs, shape in runs:
         _kernels.reset_launches()
-        t0 = time.perf_counter()
         main(_stage1_argv(s) + extra)
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
         launches = dict(_kernels.LAUNCHES)
         pngs = [os.path.join(d, n) for d in dirs
                 for n in sorted(os.listdir(d))]
@@ -4062,10 +3347,8 @@ def phase_stage1_clis(torch, card, s):
                       a.shape == shape for a in arrs),
                   "no constant PNG": all(a.std() > 0 for a in arrs)}
         print(f"[23 {name}] {name} CLI, {BIG_N} gaussians, {want} frames at "
-              f"{ORBIT_H}x{ORBIT_W} in {cli_s:.2f} s, "
-              f"{cli_s * 1e3 / want:.1f} ms per frame (PNGs written) | "
-              f"launches {launches} | {json.dumps(checks)} | {card}",
-              flush=True)
+              f"{ORBIT_H}x{ORBIT_W} (PNGs written) | launches {launches} | "
+              f"{json.dumps(checks)} | {card}", flush=True)
         if not all(checks.values()):
             fail(f"main path 5 ({name} CLI) checks failed: {checks}")
         out[name] = launches
@@ -4080,11 +3363,8 @@ def phase_delete_gen_pc(torch, card, s):
     from multiview_inpaint_tpu_torch.pipelines import delete, gen_pc
 
     xyz = ply_io.load_gaussian_ply(s["ply"], 0)["xyz"]
-    t0 = time.perf_counter()
     delete.main(["-m", s["model"], "--box", s["del_box"], "--iteration", "1",
                  "--device", DEVICE])
-    torch.cuda.synchronize()
-    del_s = time.perf_counter() - t0
     kept = ply_io.load_gaussian_ply(os.path.join(
         s["model"], "point_cloud", "del", "point_cloud.ply"), 0)["xyz"]
     box = obb.load_obb(s["del_box"])
@@ -4098,9 +3378,7 @@ def phase_delete_gen_pc(torch, card, s):
                                | obb.fragile_rays(box, xyz, -dx))
     differ = in_cuda != in_cpu
     removed = len(xyz) - len(kept)
-    t0 = time.perf_counter()
     gen_pc.main(["-m", s["model"], "--iteration", "1"])
-    pc_s = time.perf_counter() - t0
     pts, _, _ = ply_io.fetch_point_cloud(os.path.join(s["model"], "xyz.ply"))
     checks = {"removed > 0": removed > 0,
               "removed = contains on CUDA": removed == int(in_cuda.sum()),
@@ -4108,12 +3386,11 @@ def phase_delete_gen_pc(torch, card, s):
               "contains CUDA = CPU off fragile rows":
               not bool((differ & ~fragile).any()),
               "gen_pc wrote 10000 points": len(pts) == 10000}
-    print(f"[24 delete, gen_pc] delete CLI on {len(xyz)} gaussians in "
-          f"{del_s:.2f} s: {removed} removed, {left} left inside | contains "
-          f"CUDA vs CPU: {int(differ.sum())} rows differ, "
-          f"{int(fragile.sum())} "
-          f"within {obb.FRAGILE_TOL} of a face | gen_pc CLI in {pc_s:.2f} s, "
-          f"{len(pts)} points | {json.dumps(checks)} | {card}", flush=True)
+    print(f"[24 delete, gen_pc] delete CLI on {len(xyz)} gaussians: "
+          f"{removed} removed, {left} left inside | contains CUDA vs CPU: "
+          f"{int(differ.sum())} rows differ, {int(fragile.sum())} within "
+          f"{obb.FRAGILE_TOL} of a face | gen_pc CLI, {len(pts)} points | "
+          f"{json.dumps(checks)} | {card}", flush=True)
     if not all(checks.values()):
         fail(f"main path 5 (delete, gen_pc CLIs) checks failed: {checks}")
 
@@ -4155,7 +3432,6 @@ def phase_stage2_frames(torch, card, s):
         DEPTH_EMPTY, RenderCamera, render)
     from multiview_inpaint_tpu_torch.utils import sh, synthetic
 
-    t0 = time.perf_counter()
     big = gaussians.load_ply(s["ply"], 0, device=DEVICE)
     obj = synthetic.make_gt_gaussians(n=OBJECT_N, seed=7,
                                       spread=OBJECT_SPREAD, device=DEVICE)
@@ -4177,8 +3453,7 @@ def phase_stage2_frames(torch, card, s):
     live[len(big.xyz):] = True
     alone = dataclasses.replace(both, live=live)
     black = torch.zeros(3, device=DEVICE)
-    visible, png_s, render_ms = {}, 0.0, []
-    fov = None
+    visible, fov = {}, None
     for mode in SEQ_MODES:
         views = _orbit_views(s, mode)
         poses = np.load(os.path.join(_seq_dir(s, mode), "poses.npy"))
@@ -4190,32 +3465,23 @@ def phase_stage2_frames(torch, card, s):
         out_dir = _seq_dir(s, mode, 0, "inpainted")
         for i, view in enumerate(views):
             cam = RenderCamera.from_camera(view, DEVICE)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
             with torch.no_grad():
-                start.record()
                 img = render(both, cam, black, device=DEVICE).rgb
-                end.record()
                 o = render(alone, cam, black, device=DEVICE)
                 b = render(big, cam, black, device=DEVICE)
             a = o.alpha.clamp(min=1e-6)
             d_obj = (o.depth - (1 - o.alpha) * DEPTH_EMPTY) / a
             visible[(mode, i)] = ((o.alpha > 0.5) & (d_obj < b.depth)
                                   ).cpu().numpy()
-            t1 = time.perf_counter()
             scene_io.save_image(os.path.join(out_dir, f"{i:02d}.png"),
                                 img.cpu().numpy())
-            png_s += time.perf_counter() - t1
-            render_ms.append(start.elapsed_time(end))
     cover = [round(float(v.mean()), 4) for v in visible.values()]
     print(f"[25 stage-2 frames] big2m + a {OBJECT_N}-splat object of colour "
           f"{OBJECT_RGB} (spread {OBJECT_SPREAD}, scale {OBJECT_SCALE}, "
           f"opacity {OBJECT_OPACITY}) at the insertion box centre, rendered "
           f"together at {len(visible)} orbit poses ({ORBIT_H}x{ORBIT_W}) "
-          f"into ctrl 0's inpainted frames in "
-          f"{time.perf_counter() - t0:.2f} s (PNG {png_s:.2f} s; device ms "
-          f"per frame median {statistics.median(render_ms):.3f}) | visible "
-          f"object cover per frame {cover} | {card}", flush=True)
+          f"into ctrl 0's inpainted frames | visible object cover per frame "
+          f"{cover} | {card}", flush=True)
     if sum(c > 0.002 for c in cover) < len(cover) // 2:
         fail(f"main path 6: the object is visible in fewer than half the "
              f"frames: {cover}")
@@ -4232,13 +3498,12 @@ def phase_seg_auto(torch, card, s, visible, fov):
     against the object's visible mask; median above SEG_IOU_BAR."""
     from multiview_inpaint_tpu_torch.pipelines import seg_masks
 
-    t0 = time.perf_counter()
     seg_masks.main(["--scene_id", s["sid"], "--ctrl_id", "0", "--modes",
                     *SEQ_MODES, "--frames", str(SEQ_FRAMES), "--iteration",
                     "1", "--workspace", s["ws"], "--auto", "--propagate",
                     "--fovx", repr(fov[0]), "--fovy", repr(fov[1]),
                     "--device", DEVICE])
-    cli_s = time.perf_counter() - t0
+
     def iou(a, b):
         union = float((a | b).sum())
         return round(float((a & b).sum()) / union if union else 1.0, 4)
@@ -4253,8 +3518,7 @@ def phase_seg_auto(torch, card, s, visible, fov):
     med = statistics.median(ious.values())
     worst = min(ious, key=ious.get)
     print(f"[26 seg_masks auto] seg_masks CLI --auto --propagate, modes "
-          f"{list(SEQ_MODES)} x {SEQ_FRAMES} frames in {cli_s:.2f} s "
-          f"({cli_s * 1e3 / len(ious):.1f} ms per frame) | IoU against the "
+          f"{list(SEQ_MODES)} x {SEQ_FRAMES} frames | IoU against the "
           f"visible object per frame {json.dumps(ious)} | median {med:.4f} "
           f"(bar > {SEG_IOU_BAR}), worst {worst} {ious[worst]:.4f} | the "
           f"box mask's own IoU median {statistics.median(box_ious):.4f} | "
@@ -4292,7 +3556,7 @@ def phase_seg_ground(torch, card, s):
     the towers written as a JAX-layout npz, a merges file, a plain-text
     query; every grounded mask within the same frame's --auto mask; the 57
     window scores of frame 0 against the same towers in float64 on the
-    card at GROUND_WINDOWS; ms per frame and peak device memory."""
+    card at GROUND_WINDOWS."""
     import copy
 
     from multiview_inpaint_tpu_torch.diffusion import checkpoint
@@ -4300,7 +3564,6 @@ def phase_seg_ground(torch, card, s):
     from multiview_inpaint_tpu_torch.guidance import grounding
     from multiview_inpaint_tpu_torch.pipelines import seg_masks
 
-    t0 = time.perf_counter()
     vis, text = _clip_towers(torch)
     n_params = sum(p.numel() for t in (vis, text) for p in t.parameters())
     npz = os.path.join(s["work"], "clip.npz")
@@ -4316,7 +3579,6 @@ def phase_seg_ground(torch, card, s):
         "text": checkpoint.state_dict_to_jax(
             {checkpoint.TEXT_PREFIX + k: v
              for k, v in text.state_dict().items()}, "clip_text")})
-    write_s = time.perf_counter() - t0
     src = _seq_dir(s, "x1", 0, "inpainted")
     dst = _seq_dir(s, "x1", 1, "inpainted")
     shutil.rmtree(dst, ignore_errors=True)
@@ -4328,28 +3590,8 @@ def phase_seg_ground(torch, card, s):
     out = _seq_dir(s, "x1", 1, "sam_mask")
     auto = [_mask_png(os.path.join(out, f"{i:02d}.png"))
             for i in range(SEQ_FRAMES)]
-    real_load = seg_masks.load_grounder
-    load_s = []
-
-    def timed_load(*a):
-        t = time.perf_counter()
-        g = real_load(*a)
-        torch.cuda.synchronize()
-        load_s.append(time.perf_counter() - t)
-        return g
-
-    seg_masks.load_grounder = timed_load
-    torch.cuda.reset_peak_memory_stats()
-    base_mb = torch.cuda.memory_allocated() / 2**20
-    t0 = time.perf_counter()
-    try:
-        seg_masks.main(argv + ["--ground", GROUND_QUERY, "--clip_ckpt", npz,
-                               "--bpe_vocab", merges])
-        torch.cuda.synchronize()
-    finally:
-        seg_masks.load_grounder = real_load
-    cli_s = time.perf_counter() - t0
-    peak_mb = torch.cuda.max_memory_allocated() / 2**20 - base_mb
+    seg_masks.main(argv + ["--ground", GROUND_QUERY, "--clip_ckpt", npz,
+                           "--bpe_vocab", merges])
     grounded = [_mask_png(os.path.join(out, f"{i:02d}.png"))
                 for i in range(SEQ_FRAMES)]
     subset = all(not (g & ~a).any() for g, a in zip(grounded, auto))
@@ -4370,18 +3612,15 @@ def phase_seg_ground(torch, card, s):
     rel = float(err.max() / np.abs(s64).max())
     del g64
     torch.cuda.empty_cache()
-    frame_ms = (cli_s - sum(load_s)) * 1e3 / SEQ_FRAMES
     checks = {f"{len(wins)} windows at {ORBIT_H}x{ORBIT_W}": len(wins) == 57,
               "grounded masks within the auto masks": subset,
               f"f32 scores within {GROUND_REL_TOL} of max|f64|":
               rel <= GROUND_REL_TOL}
     print(f"[27 seg_masks ground] towers {n_params / 1e9:.3f}B f32 "
-          f"parameters (ViT-H/14 + 23-layer text), npz written in "
-          f"{write_s:.2f} s ({os.path.getsize(npz) / 2**30:.2f} GiB) | "
-          f"seg_masks --ground {GROUND_QUERY!r} on x1 in {cli_s:.2f} s: "
-          f"towers loaded in {sum(load_s):.2f} s, {frame_ms:.1f} ms per "
-          f"frame, peak device memory {peak_mb:.0f} MB above its start | "
-          f"share of the auto mask kept per frame {kept} | frame 0 scores "
+          f"parameters (ViT-H/14 + 23-layer text), npz of "
+          f"{os.path.getsize(npz) / 2**30:.2f} GiB | seg_masks --ground "
+          f"{GROUND_QUERY!r} on x1: share of the auto mask kept per frame "
+          f"{kept} | frame 0 scores "
           f"f32 vs f64 at windows {list(GROUND_WINDOWS)}: f64 "
           f"{[round(float(v), 5) for v in s64]}, max abs err "
           f"{float(err.max()):.3g}, relative to max|f64| {rel:.3g} (bar "
@@ -4389,45 +3628,6 @@ def phase_seg_ground(torch, card, s):
           f" | {json.dumps(checks)} | {card}", flush=True)
     if not all(checks.values()):
         fail(f"main path 6 (seg_masks --ground) checks failed: {checks}")
-
-
-class RecProbe:
-    """Wraps ``gs_trainer.train_step`` as the inpaint_rec CLI calls it:
-    each step's loss mode, image height, loss and CUDA events."""
-
-    def __init__(self, torch):
-        from multiview_inpaint_tpu_torch.models import gs_trainer
-        self.torch, self.steps, self.real = torch, [], gs_trainer.train_step
-
-    def __enter__(self):
-        from multiview_inpaint_tpu_torch.models import gs_trainer
-        torch = self.torch
-
-        def step(*a, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = self.real(*a, **kw)
-            end.record()
-            self.steps.append((kw.get("loss_mode", "full"), a[2].shape[0],
-                               out[1].loss, start, end))
-            return out
-
-        gs_trainer.train_step = step
-        return self
-
-    def __exit__(self, *exc):
-        from multiview_inpaint_tpu_torch.models import gs_trainer
-        gs_trainer.train_step = self.real
-
-    def by_kind(self):
-        """{(loss mode, height): ([losses], [ms])} in step order."""
-        out = {}
-        for mode, h, loss, a, b in self.steps:
-            losses, ms = out.setdefault((mode, h), ([], []))
-            losses.append(float(loss))
-            ms.append(a.elapsed_time(b))
-        return out
 
 
 def _rec_scene(s):
@@ -4444,12 +3644,11 @@ def _rec_scene(s):
 
 def phase_stage2_step(torch, card, s):
     """Main path 6: one stage-2 step of each kind on load_sd_ply's rows
-    before the CLI: a 512x384 seq view with the full loss and a 1080p
-    training view with the background loss (``StepProbe``), K3 held
+    before the CLI: a 512x384 seq view with the full
+    loss and a 1080p training view with the background loss, K3 held
     against the plain K3 (``check_k3``), K1 and K2 against theirs
     (``k2_with_state``), the pairs whose K3 rows are all zero and the
-    pixels whose cotangent is; returns the densification threshold and
-    the kernels' records of both shapes."""
+    pixels whose cotangent is; returns the densification threshold."""
     from multiview_inpaint_tpu_torch.gs import obb, ply_io
     from multiview_inpaint_tpu_torch.gs import scene as scene_mod
     from multiview_inpaint_tpu_torch.models import gs_trainer
@@ -4463,16 +3662,13 @@ def phase_stage2_step(torch, card, s):
     del_ply = os.path.join(s["model"], "point_cloud", "del",
                            "point_cloud.ply")
     n_del = len(ply_io.load_gaussian_ply(del_ply, 0)["xyz"])
-    t0 = time.perf_counter()
     params = scene_mod.load_sd_ply(del_ply, obb.load_obb(s["box"]),
                                    n_samples=REC_SAMPLES, device=DEVICE)
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
     n_rows = int(params.num_live())
     state = gs_trainer.init_state(params)
     cfg = gs_trainer.OptimizationConfig()
     bg = torch.zeros(3, device=DEVICE)
-    records, threshold = {}, None
+    threshold = None
     for kind, cam in (("seq", next(c for c in cams if c.inpainted)),
                       ("train_1080p", next(c for c in cams
                                            if not c.inpainted))):
@@ -4481,36 +3677,33 @@ def phase_stage2_step(torch, card, s):
                              device=DEVICE)
         mask = (None if cam.inpainted else torch.as_tensor(
             np.asarray(cam.mask, np.float32), device=DEVICE))
-        torch.cuda.reset_peak_memory_stats()
-        probe = StepProbe(torch)
-        (state, m), split = probe.step(
-            state, RenderCamera.from_camera(cam, DEVICE), gt, bg, cfg,
-            sc.cameras_extent, 0, mask, mode)
-        peak_gb = torch.cuda.max_memory_allocated() / 2**30
         label = f"28 {kind} {cam.width}x{cam.height} {mode}"
-        k3 = check_k3(torch, card, f"{label} K3", probe.k3_args, probe.gid,
-                      state.params.capacity)
-        k1, k2 = k2_with_state(torch, card, probe, "28", f"orbit-rec {kind}")
+        (state, m), k1_args, k3_args, gid = kernel_inputs(
+            lambda: gs_trainer.train_step(
+                state, RenderCamera.from_camera(cam, DEVICE), gt, bg,
+                cfg, sc.cameras_extent, 0, mask, mode))
+        check_k3(torch, card, f"{label} K3", k3_args, gid,
+                 state.params.capacity)
+        k2_with_state(torch, card, k1_args, k3_args, "28",
+                      f"orbit-rec {kind}")
         with torch.no_grad():
-            d_k = composite_cuda.composite_bwd(*probe.k3_args)
+            d_k = composite_cuda.composite_bwd(*k3_args)
         zero_rows = int((d_k[:, :10] == 0).all(dim=1).sum())
-        g = probe.k3_args[4]
+        g = k3_args[4]
         zero_px = float((g[:, :5] == 0).all(dim=1).float().mean())
-        records[kind] = dict(K1=k1, K2=k2, K3=k3)
-        print(f"[{label}] {n_rows} rows in {state.params.capacity} "
-              f"(load_sd_ply in {load_s:.2f} s), pairs {m.pairs}, loss "
-              f"{float(m.loss):.5f}, non-finite gradients "
+        print(f"[{label}] {n_rows} rows in {state.params.capacity}, pairs "
+              f"{m.pairs}, loss {float(m.loss):.5f}, non-finite gradients "
               f"{int(m.nonfinite_grads)} | pairs with all-zero K3 rows "
               f"{zero_rows} of {d_k.shape[0]} ({zero_rows / d_k.shape[0]:.4f})"
-              f", tile pixels with a zero cotangent {zero_px:.4f} | split "
-              f"(ms) {json.dumps({k: round(v, 3) for k, v in split.items()})}"
-              f" | peak device memory {peak_gb:.2f} GB | {card}", flush=True)
+              f", tile pixels with a zero cotangent {zero_px:.4f} | {card}",
+              flush=True)
         if int(m.nonfinite_grads) or not torch.isfinite(m.loss):
             fail(f"main path 6 step {label}: non-finite loss or gradients")
         if threshold is None:
             seen = state.stats.denom > 0
             threshold = float(torch.quantile(
                 state.stats.grad_accum[seen][:2**24], REC_DENSIFY_QUANTILE))
+        del k1_args, k3_args, gid, d_k, g
     checks = {f"{REC_CAMERAS} cameras per epoch": len(cams) == REC_CAMERAS,
               "27 of them seq views": n_seq == 27,
               f"the del PLY's {n_del} rows + {REC_SAMPLES}":
@@ -4520,9 +3713,9 @@ def phase_stage2_step(torch, card, s):
           f"step) | {card}", flush=True)
     if not all(checks.values()):
         fail(f"main path 6 (stage-2 steps) checks failed: {checks}")
-    del state, probe, params
+    del state, params
     torch.cuda.empty_cache()
-    return threshold, records
+    return threshold
 
 
 def _masked_psnr(torch, params, cams):
@@ -4554,15 +3747,16 @@ def phase_inpaint_rec(torch, card, s, threshold):
     from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.gs import gaussians, obb
     from multiview_inpaint_tpu_torch.gs import scene as scene_mod
+    from multiview_inpaint_tpu_torch.models import gs_trainer
     from multiview_inpaint_tpu_torch.pipelines import inpaint_rec
 
     out = os.path.join(s["work"], "output_rec", s["sid"])
     shutil.rmtree(out, ignore_errors=True)
     first, until, every = REC_DENSIFY
     _kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    with RecProbe(torch) as probe:
+    # each step's loss mode, image height and loss
+    with capture(gs_trainer, "train_step", lambda a, kw, out: (
+            kw.get("loss_mode", "full"), a[2].shape[0], out[1].loss)) as steps:
         inpaint_rec.main([
             "-s", s["src"], "-m", out, "--scene_id", s["sid"], "--ctrl_id",
             "0", "--bg_model", s["model"], "--bg_iteration", "1",
@@ -4575,17 +3769,16 @@ def phase_inpaint_rec(torch, card, s, threshold):
             str(every), "--densify_grad_threshold", repr(threshold),
             "--opacity_reset_interval", "100000", "--log_interval", "10",
             "--device", DEVICE])
-        torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
     launches = dict(_kernels.LAUNCHES)
-    kinds = probe.by_kind()
-    seq_loss, seq_ms = kinds.get(("full", ORBIT_H), ([], []))
-    bg_h = next((h for mode, h in kinds if mode == "background"), 0)
-    bg_loss, bg_ms = kinds.get(("background", bg_h), ([], []))
+    losses = {}
+    for mode, h, loss in steps:
+        losses.setdefault((mode, h), []).append(float(loss))
+    seq_loss = losses.get(("full", ORBIT_H), [])
+    bg_h = next((h for mode, h in losses if mode == "background"), 0)
+    bg_loss = losses.get(("background", bg_h), [])
     with open(os.path.join(out, "ctrl_0", "train_log.jsonl")) as f:
         log = [json.loads(line) for line in f]
-    steps = [r for r in log if "loss" in r]
+    logged = [r for r in log if "loss" in r]
     densified = [r for r in log if "wanted" in r]
     ply = os.path.join(out, "ctrl_0", "point_cloud",
                        f"iteration_{REC_ITERS}", "point_cloud.ply")
@@ -4607,14 +3800,14 @@ def phase_inpaint_rec(torch, card, s, threshold):
             "composite_bwd": REC_ITERS, "flash_attn_fwd": 0,
             "flash_attn_bwd": 0, "project": REC_ITERS,
             "project_bwd": REC_ITERS},
-        "every step probed": len(probe.steps) == REC_ITERS,
+        "every step captured": len(steps) == REC_ITERS,
         "seq views' loss falls (first vs last 20)": loss_last < loss_first,
         f"densify ran at {list(range(first, until, every))}":
         [r["step"] for r in densified] == list(range(first, until, every)),
         "densify wrote rows": bool(densified) and sum(
             r["cloned"] + r["split"] for r in densified) > 0,
         "no non-finite gradient": all(r["nonfinite_grads"] == 0
-                                      for r in steps),
+                                      for r in logged),
         "PLY written and loaded": int(final.num_live()) > 0,
         f"masked PSNR up by > {REC_PSNR_MARGIN} dB":
         psnr1 > psnr0 + REC_PSNR_MARGIN,
@@ -4625,16 +3818,13 @@ def phase_inpaint_rec(torch, card, s, threshold):
     print(f"[29 main inpaint_rec] inpaint_rec CLI, {REC_ITERS} steps on "
           f"{REC_CAMERAS} cameras per epoch (27 seq views at "
           f"{ORBIT_H}x{ORBIT_W}, 6 x {len(YAWS)} training views at "
-          f"height {bg_h}) from load_sd_ply's rows in {cli_s:.2f} s | "
-          f"launches {launches} | seq steps {len(seq_loss)}"
-          f", loss first/last {n} {loss_first:.5f} -> {loss_last:.5f}; "
-          f"background steps {len(bg_loss)} | median step ms (CUDA events) "
-          f"seq full {statistics.median(seq_ms or [0]):.3f}, training view "
-          f"background {statistics.median(bg_ms or [0]):.3f} | densify "
-          f"{densify} | points {steps[-1]['points'] if steps else None} | "
-          f"masked PSNR in the SAM masks {psnr0:.3f} -> {psnr1:.3f} dB | "
-          f"peak device memory {peak_gb:.2f} GB | {json.dumps(checks)} | "
-          f"{card}", flush=True)
+          f"height {bg_h}) from load_sd_ply's rows | launches {launches} | "
+          f"seq steps {len(seq_loss)}, loss first/last {n} "
+          f"{loss_first:.5f} -> {loss_last:.5f}; background steps "
+          f"{len(bg_loss)} | densify {densify} | points "
+          f"{logged[-1]['points'] if logged else None} | masked PSNR in the "
+          f"SAM masks {psnr0:.3f} -> {psnr1:.3f} dB | {json.dumps(checks)} "
+          f"| {card}", flush=True)
     if not all(checks.values()):
         fail(f"main path 6 (inpaint_rec CLI) checks failed: {checks}")
     return launches
@@ -4643,13 +3833,11 @@ def phase_inpaint_rec(torch, card, s, threshold):
 def _write_ckpt(torch, path, modules):
     """``torch.save`` of ``{"state_dict": ...}`` with each module's state
     under its prefix (``modules``: (prefix, module) pairs), the tensors
-    copied to the host; returns the seconds taken."""
-    t0 = time.perf_counter()
+    copied to the host."""
     sd = {pre + k: v.detach().cpu() for pre, m in modules
           for k, v in m.state_dict().items()}
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save({"state_dict": sd}, path)
-    return time.perf_counter() - t0
 
 
 def _random_prior(torch, cfg, seed, controlnet=False):
@@ -4694,7 +3882,7 @@ def phase_slice7_setup(torch, card, s):
     VAE written as one ``.ckpt`` (``torch.save``; the card's machine has
     no ``safetensors``), the text embeddings [2, 77, 1024] from the seed,
     and the SDS prior built from that file as ``sds_train`` builds it;
-    returns them with the write and load seconds."""
+    returns them."""
     import argparse
 
     from multiview_inpaint_tpu_torch.diffusion import checkpoint
@@ -4708,23 +3896,20 @@ def phase_slice7_setup(torch, card, s):
     unet = _random_prior(torch, UNet2DConfig(), 70)
     vae = _random_vae(torch, 71)
     n_params = sum(p.numel() for m in (unet, vae) for p in m.parameters())
-    write_s = _write_ckpt(torch, sw["sd"], (
+    _write_ckpt(torch, sw["sd"], (
         (checkpoint.PREFIXES["unet"], unet), (checkpoint.PREFIXES["vae"],
                                               vae)))
     del unet, vae
     torch.cuda.empty_cache()
     np.save(sw["embs"], _text_embs(1024, 72))
-    t0 = time.perf_counter()
     sw["guidance"] = sds_train.build_guidance(argparse.Namespace(
         sd_ckpt=sw["sd"], guidance_scale=SDS_GUIDANCE), DEVICE)
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
     sw["text"] = torch.as_tensor(np.load(sw["embs"]), device=DEVICE)
     print(f"[30 slice-7 setup] SD-2-inpainting-width UNet2D (UNet2DConfig()) "
           f"+ 2D VAE: {n_params} random f32 parameters, all-zero ones moved,"
-          f" written as {os.path.getsize(sw['sd']) / 2**30:.2f} GiB .ckpt in "
-          f"{write_s:.2f} s, read into the SDS prior (build_guidance) in "
-          f"{load_s:.2f} s | text embeddings [2, 77, 1024] from the seed "
+          f" written as {os.path.getsize(sw['sd']) / 2**30:.2f} GiB .ckpt, "
+          f"read into the SDS prior (build_guidance) | text embeddings "
+          f"[2, 77, 1024] from the seed "
           f"(the prompt's {TEXT_TOKENS} tokens apart) | "
           f"{card}", flush=True)
     return sw
@@ -4766,14 +3951,10 @@ def phase_unet2d_eval(torch, card, sw):
         gen = torch.Generator(device=DEVICE).manual_seed(seed)
         x = torch.randn((2, SDS_LATENT, SDS_LATENT, 9), generator=gen,
                         device=DEVICE)
-        attention_op.flash_attention = attend
-        try:
+        with patched(attention_op, "flash_attention", attend), \
+                torch.no_grad():
             _kernels.reset_launches()
-            with torch.no_grad():
-                out = unet(x, t, sw["text"])
-            torch.cuda.synchronize()
-        finally:
-            attention_op.flash_attention = real
+            out = unet(x, t, sw["text"])
         return out, _kernels.LAUNCHES["flash_attn_fwd"]
 
     out_k4, n_k4 = evaluate(31, real)
@@ -4807,116 +3988,6 @@ def phase_unet2d_eval(torch, card, sw):
              "attention, or the bar does not separate the planted faults")
 
 
-class SdsProbe:
-    """Runs the real ``sds_trainer.sds_train_step`` and keeps what its
-    checks need: the pair binning's gaussian ids, K1's and K3's inputs
-    (as ``StepProbe`` keeps them), and the gradient the SDS term sends
-    into the prior's input image (a hook on the image the prior's
-    ``vae_encode`` takes with a gradient)."""
-
-    def __init__(self, torch, guidance):
-        from multiview_inpaint_tpu_torch.ops.rasterizer import (
-            binning, composite_cuda)
-        self.torch, self.k3_args, self.gid = torch, None, None
-        self.k1_args, self.img_grad = None, None
-
-        def bins(*a, **kw):
-            b = bin_gaussians(*a, **kw)
-            self.gid = b.order[b.gid_sorted]
-            return b
-
-        def k3(*a):
-            # K3's ten arguments, then the band's row0 and stride
-            self.k3_args, self.k3_band = a[:10], a[10:]
-            return composite_bwd(*a)
-
-        def k1(*a):
-            self.k1_args = a
-            return expand_keys(*a)
-
-        def keep(g):
-            self.img_grad = g.detach()
-
-        def encode(img):
-            if img.requires_grad:
-                img.register_hook(keep)
-            return vae_encode(img)
-
-        bin_gaussians, expand_keys = binning.bin_gaussians, binning.expand_keys
-        composite_bwd = composite_cuda.composite_bwd
-        vae_encode = guidance.vae_encode
-        self.patches = [(binning, "bin_gaussians", bins),
-                        (binning, "expand_keys", k1),
-                        (composite_cuda, "composite_bwd", k3),
-                        (guidance, "vae_encode", encode)]
-
-    def step(self, *args, **kw):
-        """``sds_trainer.sds_train_step(*args, **kw)`` with the wrappers
-        in place."""
-        from multiview_inpaint_tpu_torch.models import sds_trainer
-        saved = [(m, n, getattr(m, n)) for m, n, _ in self.patches]
-        for m, n, f in self.patches:
-            setattr(m, n, f)
-        try:
-            out = sds_trainer.sds_train_step(*args, **kw)
-            self.torch.cuda.synchronize()
-        finally:
-            for m, n, f in saved:
-                setattr(m, n, f)
-        return out
-
-
-def sds_split(torch, state, args, kw):
-    """Device ms (``cuda_ms``, mean of 3 after a warm-up) of one SDS step
-    and of its parts run alone on the step's inputs: the render forward
-    with the step's leaves, the VAE encode of a 512^2 image forward and
-    forward + backward, the CFG UNet evaluation, Adam; ``rest`` is the
-    step less those (the render backward, the background loss, the
-    resizes, the masked encode)."""
-    from multiview_inpaint_tpu_torch.diffusion.clip_vit import (
-        resize_bilinear)
-    from multiview_inpaint_tpu_torch.models import gs_trainer, sds_trainer
-    from multiview_inpaint_tpu_torch.ops.rasterizer import render
-
-    cam, _, _, bg, cfg, guidance, text = args
-    p = state.params
-    fields, offset = gs_trainer.leaves(p)
-    live = dataclasses.replace(p, **fields)
-
-    def render_fwd():
-        return render(live, cam, bg, means2d_offset=offset, device=DEVICE)
-
-    out = render_fwd()
-    x = resize_bilinear(out.rgb.detach().clamp(0, 1)[None],
-                        (SDS_SIZE, SDS_SIZE)).requires_grad_(True)
-    cot = torch.randn((1, SDS_LATENT, SDS_LATENT, 4), device=DEVICE)
-    x9 = torch.randn((1, SDS_LATENT, SDS_LATENT, 9), device=DEVICE)
-    t = torch.full((1,), 500.0, device=DEVICE)
-    grads = {f: torch.randn_like(v) for f, v in fields.items()}
-
-    def encode_fwd_bwd():
-        torch.autograd.grad(guidance.vae_encode(x), x, cot)
-
-    def cfg_unet():
-        with torch.no_grad():
-            return guidance._eps_cfg(x9, t, text)
-
-    parts = {
-        "step": cuda_ms(torch, lambda: sds_trainer.sds_train_step(
-            state, *args, **kw), 3),
-        "render_fwd": cuda_ms(torch, render_fwd, 3),
-        "vae_encode_fwd": cuda_ms(torch, lambda: guidance.vae_encode(x), 3),
-        "vae_encode_fwd_bwd": cuda_ms(torch, encode_fwd_bwd, 3),
-        "cfg_unet": cuda_ms(torch, cfg_unet, 3),
-        "adam": cuda_ms(torch, lambda: gs_trainer.apply_adam(
-            state, grads, offset.detach(), out.radii, out.visibility, cfg,
-            kw["spatial_lr_scale"]), 3),
-    }
-    parts["rest"] = parts["step"] - sum(
-        v for k, v in parts.items() if k not in ("step", "vae_encode_fwd"))
-    return parts
-
-
 def _sds_scene(s):
     """Main path 7's SDS cameras (the bds_train views with their box
     masks) and the training rows (the del PLY + box samples)."""
@@ -4934,12 +4005,12 @@ def _sds_scene(s):
 
 def phase_sds_step(torch, card, s, sw):
     """Main path 7: one SDS step at full width on a 1080p bds_train view
-    after a warm-up step on it (``SdsProbe``): K3 against its plain
+    after a warm-up step on it: K3 against its plain
     version under the step's own cotangent (``check_k3``), K1 and K2
     against theirs with the per-item state (``k2_with_state``), the SDS
-    image gradient finite and non-zero inside the mask, the launches of
-    the step, its split and peak memory; returns the densification
-    threshold and the kernels' records."""
+    image gradient (a hook on the image the prior's ``vae_encode`` takes
+    with a gradient) finite and non-zero inside the mask, the launches of
+    the step; returns the densification threshold."""
     from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.guidance.sds import resize_nearest
     from multiview_inpaint_tpu_torch.models import gs_trainer, sds_trainer
@@ -4957,23 +4028,27 @@ def phase_sds_step(torch, card, s, sw):
     kw = dict(spatial_lr_scale=sc.cameras_extent, sds_weight=SDS_WEIGHT,
               sds_size=SDS_SIZE, generator=gen)
     state, _ = sds_trainer.sds_train_step(state, *args, **kw)   # warm-up
+    img_grads = []
+
+    def hook(a, kw_, out):
+        if a[0].requires_grad:
+            a[0].register_hook(lambda g: img_grads.append(g.detach()))
+
+    label = f"32 sds step {cam.width}x{cam.height}"
     _kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    probe = SdsProbe(torch, sw["guidance"])
-    state, m = probe.step(state, *args, **kw)
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    with capture(sw["guidance"], "vae_encode", hook):
+        (state, m), k1_args, k3_args, gid = kernel_inputs(
+            lambda: sds_trainer.sds_train_step(state, *args, **kw))
     launches = dict(_kernels.LAUNCHES)
-    g = probe.img_grad[0]
+    g = img_grads[-1][0]
     inside = resize_nearest(mask, (SDS_SIZE, SDS_SIZE)) > 0.5
     g_in = g.abs().amax(dim=-1)[inside]
-    label = f"32 sds step {cam.width}x{cam.height}"
-    k3 = check_k3(torch, card, f"{label} K3", probe.k3_args, probe.gid,
-                  state.params.capacity)
-    k1, k2 = k2_with_state(torch, card, probe, "32", "orbit-sds 1080p")
+    check_k3(torch, card, f"{label} K3", k3_args, gid,
+             state.params.capacity)
+    k2_with_state(torch, card, k1_args, k3_args, "32", "orbit-sds 1080p")
     seen = state.stats.denom > 0
     threshold = float(torch.quantile(state.stats.grad_accum[seen][:2**24],
                                      REC_DENSIFY_QUANTILE))
-    split = sds_split(torch, state, args, kw)
     checks = {
         f"{len(YAWS)} SDS cameras (bds_train views with box masks)":
         len(cams) == len(YAWS),
@@ -4992,17 +4067,14 @@ def phase_sds_step(torch, card, s, sw):
           f"{float(m.sds_loss):.6g} x {SDS_WEIGHT}) | launches {launches} | "
           f"SDS image gradient at {SDS_SIZE}^2: max|g| "
           f"{float(g.abs().max()):.4g}, share of mask pixels with g != 0 "
-          f"{float((g_in > 0).float().mean()):.4f} | device ms (cuda_ms, "
-          f"the parts run alone) "
-          f"{json.dumps({k: round(v, 3) for k, v in split.items()})} | peak "
-          f"device memory {peak_gb:.2f} GB "
-          f"| densify threshold {threshold:.4g} (the {REC_DENSIFY_QUANTILE} "
-          f"quantile) | {json.dumps(checks)} | {card}", flush=True)
+          f"{float((g_in > 0).float().mean()):.4f} | densify threshold "
+          f"{threshold:.4g} (the {REC_DENSIFY_QUANTILE} quantile) | "
+          f"{json.dumps(checks)} | {card}", flush=True)
     if not all(checks.values()):
         fail(f"main path 7 (SDS step) checks failed: {checks}")
-    del state, probe, params
+    del state, params, k1_args, k3_args, gid
     torch.cuda.empty_cache()
-    return threshold, dict(K1=k1, K2=k2, K3=k3)
+    return threshold
 
 
 def phase_sds_train(torch, card, s, sw, threshold):
@@ -5012,31 +4084,16 @@ def phase_sds_train(torch, card, s, sw, threshold):
     loss of the 20 steps before the densification at step 50 below the
     first 20's (the split right after it repaints the background for
     the next steps), finite after it; densify ran at step 50 and wrote
-    rows; no non-finite gradient; the PLY written and loaded; median step
-    ms and peak memory. Returns the launches and the model dir."""
+    rows; no non-finite gradient; the PLY written and loaded; the run
+    under the spans. Returns the launches and the model dir."""
     from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.gs import gaussians
-    from multiview_inpaint_tpu_torch.models import sds_trainer
     from multiview_inpaint_tpu_torch.pipelines import sds_train
 
     out = os.path.join(s["work"], "output_sds", s["sid"])
     shutil.rmtree(out, ignore_errors=True)
-    real, times = sds_trainer.sds_train_step, []
-
-    def step(*a, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        res = real(*a, **kw)
-        end.record()
-        times.append((start, end))
-        return res
-
     _kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    sds_trainer.sds_train_step = step
-    t0 = time.perf_counter()
-    try:
+    with spans("33 main sds_train") as sp:
         sds_train.main([
             "-s", s["src"], "-m", out, "--scene_id", s["sid"],
             "--bg_model", s["model"], "--bg_iteration", "1", "--workspace",
@@ -5045,13 +4102,7 @@ def phase_sds_train(torch, card, s, sw, threshold):
             "--save_iterations", str(SDS_ITERS), "--sd_ckpt", sw["sd"],
             "--text_embs", sw["embs"], "--densify_grad_threshold",
             repr(threshold), "--log_interval", "1", "--device", DEVICE])
-        torch.cuda.synchronize()
-    finally:
-        sds_trainer.sds_train_step = real
-    cli_s = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
     launches = dict(_kernels.LAUNCHES)
-    ms = [a.elapsed_time(b) for a, b in times]
     with open(os.path.join(out, "train_log.jsonl")) as f:
         log = [json.loads(line) for line in f]
     steps = [r for r in log if "bg" in r]
@@ -5068,7 +4119,8 @@ def phase_sds_train(torch, card, s, sw, threshold):
             "flash_attn_fwd": K4_PER_UNET2D_EVAL * SDS_ITERS,
             "flash_attn_bwd": 0, "project": SDS_ITERS,
             "project_bwd": SDS_ITERS},
-        "every step logged": len(steps) == SDS_ITERS == len(ms),
+        "every step logged": len(steps) == SDS_ITERS
+        == sp.get("sds.step", {}).get("count"),
         f"background loss falls (steps 1-{n} vs the {n} before the "
         f"densification at {SDS_DENSIFY})": statistics.mean(
             bg[SDS_DENSIFY - n:SDS_DENSIFY]) < statistics.mean(bg[:n]),
@@ -5089,17 +4141,15 @@ def phase_sds_train(torch, card, s, sw, threshold):
                for i in range(0, len(bg), 10)]
     print(f"[33 main sds_train] sds_train CLI, {SDS_ITERS} steps on the "
           f"{len(YAWS)} bds_train views at 1920x1080, SD-2-inpainting-width "
-          f"prior from the .ckpt, in {cli_s:.2f} s | launches {launches} | "
+          f"prior from the .ckpt | launches {launches} | "
           f"background loss steps 1-{n} {statistics.mean(bg[:n]):.6f}, "
           f"{SDS_DENSIFY - n + 1}-{SDS_DENSIFY} "
           f"{statistics.mean(bg[SDS_DENSIFY - n:SDS_DENSIFY]):.6f}, after "
           f"the densification {statistics.mean(bg[SDS_DENSIFY:]):.6f} (by "
           f"10 steps {windows}), SDS term median "
           f"{statistics.median(r['sds'] for r in steps) * SDS_WEIGHT:.5g} "
-          f"(SDS loss x {SDS_WEIGHT}) | step ms (CUDA "
-          f"events) median {statistics.median(ms):.3f}, first {ms[0]:.3f} | "
-          f"densify {densify} | points {steps[-1]['points']} | peak device "
-          f"memory {peak_gb:.2f} GB | {json.dumps(checks)} | {card}",
+          f"(SDS loss x {SDS_WEIGHT}) | densify {densify} | points "
+          f"{steps[-1]['points']} | {json.dumps(checks)} | {card}",
           flush=True)
     if not all(checks.values()):
         fail(f"main path 7 (sds_train CLI) checks failed: {checks}")
@@ -5129,17 +4179,12 @@ def phase_sds_depth(torch, card, s, sds_out):
               s["ws"], "--registry", s["registry"], "--resolution", "1",
               "--device", DEVICE]
     n = len(SEQ_MODES) * SEQ_FRAMES
-    launches, secs = {}, {}
+    launches = {}
 
     def run(name, main, argv):
         _kernels.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
         main(argv)
-        torch.cuda.synchronize()
-        secs[name] = time.perf_counter() - t0
         launches[name] = dict(_kernels.LAUNCHES)
-        return torch.cuda.max_memory_allocated() / 2**30
 
     run("gen_seq --sds", gen_seq.main, common + [
         "-m", sds_out, "--iteration", str(SDS_ITERS), "--sds"])
@@ -5153,31 +4198,14 @@ def phase_sds_depth(torch, card, s, sds_out):
     model = dpt.DPTDepth(dpt.DPTConfig(), device=DEVICE)
     perturb_zero_params(torch, model, 73)
     dpt_path = os.path.join(s["work"], "slice7", "dpt_large.pth")
-    t0 = time.perf_counter()
     torch.save({k: v.cpu() for k, v in model.state_dict().items()},
                dpt_path)
-    dpt_write_s = time.perf_counter() - t0
     del model
     depth_argv = common + ["-m", s["model"], "--sds_model", sds_out,
                            "--sds_iteration", str(SDS_ITERS)]
-    real_estimate, dpt_ms = dpt.estimate_depth, []
-
-    def estimate(*a, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        res = real_estimate(*a, **kw)
-        end.record()
-        dpt_ms.append((start, end))
-        return res
-
-    dpt.estimate_depth = estimate
-    try:
-        dpt_peak = run("gen_depth --dpt_ckpt", gen_depth.main, depth_argv
-                       + ["--dpt_ckpt", dpt_path])
-    finally:
-        dpt.estimate_depth = real_estimate
-    dpt_ms = [a.elapsed_time(b) for a, b in dpt_ms]
+    with capture(dpt, "estimate_depth", lambda a, kw, out: None) as dpt_runs:
+        run("gen_depth --dpt_ckpt", gen_depth.main, depth_argv
+            + ["--dpt_ckpt", dpt_path])
     depth_dir = os.path.join(s["ws"], "inpaint", "depth", s["sid"])
     names = [(m, f) for m in SEQ_MODES
              for f in sorted(os.listdir(os.path.join(depth_dir, m)))]
@@ -5214,7 +4242,7 @@ def phase_sds_depth(torch, card, s, sds_out):
             frames += 1
     pixels = frames * ORBIT_H * ORBIT_W
     checks = {
-        "DPT run on every frame": len(dpt_ms) == n,
+        "DPT run on every frame": len(dpt_runs) == n,
         f"gen_seq --sds: K1, K2, K6 {n} times": launches["gen_seq --sds"]
         == _forward_launches(n),
         "gen_seq --sds renders not constant": seq_varied,
@@ -5228,15 +4256,10 @@ def phase_sds_depth(torch, card, s, sds_out):
             differ <= BAD_FRACTION * pixels and worst <= 1),
     }
     print(f"[34 main gen_seq --sds, gen_depth] gen_seq --sds on the "
-          f"sds_train PLY ({int(params.num_live())} rows) "
-          f"{secs['gen_seq --sds']:.2f} s; "
-          f"gen_depth --dpt_ckpt (random DPT-large, DPTConfig(), "
-          f"{os.path.getsize(dpt_path) / 2**30:.2f} GiB written in "
-          f"{dpt_write_s:.2f} s) {secs['gen_depth --dpt_ckpt']:.2f} s for "
-          f"{n} frames with the load, DPT ms per frame (CUDA events, "
-          f"estimate_depth) median {statistics.median(dpt_ms or [0]):.2f}, "
-          f"peak {dpt_peak:.2f} GB; gen_depth "
-          f"(rendered disparity) {secs['gen_depth']:.2f} s | disparity vs "
+          f"sds_train PLY ({int(params.num_live())} rows); gen_depth "
+          f"--dpt_ckpt (random DPT-large, DPTConfig(), "
+          f"{os.path.getsize(dpt_path) / 2**30:.2f} GiB) on {n} frames; "
+          f"gen_depth (rendered disparity) | disparity vs "
           f"the plain K2 route: {differ} of {pixels} pixels differ, by at "
           f"most {worst} | launches {json.dumps(launches)} | "
           f"{json.dumps(checks)} | {card}", flush=True)
@@ -5252,10 +4275,9 @@ def phase_ctrl_inpaint(torch, card, s, sw):
     ``--size 512``) from random SD-1.5-size UNet2D + VAE and ControlNet2D
     checkpoints: 2 samples of 10 UniPC steps, then 1 of DPM++(2M), the
     counters zeroed before each run: K4 14 times per evaluation, no other
-    kernel; seconds per sample (CUDA events around the sampler), peak
-    memory; the PNGs written and not constant."""
+    kernel; the PNGs written and not constant."""
     from multiview_inpaint_tpu_torch import kernels as _kernels
-    from multiview_inpaint_tpu_torch.diffusion import checkpoint, samplers
+    from multiview_inpaint_tpu_torch.diffusion import checkpoint
     from multiview_inpaint_tpu_torch.diffusion.unet2d import UNet2DConfig
     from multiview_inpaint_tpu_torch.pipelines import ctrl_inpaint
 
@@ -5265,12 +4287,12 @@ def phase_ctrl_inpaint(torch, card, s, sw):
                  embs=os.path.join(sw["work"], "embs_768.npy"))
     unet = _random_prior(torch, cfg, 74)
     vae = _random_vae(torch, 75)
-    write_s = _write_ckpt(torch, paths["sd"], (
+    _write_ckpt(torch, paths["sd"], (
         (checkpoint.PREFIXES["unet"], unet), (checkpoint.PREFIXES["vae"],
                                               vae)))
     del unet, vae
     cnet = _random_prior(torch, cfg, 76, controlnet=True)
-    write_s += _write_ckpt(torch, paths["ctrl"], (
+    _write_ckpt(torch, paths["ctrl"], (
         (checkpoint.PREFIXES["controlnet"], cnet),))
     del cnet
     torch.cuda.empty_cache()
@@ -5279,41 +4301,19 @@ def phase_ctrl_inpaint(torch, card, s, sw):
     runs = {}
     for sampler, n_samples in (("unipc", 2), ("dpmpp2m", 1)):
         shutil.rmtree(out_dir, ignore_errors=True)
-        real = getattr(samplers, f"{sampler}_sample")
-        times = []
-
-        def timed(*a, real=real, times=times, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            res = real(*a, **kw)
-            end.record()
-            times.append((start, end))
-            return res
-
         _kernels.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        setattr(samplers, f"{sampler}_sample", timed)
-        t0 = time.perf_counter()
-        try:
-            ctrl_inpaint.main([
-                "--scene_id", s["sid"], "--workspace", s["ws"],
-                "--sd_ckpt", paths["sd"], "--ctrl_ckpt", paths["ctrl"],
-                "--text_embs", paths["embs"], "--context_dim",
-                str(CTRL_CONTEXT), "--size", str(SDS_SIZE), "--iteration",
-                "1", "--n_samples", str(n_samples), "--num_steps",
-                str(CTRL_STEPS), "--sampler", sampler, "--device", DEVICE])
-            torch.cuda.synchronize()
-        finally:
-            setattr(samplers, f"{sampler}_sample", real)
-        cli_s = time.perf_counter() - t0
+        ctrl_inpaint.main([
+            "--scene_id", s["sid"], "--workspace", s["ws"],
+            "--sd_ckpt", paths["sd"], "--ctrl_ckpt", paths["ctrl"],
+            "--text_embs", paths["embs"], "--context_dim",
+            str(CTRL_CONTEXT), "--size", str(SDS_SIZE), "--iteration",
+            "1", "--n_samples", str(n_samples), "--num_steps",
+            str(CTRL_STEPS), "--sampler", sampler, "--device", DEVICE])
         pngs = [os.path.join(out_dir, f"ctrl_{i}.png")
                 for i in range(n_samples)]
         arrs, varied = _png_stats(pngs)
         runs[sampler] = dict(
-            launches=dict(_kernels.LAUNCHES), cli_s=cli_s,
-            sample_s=[a.elapsed_time(b) / 1e3 for a, b in times],
-            peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+            launches=dict(_kernels.LAUNCHES),
             ok=(sorted(os.listdir(out_dir)) == [os.path.basename(p)
                                                 for p in pngs]
                 and varied and all(a.shape == (SDS_SIZE, SDS_SIZE, 3)
@@ -5334,15 +4334,10 @@ def phase_ctrl_inpaint(torch, card, s, sw):
     print(f"[35 main ctrl_inpaint] ctrl_inpaint CLI at full width "
           f"(UNet2DConfig(context_dim={CTRL_CONTEXT}) + ControlNet2D + 2D "
           f"VAE, "
-          f"random, all-zero parameters moved; checkpoints written in "
-          f"{write_s:.2f} s), --size {SDS_SIZE}, {CTRL_STEPS} steps, CFG "
-          f"batch 2 | "
-          + " | ".join(
-              f"{k}: {r['n']} samples in {r['cli_s']:.2f} s with the loads, "
-              f"s per sample (sampler, CUDA events) "
-              f"{[round(t, 3) for t in r['sample_s']]}, peak "
-              f"{r['peak_gb']:.2f} GB, launches {r['launches']}"
-              for k, r in runs.items())
+          f"random, all-zero parameters moved), --size {SDS_SIZE}, "
+          f"{CTRL_STEPS} steps, CFG batch 2 | "
+          + " | ".join(f"{k}: {r['n']} samples, launches {r['launches']}"
+                       for k, r in runs.items())
           + f" | {json.dumps(checks)} | {card}", flush=True)
     if not all(checks.values()):
         fail(f"main path 7 (ctrl_inpaint CLI) checks failed: {checks}")
@@ -5356,28 +4351,24 @@ def _rec_ply(s):
                         "point_cloud.ply")
 
 
-def phase_cmp_render(torch, card, s, rec_ply=None):
+def phase_cmp_render(torch, card, s):
     """Main path 8, its renders: the ``render`` CLI on main path 6's
     recomposed PLY and on main path 5's source PLY at the CMP_YAWS views
     of the bench COLMAP scene (1920x1080), counters zeroed before each
     run: K1 and K2 once per view, K3-K5 never; the frames moved into the
     layout ``cmp`` reads, ``vis/cmp/<exp>/{inpainted,src}/<scene>/
     ours_<iter>/renders`` (the inpainted scene is ``<scene>_<case>``,
-    whose source ``cmp`` finds as ``<scene>``). Then the median device ms
-    per view of the recomposed PLY (CUDA events, after one warm-up view)
-    and phases 3-5's checks and times of K1-K3 at its first view. Returns
-    the tree's root, the launches of both runs and K1's and K2's records
-    there."""
+    whose source ``cmp`` finds as ``<scene>``). Then phases 3-5's checks
+    of K1-K3 at the recomposed PLY's first view. Returns the tree's root
+    and the launches of both runs."""
     from PIL import Image
 
     from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.gs import gaussians
-    from multiview_inpaint_tpu_torch.ops.rasterizer import (RenderCamera,
-                                                            render)
     from multiview_inpaint_tpu_torch.pipelines import render as render_cli
     from multiview_inpaint_tpu_torch.utils import synthetic
 
-    rec_ply = rec_ply or _rec_ply(s)
+    rec_ply = _rec_ply(s)
     work = os.path.join(s["work"], "cmp")
     shutil.rmtree(work, ignore_errors=True)
     src = os.path.join(work, "scene")
@@ -5392,11 +4383,9 @@ def phase_cmp_render(torch, card, s, rec_ply=None):
         os.makedirs(os.path.dirname(dst))
         shutil.copy(ply, dst)
         _kernels.reset_launches()
-        t0 = time.perf_counter()
         render_cli.main(["-s", src, "-m", model, "--iteration",
                          str(REC_ITERS), "--resolution", "1", "--skip_test",
                          "--device", DEVICE])
-        torch.cuda.synchronize()
         out = os.path.join(root, kind, scene, f"ours_{REC_ITERS}")
         os.makedirs(os.path.dirname(out))
         shutil.move(os.path.join(model, "train", f"ours_{REC_ITERS}"), out)
@@ -5408,24 +4397,9 @@ def phase_cmp_render(torch, card, s, rec_ply=None):
             shapes_ok &= bool(arr.shape == (synthetic.BENCH_HEIGHT,
                                             synthetic.BENCH_WIDTH, 3)
                               and arr.std() > 0)
-        runs[kind] = dict(s=time.perf_counter() - t0,
-                          launches=dict(_kernels.LAUNCHES), pngs=len(pngs),
+        runs[kind] = dict(launches=dict(_kernels.LAUNCHES), pngs=len(pngs),
                           ok=shapes_ok)
     params = gaussians.load_ply(rec_ply, 0, device=DEVICE)
-    cams = [RenderCamera.from_camera(synthetic.bench_camera(y), DEVICE)
-            for y in CMP_YAWS]
-    bg = torch.zeros(3, device=DEVICE)
-    times = []
-    with torch.no_grad():
-        render(params, cams[0], bg, device=DEVICE)          # warm-up view
-        for c in cams:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            render(params, c, bg, device=DEVICE)
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
     checks = {}
     for kind, r in runs.items():
         checks[f"{kind}: K1 and K2 once per view ({len(names)}), K3-K5 "
@@ -5437,19 +4411,15 @@ def phase_cmp_render(torch, card, s, rec_ply=None):
           f"({params.capacity} rows) and main path 5's source PLY at "
           f"{len(names)} bench views ({synthetic.BENCH_WIDTH}x"
           f"{synthetic.BENCH_HEIGHT}) into {root} | "
-          + " | ".join(f"{k}: {r['s']:.2f} s, launches {r['launches']}"
+          + " | ".join(f"{k}: launches {r['launches']}"
                        for k, r in runs.items())
-          + f" | recomposed PLY: median {statistics.median(times):.3f} "
-          f"ms/view (CUDA events, after one warm-up view; all "
-          f"{[round(t, 3) for t in times]}) | {json.dumps(checks)} | "
-          f"{card}", flush=True)
+          + f" | {json.dumps(checks)} | {card}", flush=True)
     if not all(checks.values()):
         fail(f"main path 8 (render CLI) checks failed: {checks}")
-    k1, k2 = phase_kernels(torch, card, "cmp-rec", params,
-                           synthetic.bench_camera(CMP_YAWS[0]))
-    launches = {k: sum(r["launches"][k] for r in runs.values())
-                for k in runs["src"]["launches"]}
-    return dict(work=work, root=root, launches=launches, K1=k1, K2=k2)
+    phase_kernels(torch, card, "cmp-rec", params,
+                  synthetic.bench_camera(CMP_YAWS[0]))
+    return dict(work=work, root=root,
+                launches=[r["launches"] for r in runs.values()])
 
 
 def _rel(a, b):
@@ -5466,8 +4436,7 @@ def phase_cmp(torch, card, s, cmp):
     psnr_vs_src finite for the scene and in ``mean``; on one 1080p frame
     MUSIQ and WaDIQaM on CUDA within METRIC_REL_TOL relative of the same
     weights on the CPU, and LPIPS at full VGG16 on an LPIPS_SHAPE pair
-    likewise; ms per frame of MUSIQ and WaDIQaM and ms per LPIPS call
-    (``cuda_ms``), MUSIQ's token count, the CLI's peak memory."""
+    likewise; MUSIQ's token count."""
     from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.diffusion import checkpoint
     from multiview_inpaint_tpu_torch.gs import scene_io
@@ -5486,15 +4455,10 @@ def phase_cmp(torch, card, s, cmp):
     checkpoint.save_params(paths["wadiqam"], checkpoint.torch_to_flax(
         wq.state_dict()))
     _kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     cmp_cli.main(["--root", cmp["root"], "--iteration", str(REC_ITERS),
                   "--n_frame", "10", "--out", paths["out"], "--musiq_ckpt",
                   paths["musiq"], "--wadiqam_ckpt", paths["wadiqam"],
                   "--device", DEVICE])
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
     launches = dict(_kernels.LAUNCHES)
     with open(paths["out"]) as f:
         report = json.load(f)
@@ -5504,14 +4468,12 @@ def phase_cmp(torch, card, s, cmp):
         cmp["root"], "inpainted", s["sid"], f"ours_{REC_ITERS}", "renders",
         "00000.png"))
     x = torch.from_numpy(frame)[None].to(DEVICE)
-    scores, ms = {}, {}
+    scores = {}
     for name, cls in (("musiq", musiq.MUSIQScorer),
                       ("wadiqam", wadiqam.WaDIQaMScorer)):
         flat = checkpoint.load_params(paths[name])
         on = {dev: cls(flat, device=dev) for dev in ("cpu", DEVICE)}
         scores[name] = {dev: sc(frame) for dev, sc in on.items()}
-        with torch.no_grad():
-            ms[name] = cuda_ms(torch, lambda m=on[DEVICE].model: m(x), 5)
         if name == "musiq":
             tokens = on[DEVICE].model.tokens(x)
     rng = np.random.default_rng(83)
@@ -5526,7 +4488,6 @@ def phase_cmp(torch, card, s, cmp):
         lp = lp.to(DEVICE)
         ta, tb = torch.from_numpy(a).to(DEVICE), torch.from_numpy(b).to(DEVICE)
         d_gpu = lp(ta, tb).cpu().numpy()
-        lpips_ms = cuda_ms(torch, lambda: lp(ta, tb), 3)
     errs = {name: _rel(v[DEVICE], v["cpu"]) for name, v in scores.items()}
     errs["lpips"] = _rel(d_gpu, d_cpu)
     checks = {
@@ -5542,17 +4503,15 @@ def phase_cmp(torch, card, s, cmp):
             e <= METRIC_REL_TOL)
     print(f"[37 main cmp] cmp CLI (--n_frame 10) on {cmp['root']} with "
           f"random full-width MUSIQ ({tokens} tokens per 1080p frame) and "
-          f"WaDIQaM-NR npz in {cli_s:.2f} s, peak {peak_gb:.2f} GB, "
-          f"launches {launches} | report {json.dumps(report)} | 1080p "
+          f"WaDIQaM-NR npz, launches {launches} | report "
+          f"{json.dumps(report)} | 1080p "
           f"frame CUDA vs CPU: MUSIQ {scores['musiq'][DEVICE]:.6g} vs "
           f"{scores['musiq']['cpu']:.6g}, WaDIQaM "
           f"{scores['wadiqam'][DEVICE]:.6g} vs "
           f"{scores['wadiqam']['cpu']:.6g}, LPIPS {d_gpu.tolist()} vs "
           f"{d_cpu.tolist()} on {list(LPIPS_SHAPE)}; relative errors "
-          f"{json.dumps(errs)} | ms per frame (cuda_ms) MUSIQ "
-          f"{ms['musiq']:.3f}, WaDIQaM {ms['wadiqam']:.3f}; LPIPS "
-          f"{lpips_ms:.3f} ms per {list(LPIPS_SHAPE)} pair | "
-          f"{json.dumps(checks)} | {card}", flush=True)
+          f"{json.dumps(errs)} | {json.dumps(checks)} | {card}",
+          flush=True)
     if not all(checks.values()):
         fail(f"main path 8 (cmp CLI) checks failed: {checks}")
 
@@ -5651,9 +4610,8 @@ def phase_vae_finetune(torch, card, s):
     before: no kernel launches; every step's log finite; ``loss/disc``
     exactly 0 at steps below VAE_DISC_START and not 0 from it on;
     ``train_log.jsonl`` at the logged steps; both npz files written and
-    read back by the port equal to the trained parameters; median device
-    ms per step (CUDA events around each ``Finetuner.step``) and the peak
-    memory."""
+    read back by the port equal to the trained parameters (each step's
+    tuner and log captured from ``Finetuner.step``)."""
     from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.diffusion import checkpoint
     from multiview_inpaint_tpu_torch.metrics import lpips
@@ -5683,41 +4641,18 @@ def phase_vae_finetune(torch, card, s):
     np.savez(lpips_npz, params=tree)
     del lp
     out = os.path.join(work, "out")
-    steps, tuners = [], []
-    real_step = vf.Finetuner.step
-
-    def timed(self, x, step, noise=None):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        log = real_step(self, x, step, noise)
-        end.record()
-        torch.cuda.synchronize()
-        steps.append((start.elapsed_time(end), {k: float(v) for k, v in
-                                                 log.items()}))
-        if not tuners:
-            tuners.append(self)
-        return log
-
     _kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    vf.Finetuner.step = timed
-    t0 = time.perf_counter()
-    try:
+    with capture(vf.Finetuner, "step", lambda a, kw, log: (
+            a[0], {k: float(v) for k, v in log.items()})) as steps:
         vf.main(["--data_dir", data, "--out_dir", out, "--resolution",
                  str(VAE_RES), "--batch_size", str(VAE_BATCH),
                  "--perceptual_weight", "1.0", "--lpips_ckpt", lpips_npz,
                  "--disc_start", str(VAE_DISC_START), "--steps",
                  str(VAE_STEPS), "--log_interval", "5", "--device", DEVICE])
-        torch.cuda.synchronize()
-    finally:
-        vf.Finetuner.step = real_step
-    cli_s = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
     launches = dict(_kernels.LAUNCHES)
     with open(os.path.join(out, "train_log.jsonl")) as f:
         log = [json.loads(line) for line in f]
-    tuner = tuners[0]
+    tuner = steps[0][0]
     saved = {name: checkpoint.load_params(os.path.join(out, name))
              for name in ("vae_params.npz", "disc_params.npz")}
     want = dict({f"params/{k}": v
@@ -5726,7 +4661,6 @@ def phase_vae_finetune(torch, card, s):
     want_d = {f"params/{k}": v for k, v in tuner.disc_params_jax().items()}
     n_params = sum(p.numel() for p in tuner.gen_params.values())
     disc = [r["loss/disc"] for _, r in steps]
-    ms = [t for t, _ in steps]
     checks = {
         "no kernel launches": sum(launches.values()) == 0,
         f"{VAE_STEPS} steps, every log finite": len(steps) == VAE_STEPS
@@ -5748,11 +4682,9 @@ def phase_vae_finetune(torch, card, s):
           f"(VAEConfig(), {n_params} generator parameters with logvar; "
           f"PatchDiscriminator(ndf=64, n_layers=3); random full VGG16 LPIPS "
           f"npz) on {n_frames} gen_seq frames at {VAE_RES}^2, batch "
-          f"{VAE_BATCH}, {VAE_STEPS} steps, disc_start {VAE_DISC_START} in "
-          f"{cli_s:.2f} s | launches {launches} | median step "
-          f"{statistics.median(ms[1:]):.2f} ms (CUDA events, steps 1-"
-          f"{VAE_STEPS - 1}; step 0 {ms[0]:.2f} ms), peak {peak_gb:.2f} GB "
-          f"| loss/rec {[round(r['loss/rec'], 4) for r in log]}, loss/disc "
+          f"{VAE_BATCH}, {VAE_STEPS} steps, disc_start {VAE_DISC_START} | "
+          f"launches {launches} | loss/rec "
+          f"{[round(r['loss/rec'], 4) for r in log]}, loss/disc "
           f"{[round(d, 4) for d in disc]}, d_weight "
           f"{[round(r['scalars/d_weight'], 3) for r in log]} | "
           f"{json.dumps(checks)} | {card}", flush=True)
@@ -5760,28 +4692,17 @@ def phase_vae_finetune(torch, card, s):
         fail(f"main path 9 (vae_finetune CLI) checks failed: {checks}")
 
 
-def _event_ms(torch, fn):
-    """Device ms of one call of ``fn`` (CUDA events, synchronised)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end)
-
-
 def phase_band_frame(torch, card, params):
     """Main path 11 (a): main path 1's big2m 1080p bench frame as BANDS
     interleaved tile-row bands (``render(band_rows=, band_row0=,
     band_stride=)``) rendered one after another: stitched bit for bit
-    equal to the full frame, the pairs summed equal, each band's and the
-    full frame's ms in turns; then K2 in band mode against its plain
-    version on the heaviest band (and bit-equal to the full frame's K2 on
-    the same tiles). Returns K2's band record for the kernels line."""
+    equal to the full frame, the pairs summed equal; then the heaviest
+    band's K2 call against its plain version, and its tiles bit-equal to
+    the full frame's K2 call's on the same tiles. Returns the bands' K2
+    launches."""
     from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.ops.rasterizer import (
-        RenderCamera, api, binning, composite, composite_cuda, render)
+        RenderCamera, api, composite, render)
     from multiview_inpaint_tpu_torch.parallel.render_parallel import (
         band_layout, stitch_bands)
     from multiview_inpaint_tpu_torch.utils import synthetic
@@ -5790,101 +4711,54 @@ def phase_band_frame(torch, card, params):
     bg = torch.zeros(3, device=DEVICE)
     tiles_x, tiles_y = -(-cam.width // TILE), -(-cam.height // TILE)
     rows, stride, row0s = band_layout(tiles_y, BANDS, True)
-    kws = [dict(band_rows=rows, band_row0=r, band_stride=stride)
-           for r in row0s]
-    with torch.no_grad():
+    # K2's calls: the full frame's, then each band's.
+    with capture(api, "composite_tiles") as k2_calls, torch.no_grad():
         full = render(params, cam, bg, device=DEVICE)
         _kernels.reset_launches()
-        bands = [render(params, cam, bg, device=DEVICE, **kw) for kw in kws]
-        torch.cuda.synchronize()
+        bands = [render(params, cam, bg, device=DEVICE, band_rows=rows,
+                        band_row0=r, band_stride=stride) for r in row0s]
         launches = dict(_kernels.LAUNCHES)
         equal = {f: torch.equal(stitch_bands(torch.stack(
             [getattr(b, f) for b in bands]), True, TILE, cam.height),
             getattr(full, f)) for f in ("rgb", "depth", "alpha")}
-        pairs = [b.pairs for b in bands]
-        times = {"full": []} | {d: [] for d in range(BANDS)}
-        for _ in range(BAND_REPEATS):      # in turns: full, bands
-            times["full"].append(_event_ms(torch, lambda: render(
-                params, cam, bg, device=DEVICE)))
-            for d, kw in enumerate(kws):
-                times[d].append(_event_ms(torch, lambda kw=kw: render(
-                    params, cam, bg, device=DEVICE, **kw)))
+    pairs = [b.pairs for b in bands]
     del bands
-    band_ms = [statistics.median(times[d]) for d in range(BANDS)]
-    full_ms = statistics.median(times["full"])
-    want = _forward_launches(BANDS)
     print(f"[41 band frame] big2m ({BIG_N} gaussians) 1920x1080 as "
           f"{BANDS} interleaved bands of {rows} tile rows (stride {stride}):"
           f" stitched equal to the full frame bit for bit {equal} | pairs "
           f"per band {pairs}, sum {sum(pairs)}, full frame {full.pairs} | "
-          f"ms per band {[round(t, 3) for t in band_ms]} (median of "
-          f"{BAND_REPEATS}, CUDA events), worst band {max(band_ms):.3f} ms "
-          f"= the per-GPU frame time of a {BANDS}-way band-sharded frame "
-          f"without its all-gather; full frame {full_ms:.3f} ms in the same "
-          f"turns | launches {launches} | {card}", flush=True)
+          f"launches {launches} | {card}", flush=True)
     if not all(equal.values()) or sum(pairs) != full.pairs \
-            or launches != want:
+            or launches != _forward_launches(BANDS):
         fail("main path 11: the bands do not stitch to the full frame, "
              "their pairs do not sum to its, or the launches are off")
 
     d = max(range(BANDS), key=lambda i: pairs[i])
-    band = dict(row0=row0s[d], stride=stride)
+    k2_args, band, out_k = (k2_calls[1 + d].args, k2_calls[1 + d].kw,
+                            k2_calls[1 + d].out)
+    out_w = k2_calls[0].out
+    del k2_calls
     with torch.no_grad():
-        proj = api.project(params, cam, 0)
-        packed = composite_cuda.pack_attrs(proj.means2d, proj.conic,
-                                           proj.opacity, proj.color,
-                                           proj.depth)
-        bins = binning.bin_gaussians(
-            proj.means2d, proj.radius, proj.depth, tiles_x, rows, TILE,
-            TILE, extent=proj.extent, tile_row0=row0s[d],
-            tiles_y_total=tiles_y, tile_row_stride=stride)
-        whole = binning.bin_gaussians(
-            proj.means2d, proj.radius, proj.depth, tiles_x, tiles_y, TILE,
-            TILE, extent=proj.extent)
-        attrs = packed[bins.order[bins.gid_sorted]].contiguous()
-        k2_args = (attrs, bins.seg_start, bins.counts, tiles_x, rows, TILE,
-                   TILE)
-        out_k = composite_cuda.composite_fwd(*k2_args, **band)
         out_p = composite.composite_segments(*k2_args, **band)
-        out_w = composite_cuda.composite_fwd(
-            packed[whole.order[whole.gid_sorted]].contiguous(),
-            whole.seg_start, whole.counts, tiles_x, tiles_y, TILE, TILE)
         glob = torch.arange(rows, device=DEVICE) * stride + row0s[d]
         glob = glob[glob < tiles_y]
         tiles = (glob[:, None] * tiles_x
                  + torch.arange(tiles_x, device=DEVICE)).reshape(-1)
         same_tiles = torch.equal(out_k[:tiles.numel()], out_w[tiles])
     size = (tiles_x, rows, TILE, TILE, cam.width, rows * TILE)
-    e_rgb, e_d, e_t, bad, within = k2_verdict(torch, out_k, out_p, attrs,
-                                              size)
-    k2_ms = cuda_ms(torch, lambda: composite_cuda.composite_fwd(
-        *k2_args, **band), 10)
-    with torch.no_grad():
-        k2_plain_ms = cuda_ms(torch, lambda: composite.composite_segments(
-            *k2_args, **band), 1)
-    walk, k2_bound = k2_bound_of(torch, *k2_args, row0s[d], stride)
-    record = dict(
-        launches=launches["composite"], band=f"{d} of {BANDS} (row0 {d}, "
-        f"stride {stride}, {rows} tile rows) at big2m 1080p",
-        max_abs_err=float(max(e_rgb.max(), e_d.max(), e_t.max())),
-        ms=k2_ms, plain_ms=k2_plain_ms, **k2_bound, library_ms=None,
-        band_frame_ms=band_ms, worst_band_frame_ms=max(band_ms),
-        full_frame_ms=full_ms)
-    print(f"[41 K2 band] band {d} (heaviest: {bins.total_pairs} pairs in "
+    e_rgb, e_d, e_t, bad, within = k2_verdict(torch, out_k, out_p,
+                                              k2_args[0], size)
+    print(f"[41 K2 band] band {d} (heaviest: {pairs[d]} pairs in "
           f"{tiles_x * rows} tiles) vs the plain K2 with the same origin: "
           f"max abs err rgb {float(e_rgb.max()):.3g} depth "
           f"{float(e_d.max()):.3g} T {float(e_t.max()):.3g} | {bad}/"
           f"{e_d.numel()} px beyond rgb {RGB_TOL} / depth {DEPTH_TOL} | "
           f"within the stop-flip bound: {within} | tiles bit-equal to the "
-          f"full frame's K2: {same_tiles} | walked, kept, contributing "
-          f"share {walk_shares(walk, bins.total_pairs * TILE * TILE)} | "
-          f"kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.2f} ms, bound "
-          f"{record['bound_ms']:.4f} ms ({record['bound_by']}) | {card}",
-          flush=True)
+          f"full frame's K2: {same_tiles} | {card}", flush=True)
     if bad > BAD_FRACTION * e_d.numel() or not within or not same_tiles:
         fail("K2 in band mode disagrees with its plain version or with "
              "the full frame")
-    return record
+    return launches["composite"]
 
 
 def _step_cell(torch):
@@ -5911,13 +4785,12 @@ def phase_band_step(torch, card, cell):
     through K3 in band mode) summed over the bands against
     ``train_step``'s gradients (its first Adam moments / 0.1 and its
     densification statistics) at the gradient bar, the loss equal; K3 in
-    band mode against its plain version on the heaviest band; each
-    band's ms against the full step's. Returns K3's band record."""
+    band mode against its plain version on the heaviest band. Returns the
+    bands' K3 launches."""
     from multiview_inpaint_tpu_torch import kernels as _kernels
     from multiview_inpaint_tpu_torch.gs.gaussians import PARAM_FIELDS
     from multiview_inpaint_tpu_torch.models import gs_trainer
-    from multiview_inpaint_tpu_torch.ops.rasterizer import (
-        binning, composite_cuda, render)
+    from multiview_inpaint_tpu_torch.ops.rasterizer import render
     from multiview_inpaint_tpu_torch.parallel.gs_band_train import band_grads
     from multiview_inpaint_tpu_torch.parallel.render_parallel import (
         band_layout)
@@ -5935,29 +4808,13 @@ def phase_band_step(torch, card, cell):
     def gather(_):
         return detached
 
-    seen = {}
-    bin_gaussians, bwd = binning.bin_gaussians, composite_cuda.composite_bwd
-
-    def bins(*a, **kw):
-        b = bin_gaussians(*a, **kw)
-        seen["gid"] = b.order[b.gid_sorted]
-        return b
-
-    def k3(*a):
-        seen["k3"] = a
-        return bwd(*a)
-
     _kernels.reset_launches()
-    per, k3_seen = [], {}
-    binning.bin_gaussians, composite_cuda.composite_bwd = bins, k3
-    try:
-        for d in range(BANDS):
-            per.append(band_grads(params, cam, gt, bg, cfg, BANDS, d,
-                                  gather))
-            k3_seen[d] = (seen["k3"], seen["gid"], per[-1].pairs)
-    finally:
-        binning.bin_gaussians, composite_cuda.composite_bwd = bin_gaussians, bwd
-    torch.cuda.synchronize()
+    per, k3_seen = [], []
+    for d in range(BANDS):
+        out, _, k3_args, gid = kernel_inputs(lambda: band_grads(
+            params, cam, gt, bg, cfg, BANDS, d, gather))
+        per.append(out)
+        k3_seen.append((k3_args, gid))
     launches = dict(_kernels.LAUNCHES)
     live = params.live
     worst, ok = {}, True
@@ -5984,16 +4841,6 @@ def phase_band_step(torch, card, cell):
     want_l = {"pair_expand": BANDS, "composite": BANDS,
               "composite_bwd": BANDS, "flash_attn_fwd": 0,
               "flash_attn_bwd": 0, "project": BANDS, "project_bwd": BANDS}
-
-    times = {"full": []} | {d: [] for d in range(BANDS)}
-    for _ in range(3):                      # in turns: full step, bands
-        times["full"].append(_event_ms(torch, lambda: gs_trainer.train_step(
-            state0, cam, gt, bg, cfg, 1.0)))
-        for d in range(BANDS):
-            times[d].append(_event_ms(torch, lambda d=d: band_grads(
-                params, cam, gt, bg, cfg, BANDS, d, gather)))
-    band_ms = [statistics.median(times[d]) for d in range(BANDS)]
-    full_ms = statistics.median(times["full"])
     print(f"[42 band step] ball2m-train ({STEP_N} gaussians in "
           f"{STEP_CAPACITY} rows, {STEP_W}x{STEP_H}) as {BANDS} interleaved "
           f"bands of {rows} tile rows: the bands' gradients summed vs "
@@ -6001,23 +4848,15 @@ def phase_band_step(torch, card, cell):
           f"{json.dumps(worst)} | grad_accum err {e_acc:.3g} | loss per "
           f"band {losses} equal to train_step's {float(m.loss)}: "
           f"{loss_equal} | pairs per band {pairs}, sum {sum(pairs)}, "
-          f"train_step {m.pairs} | launches {launches} | ms per band "
-          f"(band_grads: band render forward and backward, full-frame "
-          f"loss; median of 3) {[round(t, 3) for t in band_ms]}, worst "
-          f"{max(band_ms):.3f}; full train_step {full_ms:.3f} ms in the "
-          f"same turns | {card}", flush=True)
+          f"train_step {m.pairs} | launches {launches} | {card}",
+          flush=True)
     if not (ok and loss_equal and sum(pairs) == m.pairs
             and launches == want_l):
         fail("main path 11: the band step's gradients, loss, pairs or "
              "launches disagree with train_step")
     d = max(range(BANDS), key=lambda i: pairs[i])
-    args, gid, _ = k3_seen[d]
-    k3 = check_k3(torch, card, f"42 K3 band {d}", args[:10], gid,
-                  params.capacity, band=tuple(args[10:]))
-    return dict(launches=launches["composite_bwd"],
-                band=f"{d} of {BANDS} (row0 {d}, stride {stride}, {rows} "
-                f"tile rows) at ball2m-train", **k3, band_step_ms=band_ms,
-                worst_band_step_ms=max(band_ms), full_step_ms=full_ms)
+    check_k3(torch, card, f"42 K3 band {d}", *k3_seen[d], params.capacity)
+    return launches["composite_bwd"]
 
 
 def _free_port():
@@ -6099,9 +4938,7 @@ def phase_distributed(torch, card, big, cell):
     ref_dp, ref_dp_loss = dp()
     ref_step, ref_m = gs_trainer.train_step(gs_trainer.init_state(params),
                                             cam, gt, bg, cfg, 1.0)
-    t0 = time.perf_counter()
     mesh.init(0, 1, f"tcp://127.0.0.1:{_free_port()}", DEVICE)
-    init_s = time.perf_counter() - t0
     try:
         backend = dist.get_backend()
         with torch.no_grad():
@@ -6133,8 +4970,8 @@ def phase_distributed(torch, card, big, cell):
         "ZeRO rows": all(v.shape[0] == params.capacity
                          for v in zero.mu.values()),
     }
-    print(f"[43 distributed] {backend} at world size 1 (tcp://127.0.0.1, "
-          f"init {init_s:.2f} s) against the single-process functions: "
+    print(f"[43 distributed] {backend} at world size 1 (tcp://127.0.0.1) "
+          f"against the single-process functions: "
           f"{json.dumps(checks)} | worst err / bar of the steps' gradients "
           f"{json.dumps({k: w for k, (_, w) in closeness.items()})} | "
           f"{DIST_VIEWS} views of big2m at 1920x1080, pairs "
@@ -6147,12 +4984,12 @@ def phase_distributed(torch, card, big, cell):
 
 
 def phase_host_parts(torch, card, s):
-    """Main path 11 (d): ``native_io`` built from ``native/dataio.cpp``
-    (its seconds), decoding main path 5's gen_seq PNGs equal to PIL (ms
-    per frame of each) and through its ``PrefetchLoader``; then a
-    LIVE_STEPS-step train_gs CLI run with ``--live_view`` on main path
-    2's scene: the server's page, the published PNG of the current
-    render, a posted pose and the renders of that pose."""
+    """Main path 11 (d): ``native_io`` built from ``native/dataio.cpp``,
+    decoding main path 5's gen_seq PNGs equal to PIL and through its
+    ``PrefetchLoader``; then a LIVE_STEPS-step train_gs CLI run with
+    ``--live_view`` on main path 2's scene: the server's page, the
+    published PNG of the current render, a posted pose and the renders of
+    that pose (the server asked over HTTP at each publish)."""
     import subprocess as sp
 
     from PIL import Image
@@ -6163,7 +5000,6 @@ def phase_host_parts(torch, card, s):
 
     build = os.path.join(REPO, "build", "native_smoke")
     shutil.rmtree(build, ignore_errors=True)
-    t0 = time.perf_counter()
     try:
         native_io.build(build)
         built, note = True, "built"
@@ -6171,7 +5007,6 @@ def phase_host_parts(torch, card, s):
         if "zlib.h" not in (e.stderr or ""):
             fail(f"native_io did not build: {e.stderr}")
         built, note = False, "not built: this machine has no zlib.h"
-    build_s = time.perf_counter() - t0
     pngs = sorted(os.path.join(_seq_dir(s, m), "renders", n)
                   for m in SEQ_MODES
                   for n in os.listdir(os.path.join(_seq_dir(s, m),
@@ -6179,30 +5014,19 @@ def phase_host_parts(torch, card, s):
     if len(pngs) != len(SEQ_MODES) * SEQ_FRAMES:
         fail(f"{len(pngs)} gen_seq PNGs, expected "
              f"{len(SEQ_MODES) * SEQ_FRAMES}")
-    t_nat, t_pil, equal = [], [], True
+    equal = True
     for p in pngs:
-        t0 = time.perf_counter()
-        got = native_io.decode_png(p, build)
-        t_nat.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
         with Image.open(p) as im:
             want = np.asarray(im.convert("RGB"))
-        t_pil.append(time.perf_counter() - t0)
-        equal = equal and np.array_equal(got, want)
+        equal = equal and np.array_equal(native_io.decode_png(p, build), want)
     with native_io.PrefetchLoader(build_dir=build) as loader:
         jobs = [loader.submit(p) for p in pngs]
-        t0 = time.perf_counter()
         loaded = [loader.take(j) for j in jobs]
-        take_s = time.perf_counter() - t0
     equal_loader = all(np.array_equal(a, native_io.decode_png(p, build))
                        for a, p in zip(loaded, pngs))
-    shape = loaded[0].shape
-    print(f"[44 native_io] {note} from native/dataio.cpp in {build_s:.2f} s "
-          f"| {len(pngs)} gen_seq PNGs {shape}: decode_png equal to PIL "
-          f"{equal}, {1e3 * statistics.mean(t_nat):.2f} ms/frame native vs "
-          f"{1e3 * statistics.mean(t_pil):.2f} ms/frame PIL (host clock, "
-          f"one thread each) | PrefetchLoader (4 threads) equal {equal_loader}"
-          f", {1e3 * take_s / len(pngs):.2f} ms/frame to take | the default "
+    print(f"[44 native_io] {note} from native/dataio.cpp | {len(pngs)} "
+          f"gen_seq PNGs {loaded[0].shape}: decode_png equal to PIL {equal} "
+          f"| PrefetchLoader (4 threads) equal {equal_loader} | the default "
           f"build/native library loads: {native_io.native_available()} | "
           f"{card}", flush=True)
     if not (equal and equal_loader) or (built and not
@@ -6217,49 +5041,31 @@ def phase_host_parts(torch, card, s):
             TRAIN_POINTS)
     model = os.path.join(REPO, "build", "smoke_live")
     shutil.rmtree(model, ignore_errors=True)
-    seen = {"frames": [], "answers": {}, "server": None}
+    answers = {}
 
-    class SmokeLive(live_view.LiveViewServer):
-        """The CLI's server, which talks to itself over HTTP at its first
-        publish and stays up after the run for one more read."""
+    def published(args, kw, out):
+        """The frame's requested pose and rgb; at the first publish the
+        page, the frame, a posted pose and the pose read back, and at each
+        the frame served after it."""
+        server, rgb = args
+        pose = server.requested_pose()
+        base = f"http://127.0.0.1:{server.port}"
+        if not answers:
+            answers.update(
+                page=_http(base + "/"), frame=_http(base + "/frame.png"),
+                post=_http(base + "/pose", json.dumps(LIVE_POSE).encode()),
+                pose=_http(base + "/pose"))
+        answers["last"] = _http(base + "/frame.png")
+        return pose, rgb
 
-        def __init__(self, port):
-            super().__init__(port)
-            seen["server"] = self
-
-        def publish(self, rgb):
-            super().publish(rgb)
-            seen["frames"].append((self.requested_pose(), rgb))
-            if len(seen["frames"]) == 1:
-                base = f"http://127.0.0.1:{self.port}"
-                a = seen["answers"]
-                a["page"] = _http(base + "/")
-                a["frame"] = _http(base + "/frame.png")
-                a["post"] = _http(base + "/pose",
-                                  json.dumps(LIVE_POSE).encode())
-                a["pose"] = _http(base + "/pose")
-
-        def close(self):
-            pass
-
-    real = train_gs.LiveViewServer
-    train_gs.LiveViewServer = SmokeLive
     port = _free_port()
-    t0 = time.perf_counter()
-    try:
+    with capture(live_view.LiveViewServer, "publish", published) as frames:
         train_gs.main(["-s", src, "-m", model, "--resolution", "1",
                        "--iterations", str(LIVE_STEPS), "--live_view",
                        str(port), "--live_interval", str(LIVE_INTERVAL),
                        "--test_iterations", str(LIVE_STEPS),
                        "--save_iterations", str(LIVE_STEPS),
                        "--log_interval", "10", "--device", DEVICE])
-        cli_s = time.perf_counter() - t0
-        server = seen["server"]
-        last = _http(f"http://127.0.0.1:{server.port}/frame.png")
-    finally:
-        train_gs.LiveViewServer = real
-        if seen["server"] is not None:
-            live_view.LiveViewServer.close(seen["server"])
 
     def png(body):
         with Image.open(io.BytesIO(body)) as im:
@@ -6268,8 +5074,8 @@ def phase_host_parts(torch, card, s):
     def u8(rgb):
         return (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
 
-    frames, a = seen["frames"], seen["answers"]
     first, posed = frames[0][1], frames[-1][1]
+    a = answers
     checks = {
         "publishes": len(frames) == LIVE_STEPS // LIVE_INTERVAL,
         "page": a["page"][0] == 200 and b"live view" in a["page"][2],
@@ -6279,14 +5085,14 @@ def phase_host_parts(torch, card, s):
         and json.loads(a["pose"][2]) == LIVE_POSE,
         "later frames render the pose": all(p == LIVE_POSE
                                             for p, _ in frames[1:]),
-        "last frame served": np.array_equal(png(last[2]), u8(posed)),
+        "last frame served": np.array_equal(png(a["last"][2]), u8(posed)),
         "posed frame differs": posed.shape == first.shape
         and not np.array_equal(u8(posed), u8(first))
         and float(posed.std()) > 0,
     }
     print(f"[44 live view] train_gs --live_view {port} --live_interval "
-          f"{LIVE_INTERVAL}, {LIVE_STEPS} steps on main path 2's scene in "
-          f"{cli_s:.1f} s: {len(frames)} frames {first.shape} published; "
+          f"{LIVE_INTERVAL}, {LIVE_STEPS} steps on main path 2's scene: "
+          f"{len(frames)} frames {first.shape} published; "
           f"{json.dumps(checks)} | {card}", flush=True)
     if not all(checks.values()):
         fail(f"live view checks failed: {checks}")
@@ -6296,7 +5102,7 @@ def main():
     import torch
 
     if not torch.cuda.is_available():
-        fail("torch sees no CUDA device; this script measures the GPU port "
+        fail("torch sees no CUDA device; this script checks the GPU port "
              "and has no CPU fallback")
     sys.path.insert(0, REPO)
     from multiview_inpaint_tpu_torch.utils import synthetic
@@ -6304,12 +5110,11 @@ def main():
     t_start = time.perf_counter()
     card = phase_card(torch)
     phase_build()
-    frames = {}
-    for name, make in (("ball100k", synthetic.make_bench_ball),
-                       ("big2m", synthetic.make_big_scene)):
-        n = BALL_N if name == "ball100k" else BIG_N
-        frames[name] = phase_kernels(torch, card, name,
-                                     make(n, device=DEVICE))
+    phase_kernels(torch, card, "ball100k",
+                  synthetic.make_bench_ball(BALL_N, device=DEVICE))
+    # big2m: the render main path's scene and shapes
+    k1, k2 = phase_kernels(torch, card, "big2m",
+                           synthetic.make_big_scene(BIG_N, device=DEVICE))
     k6 = phase_project(torch, card)
     k7 = phase_project_bwd(torch, card)
     phase_path(torch)
@@ -6317,13 +5122,13 @@ def main():
     phase_step(torch)
     launches = phase_main(torch, card)
     launches_train, k3 = phase_train(torch, card)
-    phase_step_time(torch, card)
-    k4 = phase_k4(torch, card)[0]
+    phase_step_full(torch, card)
+    k4 = phase_k4(torch, card, K4_SHAPES, "12", headline=True)[0]
     phase_svd_engine(torch)
-    launches_svd, probe = phase_svd_main(torch, card)
-    phase_svd_eval(torch, card, probe)
-    mp12 = {"frame_sharded": phase_frame_sharded(torch, card, probe)}
-    del probe   # main path 3's engine
+    launches_svd, eng, conds = phase_svd_main(torch, card)
+    phase_svd_eval(torch, card, eng, conds)
+    mp12 = {"frame_sharded": phase_frame_sharded(torch, card, eng, conds)}
+    del eng, conds   # main path 3's engine
     torch.cuda.empty_cache()
     mp12["cli"] = phase_shard_frames_cli(torch, card)
     torch.cuda.empty_cache()
@@ -6331,7 +5136,7 @@ def main():
     mp10 = {mode: phase_svd_sampling(torch, card, mode)
             for mode in ("blended", "inversion")}
     torch.cuda.empty_cache()
-    k4_10 = phase_k4(torch, card, K4_10_SHAPES, "15d")
+    phase_k4(torch, card, K4_10_SHAPES, "15d")
     phase_divide_test(card, mp10)
     demo = phase_demo_app(torch, card)
     torch.cuda.empty_cache()
@@ -6350,12 +5155,12 @@ def main():
     visible, fov = phase_stage2_frames(torch, card, stage1)
     phase_seg_auto(torch, card, stage1, visible, fov)
     phase_seg_ground(torch, card, stage1)
-    threshold, rec = phase_stage2_step(torch, card, stage1)
+    threshold = phase_stage2_step(torch, card, stage1)
     launches_rec = phase_inpaint_rec(torch, card, stage1, threshold)
     sw = phase_slice7_setup(torch, card, stage1)
-    k4_2d = phase_k4(torch, card, K4_2D_SHAPES, "30")
+    phase_k4(torch, card, K4_2D_SHAPES, "30")
     phase_unet2d_eval(torch, card, sw)
-    threshold7, sds = phase_sds_step(torch, card, stage1, sw)
+    threshold7 = phase_sds_step(torch, card, stage1, sw)
     del sw["guidance"]
     torch.cuda.empty_cache()
     launches_sds, sds_out = phase_sds_train(torch, card, stage1, sw,
@@ -6380,24 +5185,9 @@ def main():
     torch.cuda.empty_cache()
     phase_host_parts(torch, card, stage1)
 
-    def path6(name, key):
-        """Main path 6's launches and its orbit-rec times of one kernel."""
-        return dict(launches=launches_rec[name],
-                    orbit_rec={kind: r[key] for kind, r in rec.items()})
-
-    def path7(name, key=None):
-        """Main path 7's launches (every CLI's) and its times of one
-        kernel: K1-K3 at the SDS step's 1080p view, K4 at the UNet2D's
-        ds1 and ds2 shapes."""
-        out = dict(launches=sum(n[name] for n in launches7))
-        if key is None:
-            return dict(out, unet2d_ds1=k4_2d[0], unet2d_ds2=k4_2d[1])
-        return dict(out, orbit_sds=sds[key])
-
-    def path8(name, key):
-        """Main path 8's launches (both render CLI runs) and its time of
-        one kernel at the recomposed PLY's first 1080p view."""
-        return dict(launches=cmp["launches"][name], cmp_view=cmp[key])
+    def launched(name, *runs):
+        """A main path's launches of one kernel over its runs."""
+        return dict(launches=sum(r[name] for r in runs))
 
     def path12(name):
         """Main path 12's launches of one kernel: the frame-sharded clip,
@@ -6405,32 +5195,33 @@ def main():
         return dict(launches={part: mp12[part][name] for part in
                               ("frame_sharded", "cli", "ddp")})
 
-    k1, k2 = frames["big2m"]   # the render main path's scene and shapes
     kernels = [
         dict(name="pair_expand", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/pair_expand.cu",
              replaces="multiview_inpaint_tpu/ops/rasterizer/"
                       "pair_expand.py:92",
              launches=launches["pair_expand"], **k1,
-             main_path_6=path6("pair_expand", "K1"),
-             main_path_7=path7("pair_expand", "K1"),
-             main_path_8=path8("pair_expand", "K1")),
+             main_path_6=launched("pair_expand", launches_rec),
+             main_path_7=launched("pair_expand", *launches7),
+             main_path_8=launched("pair_expand", *cmp["launches"])),
         dict(name="composite", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/composite.cu",
              replaces="multiview_inpaint_tpu/ops/rasterizer/"
                       "pallas_composite.py:75",
              launches=launches["composite"], **k2,
-             main_path_6=path6("composite", "K2"),
-             main_path_7=path7("composite", "K2"),
-             main_path_8=path8("composite", "K2"), band=band_k2),
+             main_path_6=launched("composite", launches_rec),
+             main_path_7=launched("composite", *launches7),
+             main_path_8=launched("composite", *cmp["launches"]),
+             band=dict(launches=band_k2)),
         # K3 at the first step of main path 2, the path that runs it.
         dict(name="composite_bwd", route="cuda",
              source="multiview_inpaint_tpu_torch/csrc/composite_bwd.cu",
              replaces="multiview_inpaint_tpu/ops/rasterizer/"
                       "pallas_backward.py:54",
              launches=launches_train["composite_bwd"], **k3,
-             main_path_6=path6("composite_bwd", "K3"),
-             main_path_7=path7("composite_bwd", "K3"), band=band_k3),
+             main_path_6=launched("composite_bwd", launches_rec),
+             main_path_7=launched("composite_bwd", *launches7),
+             band=dict(launches=band_k3)),
         # K6 at big2m in the bench view, SH 0 (main path 1's degree,
         # whose launches these are) with SH 3 under "sh3".
         dict(name="project", route="cuda",
@@ -6447,14 +5238,10 @@ def main():
              replaces="multiview_inpaint_tpu/diffusion/"
                       "flash_attention.py:55",
              launches=launches_svd["flash_attn_fwd"], **k4,
-             main_path_7=path7("flash_attn_fwd"),
-             main_path_10=dict(
-                 launches=dict(blended=mp10["blended"]["launches"],
-                               inversion=mp10["inversion"]["launches"],
-                               demo=[r["launches"]
-                                     for r in demo["requests"]]),
-                 svd_ds1_batch14=k4_10[0], svd_ds2_batch14=k4_10[1],
-                 unet_ds1_f32=k4_10[2]),
+             main_path_7=launched("flash_attn_fwd", *launches7),
+             main_path_10=dict(launches=dict(
+                 blended=mp10["blended"]["launches"],
+                 inversion=mp10["inversion"]["launches"], demo=demo)),
              main_path_12=path12("flash_attn_fwd")),
         # K5 at the ds1 shape of main path 4, the path that runs it; one
         # launch is the dk/dv kernel and the dq kernel back to back.
